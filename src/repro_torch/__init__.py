@@ -1,0 +1,7 @@
+"""PLOP on PyTorch: the hybrid query engine of ``repro`` ported to
+PyTorch, with its device kernels written by hand in CUDA for Hopper.
+
+The package mirrors ``repro``'s layout module for module and imports
+nothing of it. Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``.
+"""
