@@ -302,6 +302,24 @@ class ColumnarRows:
     def __iter__(self):
         return (self[i] for i in range(self._n))
 
+    def extend(self, records: Sequence[dict]) -> None:
+        """Append record dicts (a stream's micro-batch) as ``list.extend``
+        does for ``add_table``'s payload: numeric columns keep their
+        dtype (``None`` becomes NaN in a float column), other columns
+        grow as lists. The caller's arrays are not modified."""
+        if not records:
+            return
+        for k, col in self.columns.items():
+            vals = [r[k] for r in records]
+            if isinstance(col, np.ndarray):
+                if col.dtype.kind == "f":
+                    vals = [np.nan if v is None else v for v in vals]
+                self.columns[k] = np.concatenate(
+                    [col, np.asarray(vals, dtype=col.dtype)])
+            else:
+                self.columns[k] = list(col) + vals
+        self._n += len(records)
+
     def catalog_stats(self) -> tuple[list[str], dict[str, int]]:
         """Column names and the distinct counts of integer columns, as
         ``Database.catalog`` computes them from records."""

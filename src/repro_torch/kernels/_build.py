@@ -28,7 +28,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("compact.cu", "hash_rows.cu", "group_build.cu", "expand.cu")
+SOURCES = ("compact.cu", "hash_rows.cu", "group_build.cu", "expand.cu",
+           "segment_reduce.cu", "radix_rank.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,12 +41,15 @@ SIGNATURES = {
     "repro_group_boundaries": (_P, _P, _P, _P, _I, _P),
     "repro_hash_rows": (_P, _P, _LL, _I, _P),
     "repro_scan_tiles": (_I,),
+    "repro_segment_reduce": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "repro_radix_rank": (_P, _P, _P, _P, _I, _I, _P),
+    "repro_radix_rank_tiles": (_I,),
 }
 
 # kernel name -> launches since the last reset_launches(), and the
 # largest input shape launched in that time
 LAUNCHES = {"prefix_count": 0, "hash_rows": 0, "group_boundaries": 0,
-            "running_segment_ids": 0}
+            "running_segment_ids": 0, "segment_reduce": 0, "radix_rank": 0}
 MAX_SHAPES: dict[str, tuple] = {}
 
 _LIB: ctypes.CDLL | None = None
@@ -60,7 +64,8 @@ def reset_launches() -> None:
 
 
 def count_launch(name: str, shape) -> None:
-    """Record one launch of kernel ``name`` on an input of ``shape``."""
+    """Record one launch of kernel ``name`` on an input of ``shape``
+    (its leading entry is the row count the largest shape is kept by)."""
     LAUNCHES[name] += 1
     shape = tuple(shape)
     old = MAX_SHAPES.get(name)

@@ -1,0 +1,66 @@
+"""K6, one stable counting-rank pass of the hash join's LSD radix sort,
+as a CUDA kernel (``csrc/radix_rank.cu``).
+
+Replaces ``src/repro/kernels/hash_join/hash_join.py::radix_rank_kernel``,
+which carries (256,) per-bucket running counts across its sequential
+grid in VMEM and ranks inside a tile with a (rows x 256) one-hot
+cumsum. On Hopper: per-tile bucket histograms, a per-bucket scan of the
+(bucket, tile) count matrix in tile order, then a stable in-tile rank
+from ``__match_any_sync`` peer masks and per-warp digit counts.
+Memory-bound: 8N bytes per pass plus the count matrix.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+
+NBUCKETS = 256  # one 8-bit digit per pass
+MAX_BUCKETS = 1024  # the rank phase keeps 9 ints per bucket in shared memory
+
+
+def radix_rank_torch(digits: torch.Tensor, base: torch.Tensor
+                     ) -> torch.Tensor:
+    """Plain version of the K6 kernel: row i's destination
+    ``base[digits[i]] + #{j < i : digits[j] == digits[i]}``, from a
+    stable argsort by digit."""
+    n = digits.shape[0]
+    order = torch.argsort(digits, stable=True)
+    sd = digits[order].long()
+    hist = torch.zeros(base.shape[0], dtype=torch.int64,
+                       device=digits.device)
+    hist.index_add_(0, sd, torch.ones_like(sd))
+    first = torch.cumsum(hist, 0) - hist
+    rank = torch.arange(n, device=digits.device) - first[sd]
+    dest = torch.empty_like(digits)
+    dest[order] = (base.long()[sd] + rank).to(torch.int32)
+    return dest
+
+
+def radix_rank_kernel(digits: torch.Tensor, base: torch.Tensor
+                      ) -> torch.Tensor:
+    """digits: (N,) int32 in [0, B); base: (B,) int32 exclusive bucket
+    offsets -> (N,) int32 stable scatter destinations: row i lands at
+    ``base[digits[i]] + #{j < i : digits[j] == digits[i]}``. B is
+    ``NBUCKETS`` for the hash join; any B up to ``MAX_BUCKETS`` works.
+    Launches the CUDA kernel for CUDA tensors; CPU tensors take the
+    plain version."""
+    if digits.device.type != "cuda":
+        return radix_rank_torch(digits, base)
+    _build.check_cuda(digits, "digits", torch.int32, 1)
+    _build.check_cuda(base, "base", torch.int32, 1)
+    buckets = base.shape[0]
+    if not 1 <= buckets <= MAX_BUCKETS:
+        raise ValueError(f"base: 1..{MAX_BUCKETS} buckets, got {buckets}")
+    n = digits.shape[0]
+    dest = torch.empty_like(digits)
+    if n == 0:
+        return dest
+    tiles = _build.library().repro_radix_rank_tiles(n)
+    counts = torch.empty(tiles * buckets, dtype=torch.int32,
+                         device=digits.device)
+    _build.call("repro_radix_rank", digits.device, _build.ptr(digits),
+                _build.ptr(base), _build.ptr(dest), _build.ptr(counts), n,
+                buckets, _build.stream(digits))
+    _build.count_launch("radix_rank", digits.shape)
+    return dest

@@ -1,19 +1,28 @@
-"""Segmented-reduction ops for the relational path: the executor's
-grouping toolkit (``SegmentPlan``, ``segmented_aggregate``) and the
-sort-based equi join (``join_match_lists``).
+"""Segmented-reduction ops for the relational path: the device
+segmented reduction (``segment_reduce`` and its host-facing
+``segment_reduce_host``/``segment_count``), the executor's grouping
+toolkit (``SegmentPlan``, ``segmented_aggregate``) and the sort-based
+equi join (``join_match_lists``).
+
+* ``segment_reduce`` — tensor in, tensor out: the K5 CUDA kernel
+  (``impl="kernel"``, and ``"auto"`` on a CUDA device), its plain torch
+  version (``"ref"``, and ``"auto"`` on the CPU) or the numpy oracle
+  (``"host"``);
+* ``segment_reduce_host`` / ``segment_count`` — host-facing: numpy (or
+  tensor) in, numpy out, one device→host fetch per call (site
+  ``"segment_reduce"``). ``segment_count`` is the join-build histogram;
+  ``impl="host"`` (and ``"auto"`` on the CPU) is ``np.bincount``;
+* ``segmented_aggregate`` reduces int32/float32 min/max through
+  ``segment_reduce_host`` on every impl but ``"host"``, everything that
+  needs 64-bit accumulation on the host.
 
 ``join_match_lists`` groups the build side with ``group_build``
 (narrow integer keys group by raw value: exact, representatives
 ascending) and, on device impls, probes and expands the matches on the
 device (``_probe_lookup_device`` + ``_probe_expand_device``, the latter
 running the prefix-count and segment-id kernels) behind one scalar
-fetch. Strings and floats take the shared host code space.
-
-Not ported yet (K5, ``src/repro/kernels/segmented_reduce/
-segmented_reduce.py::segment_reduce_kernel``): the device segmented
-reduction behind ``segment_reduce``/``segment_reduce_host``/
-``segment_count`` and device-dtype min/max aggregates. They raise
-``NotImplementedError`` naming the ROADMAP item.
+fetch. Strings and floats take the shared host code space, whose build
+histogram is ``segment_count`` (K5 on device impls).
 """
 from __future__ import annotations
 
@@ -36,33 +45,72 @@ from ..util import (
     resolve_impl,
     to_numpy,
 )
+from .ref import reduce_identity, segment_reduce_np, segment_reduce_torch
+from .segmented_reduce import OPS, segment_reduce_kernel
 
-K5_TODO = ("device segmented reduction (K5 segment_reduce_kernel): not "
-           "ported yet, see ROADMAP.md 'TPU kernels still to port'")
+
+def segment_reduce(values: torch.Tensor, segment_ids: torch.Tensor, *,
+                   num_segments: int, op: str = "sum",
+                   impl: str = "auto") -> torch.Tensor:
+    """(N,) values + (N,) int32 segment ids -> (num_segments,)
+    reduction at the values' dtype, on the values' device. Empty
+    segments yield the op's identity."""
+    if op not in OPS:
+        raise ValueError(f"op must be one of {OPS}, got {op!r}")
+    impl = resolve_impl(impl, "ref", values)
+    if impl == "host":
+        out = segment_reduce_np(to_numpy(values), to_numpy(segment_ids),
+                                num_segments, op)
+        return torch.as_tensor(out, device=values.device)
+    if impl == "ref":
+        return segment_reduce_torch(values, segment_ids, num_segments, op)
+    return segment_reduce_kernel(values, segment_ids, num_segments, op)
 
 
-def segment_reduce(values, segment_ids, *, num_segments: int,
-                   op: str = "sum", impl: str = "auto"):
-    """Device segmented sum/min/max (K5): not ported yet."""
-    raise NotImplementedError(K5_TODO)
+def _as_tensor(a, dev: torch.device, dtype=None) -> torch.Tensor:
+    t = a if isinstance(a, torch.Tensor) \
+        else torch.as_tensor(np.ascontiguousarray(a))
+    return t.to(device=dev, dtype=dtype).contiguous()
 
 
 def segment_reduce_host(values, segment_ids, num_segments: int,
-                        op: str = "sum", *, impl: str = "auto"):
-    """Host-facing K5 wrapper: not ported yet."""
-    raise NotImplementedError(K5_TODO)
+                        op: str = "sum", *, impl: str = "auto",
+                        device=None) -> np.ndarray:
+    """Host-facing ``segment_reduce``: numpy or tensor inputs, a numpy
+    result, ONE device→host fetch (site ``"segment_reduce"``). Host
+    inputs go to ``device`` (the CPU when None); tensors stay where
+    they are."""
+    if op not in OPS:
+        raise ValueError(f"op must be one of {OPS}, got {op!r}")
+    dt = np_dtype(values)
+    if num_segments == 0:
+        return np.empty(0, dtype=dt)
+    if int(np.shape(values)[0]) == 0:
+        return np.full(num_segments, reduce_identity(op, dt), dtype=dt)
+    dev = _device_of(values, segment_ids, device=device)
+    impl = resolve_impl(impl, "ref", dev)
+    v = _as_tensor(values, dev)
+    seg = _as_tensor(segment_ids, dev, torch.int32)
+    out = segment_reduce(v, seg, num_segments=num_segments, op=op,
+                         impl=impl).cpu().numpy()
+    HOST_SYNCS.tick(site="segment_reduce")
+    return out
 
 
 def segment_count(segment_ids, num_segments: int, *,
                   impl: str = "auto", device=None) -> np.ndarray:
     """Per-segment row counts as int64 (the join-build histogram).
     ``impl="host"`` (and ``"auto"`` on the CPU) is ``np.bincount``;
-    the device impls are K5, not ported yet."""
-    impl = resolve_impl(impl, "host", device)
+    the device impls sum ones with ``segment_reduce_host``."""
+    dev = _device_of(segment_ids, device=device)
+    impl = resolve_impl(impl, "host", dev)
     if impl == "host":
         return np.bincount(np.asarray(segment_ids),
                            minlength=num_segments).astype(np.int64)
-    raise NotImplementedError(K5_TODO)
+    ones = torch.ones(int(np.shape(segment_ids)[0]), dtype=torch.int32,
+                      device=dev)
+    return segment_reduce_host(ones, segment_ids, num_segments, "sum",
+                               impl=impl, device=dev).astype(np.int64)
 
 
 # ------------------------------------------------------------------ grouping
@@ -116,17 +164,19 @@ def segmented_aggregate(plan: SegmentPlan, values, func: str, *,
     Exactness contract: count is integral int64; integer sum
     accumulates in int64; float sum and avg accumulate in float64;
     min/max preserve the column dtype (strings included) and propagate
-    NaN. count/sum/avg and host-dtype min/max reduce on the host (a
-    device column is fetched, ticked under ``"agg_values"``);
-    int32/float32 min/max on any impl but ``"host"`` are K5 and raise
-    until it is ported. Every group must be non-empty.
+    NaN. int32/float32 min/max reduce through ``segment_reduce_host``
+    (K5 on device impls) on every impl but ``"host"``, a device column
+    staying where it is; count/sum/avg and host-dtype min/max reduce on
+    the host (a device column is fetched, ticked under
+    ``"agg_values"``). Every group must be non-empty.
     """
     if func == "count":
         return plan.counts
     if func in ("min", "max") and impl != "host" \
             and np_dtype(values) in _DEVICE_DTYPES \
             and plan.num_groups > 0:
-        raise NotImplementedError(K5_TODO)
+        return segment_reduce_host(values, plan.seg, plan.num_groups, func,
+                                   impl=impl)
     if is_device_array(values):
         HOST_SYNCS.tick(site="agg_values")
     v = to_numpy(values)

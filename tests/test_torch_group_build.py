@@ -38,6 +38,7 @@ from repro_torch.kernels.segmented_reduce.ops import (  # noqa: E402
     segment_count,
     segment_plan_from_group_build,
     segment_reduce,
+    segment_reduce_host,
     segmented_aggregate,
 )
 from repro_torch.kernels.sync import HOST_SYNCS  # noqa: E402
@@ -271,21 +272,35 @@ def test_segmented_aggregate_over_group_build(impl, r_impl):
             segmented_aggregate(plan_p, v64, func, impl=impl))
 
 
-def test_slice_two_operators_raise():
-    with pytest.raises(NotImplementedError, match="hash join"):
-        hash_join_match(np.zeros(3, np.int32), np.zeros(3, np.int32))
-    with pytest.raises(NotImplementedError, match="K5"):
-        segment_reduce(torch.zeros(3), torch.zeros(3, dtype=torch.int32),
-                       num_segments=1)
-    with pytest.raises(NotImplementedError, match="K5"):
-        segment_count(np.zeros(3, np.int64), 1, impl="ref")
-    np.testing.assert_array_equal(
-        segment_count(np.asarray([0, 2, 2]), 3, impl="host"), [1, 0, 2])
+def test_slice_two_operators_raise(monkeypatch):
+    """The slice-two operators serve the CPU (host oracles at "auto",
+    plain versions at "ref"/"kernel") and raise for data on a card
+    below compute capability 9.0 instead of falling back."""
     keys = np.zeros((4, 1), np.int32)
     plan = segment_plan_from_group_build(p_ops.group_build(keys))
-    for impl in ("auto", "ref", "kernel"):
-        with pytest.raises(NotImplementedError, match="K5"):
-            segmented_aggregate(plan, torch.zeros(4), "min", impl=impl)
     np.testing.assert_array_equal(
-        segmented_aggregate(plan, torch.arange(4.0), "max", impl="host"),
-        [3.0])
+        segment_count(np.asarray([0, 2, 2]), 3, impl="host"), [1, 0, 2])
+    np.testing.assert_array_equal(
+        segment_count(np.asarray([0, 2, 2]), 3, impl="ref"), [1, 0, 2])
+    for impl in ("auto", "ref", "kernel", "host"):
+        np.testing.assert_array_equal(
+            segmented_aggregate(plan, torch.arange(4.0), "max", impl=impl),
+            [3.0])
+        out = hash_join_match(np.asarray([1, 2], np.int32),
+                              np.asarray([2, 2, 1], np.int32), impl=impl)
+        np.testing.assert_array_equal(_np(out[0]), [0, 1, 1])
+        np.testing.assert_array_equal(_np(out[1]), [2, 0, 1])
+    np.testing.assert_array_equal(
+        segment_reduce(torch.arange(3), torch.zeros(3, dtype=torch.int32),
+                       num_segments=1), [3])
+    monkeypatch.setattr(torch.cuda, "get_device_capability",
+                        lambda device=None: (8, 0))
+    cuda = torch.device("cuda", 0)
+    with pytest.raises(RuntimeError, match="capability"):
+        hash_join_match(np.zeros(3, np.int32), np.zeros(3, np.int32),
+                        device=cuda)
+    with pytest.raises(RuntimeError, match="capability"):
+        segment_count(np.zeros(3, np.int64), 1, device=cuda)
+    with pytest.raises(RuntimeError, match="capability"):
+        segment_reduce_host(np.zeros(3, np.float32), np.zeros(3, np.int32),
+                            1, "min", device=cuda)

@@ -37,6 +37,10 @@ def test_port_files_exist():
     files = _port_files()
     assert len(files) > 20
     assert (PORT / "csrc" / "scan.cuh").exists()
+    # the scan below covers the modules of every slice
+    for rel in ("streaming/state.py", "streaming/ingest.py",
+                "streaming/standing.py", "core/estimate.py"):
+        assert PORT / rel in files, rel
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -18,7 +18,6 @@ from repro.semantic import (  # noqa: E402
     VerdictTable as RVerdicts,
 )
 from repro_torch.core import Q  # noqa: E402
-from repro_torch.core.plan import Join  # noqa: E402
 from repro_torch.engine import Database, Executor  # noqa: E402
 from repro_torch.kernels.sync import HOST_SYNCS  # noqa: E402
 from repro_torch.semantic import (  # noqa: E402
@@ -232,18 +231,22 @@ def test_executor_places_an_unplaced_table():
 
 
 def test_hash_physical_raises_slice_two():
+    """The hash physical of slice two no longer raises: annotated, and
+    when ``None`` resolves to it at run time, it answers as the
+    reference does, in rows, stats, syncs and ``join_physical``."""
     tables = _tables(n_cats=3, n_events=5)
-    plan = _stacked(Q)
-    for node in plan.walk():
-        if isinstance(node, Join):
-            node.physical = "hash"
-    db = _build(Database(device="cpu"), *tables)
-    ex = Executor(db, SemanticRunner(OracleBackend(truths=db.truths)),
-                  kernel_impl="ref")
-    with pytest.raises(NotImplementedError, match="port slice 2"):
-        ex.execute(plan)
-    for node in plan.walk():
-        if isinstance(node, Join):
-            node.physical = None  # "auto" resolves to hash here too
-    with pytest.raises(NotImplementedError, match="port slice 2"):
-        ex.execute(plan)
+    for physical in ("hash", None):
+        plans = []
+        for q in (Q, RQ):
+            plan = _stacked(q)
+            for node in plan.walk():
+                if type(node).__name__ == "Join":
+                    node.physical = physical
+            plans.append(plan)
+        recs_p, sp, calls_p = _run_port(plans[0], tables, "on")
+        recs_r, sr, calls_r = _run_ref(plans[1], tables, "on")
+        assert recs_p == recs_r and calls_p == calls_r
+        for f in STAT_FIELDS:
+            assert getattr(sp, f) == getattr(sr, f), f
+        assert sp.pipeline_syncs == sr.pipeline_syncs
+        assert sp.join_physical == sr.join_physical == {"hash": 1}
