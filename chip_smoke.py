@@ -35,12 +35,46 @@ Phases, each printing one JSON line:
    hash join served by the incremental stream table, and after every
    batch the standing output equals a cold host run on the
    concatenated data;
-7. the ``kernels`` line: per kernel, its launches in the run of the
-   path it belongs to (``e2e`` for K1-K4, ``e2e_hash`` for K5 and K6)
-   and, at the largest shape that run gave it, its device time, its
-   plain version's, the bound and one PyTorch library call's time where
-   one computes the same function (each timed as CUDA-graph replays,
-   so no host work is counted), plus the wrapper's eager call time.
+7. ``attention`` — K7 (flash attention) and K8 (flash-decode) against
+   their plain versions on unit-normal inputs: K7 at S in {1, 63, 64,
+   65, 128, 1000}, GQA group in {1, 2, 12}, head_dim in {64, 80, 128},
+   causal and not, through the model's transposed (B, S, H, d) views;
+   K8 at T in {1, 131, 1000} with rows of lengths {1, 2, T-1, T} in one
+   batch, through the model's permuted (B, T, K, d) cache; within
+   1e-4 (float32 sums over <= 1000 keys in another order). The sweep
+   and its tolerance are ``repro_torch.kernels.attention_cases``, which
+   the card tests share;
+8. ``serve`` — starcoder2-3b at full width (30 layers, d_model 3072,
+   24 query heads over 2 KV heads, head_dim 128, float32 weights from a
+   seeded generator) behind ``ServingEngine(batch_size=16, max_seq=128,
+   max_new_tokens=2)``: 256 prompts made from a seed, served
+   continuously with K7/K8 (``attn_impl="auto"``) and again with the
+   plain grouped einsum (``"ref"``); the answers must be identical, K7
+   must launch once per layer per admission and K8 once per layer per
+   round; prints admissions, rounds, prefill/decode device seconds
+   (CUDA events around the scheduler's ``_admit``/``_round``), rates,
+   syncs, peak memory and one admission's prefill-logit difference;
+   then serves 64 of the prompts in two waves half a batch apart, so
+   slots are freed and refilled while others are mid-decode, and holds
+   the K7/K8 engine's token ids to the plain engine's there too;
+9. ``llm_query`` — five corpus queries (one per schema, scale 0.15,
+   ``CostParams()``) through per-schema ``FrontDoor``s sharing one
+   runner over ``ModelBackend.from_engine`` on the same starcoder2-3b
+   engine, once with K7/K8 and once with the plain attention: rows,
+   order, ``llm_calls``, ``cache_hits``, ``pipeline_syncs``,
+   ``serving_syncs``, backend calls and the token ids the model emitted
+   for every prompt must be equal;
+10. the ``kernels`` line: per kernel, its launches in the run of the
+   path it belongs to (``e2e`` for K1-K4, ``e2e_hash`` for K5 and K6,
+   ``serve`` for K7 and K8) and, at the largest shape that run gave it,
+   its device time, its plain version's, the bound and one PyTorch
+   library call's time where one computes the same function
+   (``scaled_dot_product_attention`` for K7/K8; each timed as
+   CUDA-graph replays, so no host work is counted), plus the wrapper's
+   eager call time.
+
+Float32 matrix products run in full float32: TF32 is switched off for
+cuBLAS and cuDNN, as the reference computes in float32.
 
 It then prints the card's name and power limit as nvidia-smi reports
 them and, last, ``{"ok": true, "device": {...}}``. Any failure raises
@@ -73,6 +107,8 @@ STAT_FIELDS = ("llm_calls", "cache_hits", "null_skipped", "probe_rows",
                "sem_rows", "rel_rows")
 EDGE_SIZES = (1, 1023, 1024, 1025, 65537, 1 << 24)
 INT32_MAX = 2**31 - 1
+SERVE_ARCH = "starcoder2-3b"
+SERVE = dict(batch_size=16, max_seq=128, max_new_tokens=2)
 
 
 def emit(obj) -> None:
@@ -761,23 +797,445 @@ def run_stream(device, n_base: int = 1 << 20, n_batch: int = 1 << 16,
             "batches": batches, "launches": dict(_build.LAUNCHES)}
 
 
-# ------------------------------------------------- timing at main-path shapes
+# ------------------------------------------------------- attention kernels
 
-def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
-                by_path: dict, seed: int = 1) -> list[dict]:
-    """Time each kernel at the largest shape its path's run gave it
-    (``launches``/``shapes``: K1-K4 from ``e2e``, K5/K6 from
-    ``e2e_hash``): the kernel, its plain version and the library call
-    each as CUDA-graph replays (device time only), and the kernel's
-    wrapper also as one eager call between two events
-    (``wrapper_eager_ms``, which adds the wrapper's host work where the
-    card waits for it). ``by_path`` holds every path's launch counts."""
+def check_attention(device, seq=None, groups=None, dims=None,
+                    cache_lens=None, seed: int = 0) -> dict:
+    """K7 and K8 against their plain versions on ``device`` (unit-normal
+    inputs from ``seed``, in the model's layouts) over the sweep of
+    ``attention_cases`` (or the given one); raises above its
+    tolerance. Returns the cases and the worst max|Δ| per kernel."""
     import torch
 
+    from repro_torch.kernels import attention_cases as AC
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_ref)
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    seq = seq or AC.SEQ_LENS
+    groups = groups or AC.GROUPS
+    dims = dims or AC.HEAD_DIMS
+    cache_lens = cache_lens or AC.CACHE_LENS
+    impl = "kernel" if device.type == "cuda" else "ref"
+    g = torch.Generator(device=device).manual_seed(seed)
+    errs = {"flash_attention": 0.0, "decode_attention": 0.0}
+    cases = dict.fromkeys(errs, 0)
+
+    def hold(name, got, want, what):
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        if not err <= AC.TOLERANCE:
+            raise AssertionError(f"{what}: max|diff| {err} > "
+                                 f"{AC.TOLERANCE}")
+        errs[name] = max(errs[name], err)
+        cases[name] += 1
+
+    K, B = 2, 2
+    for d in dims:
+        for grp in groups:
+            H = grp * K
+            for S in seq:
+                q = torch.randn(B, S, H, d, generator=g, device=device)
+                k = torch.randn(B, S, K, d, generator=g, device=device)
+                v = torch.randn(B, S, K, d, generator=g, device=device)
+                qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+                for causal in (True, False):
+                    hold("flash_attention",
+                         flash_attention(qt, kt, vt, causal=causal,
+                                         impl=impl),
+                         attention_ref(qt, kt, vt, causal=causal),
+                         f"K7 S={S} group={grp} d={d} causal={causal}")
+            for T in cache_lens:
+                lens = AC.decode_lengths(T)
+                lengths = torch.tensor(lens, dtype=torch.int32,
+                                       device=device)
+                Bd = len(lens)
+                q = torch.randn(Bd, H, d, generator=g, device=device)
+                kc = torch.randn(Bd, T, K, d, generator=g, device=device)
+                vc = torch.randn(Bd, T, K, d, generator=g, device=device)
+                kt, vt = kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3)
+                hold("decode_attention",
+                     decode_attention(q, kt, vt, lengths, impl=impl),
+                     decode_attention_ref(q, kt, vt, lengths),
+                     f"K8 T={T} lengths={lens} group={grp} d={d}")
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return {"cases": cases, "max_abs_err": errs,
+            "tolerance": AC.TOLERANCE}
+
+
+# ------------------------------------------------------------ the serving
+
+def serve_prompts(n: int, seed: int = 0) -> list[str]:
+    """``n`` prompts of 4-150 words from a fixed vocabulary, made from
+    ``seed`` (longer ones are cut at ``max_seq`` tokens)."""
+    rng = np.random.default_rng(seed)
+    words = ["is", "the", "review", "positive", "product", "winter",
+             "garden", "seasonal", "category", "answer", "yes", "no",
+             "book", "about", "machine", "learning", "service", "slow",
+             "supplier", "reliable", "fragile", "part", "place", "rating"]
+    return [" ".join(rng.choice(words, int(rng.integers(4, 151))))
+            for _ in range(n)]
+
+
+def serve_engine_pair(device, cfg, params, serve=SERVE):
+    """Two engines on the same weights: K7/K8 ("auto", the plain path on
+    a CPU rehearsal) and the plain path ("ref")."""
+    from repro_torch.serving import ServingEngine
+
+    return tuple(ServingEngine(cfg, params, device=device, attn_impl=i,
+                               **serve) for i in ("auto", "ref"))
+
+
+def timed_serve(eng, prompts) -> tuple[list[str], dict]:
+    """``eng.answer(prompts)`` with CUDA events recorded around every
+    ``_admit`` and ``_round`` call of its scheduler (set on the
+    instance here, so the engine itself carries no timing)."""
+    import torch
+
+    sched = eng.scheduler
+    events = {"_admit": [], "_round": []}
+    cuda = eng.device.type == "cuda"
+
+    def wrap(name):
+        fn = getattr(sched, name)
+
+        def run():
+            if not cuda:
+                t0 = time.perf_counter()
+                fn()
+                events[name].append(time.perf_counter() - t0)
+                return
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            events[name].append((a, b))
+        setattr(sched, name, run)
+
+    for name in events:
+        wrap(name)
+    t0 = time.perf_counter()
+    try:
+        answers = eng.answer(prompts)
+        if cuda:
+            torch.cuda.synchronize(eng.device)
+    finally:
+        for name in events:
+            delattr(sched, name)
+    wall = time.perf_counter() - t0
+
+    def seconds(name):
+        if not cuda:
+            return sum(events[name])
+        return sum(a.elapsed_time(b) for a, b in events[name]) / 1e3
+
+    return answers, {"wall_s": wall, "prefill_s": seconds("_admit"),
+                     "decode_s": seconds("_round")}
+
+
+def record_serving(eng) -> dict:
+    """Wrap ``take`` and ``_admit`` of ``eng``'s scheduler on the
+    instance (``unrecord_serving`` removes them): the record gathers the
+    token ids of every completed request, in the order its ticket was
+    taken, and counts the admissions made while another slot was
+    mid-decode (a live slot that has already emitted a token)."""
+    sched = eng.scheduler
+    rec = {"ids": [], "mid_decode_admissions": 0}
+    take, admit = sched.take, sched._admit
+
+    def take_recorded(ticket):
+        out = take(ticket)
+        rec["ids"].extend(list(ids) for ids in out)
+        return out
+
+    def admit_recorded():
+        busy = any(sched._slot_req[s].out_ids for s in sched.live_slots())
+        before = eng.stats.batches
+        admit()
+        if busy and eng.stats.batches > before:
+            rec["mid_decode_admissions"] += 1
+
+    sched.take, sched._admit = take_recorded, admit_recorded
+    return rec
+
+
+def unrecord_serving(eng) -> None:
+    del eng.scheduler.take, eng.scheduler._admit
+
+
+def staggered_serve(eng, prompts, first: int) -> tuple[list[str], dict]:
+    """Submit ``first`` prompts, run one round, then submit the rest and
+    drain: the two waves stay a round apart, so each later admission
+    refills slots while the other wave is mid-decode."""
+    rec = record_serving(eng)
+    try:
+        head = eng.submit(prompts[:first])
+        eng.poll()
+        tail = eng.submit(prompts[first:])
+        eng.drain()
+        answers = eng.answers(head) + eng.answers(tail)
+    finally:
+        unrecord_serving(eng)
+    return answers, rec
+
+
+def run_serve(device, arch: str = SERVE_ARCH, n_prompts: int = 256,
+              seed: int = 0, tiny: bool = False, serve=SERVE) -> dict:
+    """The serving path at full width (``tiny`` for a CPU rehearsal):
+    weights from a seeded generator on ``device``, 256 prompts through
+    the K7/K8 engine and the plain engine. Returns the phase's numbers
+    and keeps the engines under ``"engines"`` for ``run_llm_query``."""
+    import torch
+
+    from repro_torch.configs import get_config, get_tiny
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.sync import HOST_SYNCS
+    from repro_torch.models import count_params, init_params, prefill
+
+    cfg = get_tiny(arch) if tiny else get_config(arch)
+    cuda = device.type == "cuda"
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device)
+                         .manual_seed(seed), device=device)
+    if cuda:
+        torch.cuda.synchronize(device)
+    init_s = time.perf_counter() - t0
+    kern, plain = serve_engine_pair(device, cfg, params, serve)
+    prompts = serve_prompts(n_prompts, seed)
+    out = {"arch": cfg.name, "params": count_params(cfg),
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+           "head_dim": cfg.resolved_head_dim, "prompts": n_prompts,
+           **serve, "init_s": init_s,
+           "allow_tf32": [torch.backends.cuda.matmul.allow_tf32,
+                          torch.backends.cudnn.allow_tf32]}
+    answers = {}
+    for label, eng in (("kernel", kern), ("plain", plain)):
+        if cuda:
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        rounds0 = HOST_SYNCS.by_site.get("serving_round", 0)
+        _build.reset_launches()
+        answers[label], t = timed_serve(eng, prompts)
+        launches = dict(_build.LAUNCHES)
+        shapes = dict(_build.MAX_SHAPES)
+        st = eng.stats
+        padded = st.prefill_rows * eng.max_seq
+        out[label] = {
+            **t, "admissions": st.batches, "decode_rounds": st.decode_steps,
+            "prefill_tokens": st.prefill_tokens, "prefill_padded": padded,
+            "prefill_tokens_per_s": st.prefill_tokens / t["prefill_s"],
+            "prefill_padded_per_s": padded / t["prefill_s"],
+            "decode_slot_steps": st.slot_steps,
+            "decode_slot_steps_per_s": st.slot_steps / t["decode_s"],
+            "decode_tokens": st.decode_tokens,
+            "serving_round_syncs": HOST_SYNCS.by_site.get(
+                "serving_round", 0) - rounds0,
+            "occupancy": st.occupancy,
+            "launches": {k: launches[k] for k in ("flash_attention",
+                                                  "decode_attention")},
+            "shapes": {k: list(v) for k, v in shapes.items()},
+            "peak_device_bytes": (torch.cuda.max_memory_allocated(device)
+                                  if cuda else None)}
+    if answers["kernel"] != answers["plain"]:
+        diff = sum(a != b for a, b in zip(answers["kernel"],
+                                          answers["plain"]))
+        raise AssertionError(f"serve: {diff} of {n_prompts} answers differ "
+                             f"between K7/K8 and the plain attention")
+    if len(answers["kernel"]) != n_prompts or not all(answers["kernel"]):
+        raise AssertionError("serve: missing answers")
+    k = out["kernel"]
+    if k["serving_round_syncs"] != k["decode_rounds"]:
+        raise AssertionError("serve: not one serving_round sync per round")
+    if cuda:
+        want = {"flash_attention": cfg.num_layers * k["admissions"],
+                "decode_attention": cfg.num_layers * k["decode_rounds"]}
+        if k["launches"] != want:
+            raise AssertionError(f"serve: launches {k['launches']} != "
+                                 f"{want}")
+        if any(out["plain"]["launches"].values()):
+            raise AssertionError("serve: the plain engine launched K7/K8")
+    # one admission's prefill logits and cache, both attention paths
+    toks = torch.from_numpy(np.stack([kern.encode_row(p)[0] for p in
+                                      prompts[:serve["batch_size"]]])
+                            ).to(device)
+    lg = {}
+    for eng in (kern, plain):
+        logits, cache = prefill(cfg, params, {"tokens": toks},
+                                max_seq=kern.cache_len,
+                                attn_impl=eng.attn_impl)
+        lg[eng.attn_impl] = (logits, cache["k"], cache["v"])
+    a, b = lg[kern.attn_impl], lg[plain.attn_impl]
+    if not all(bool(torch.isfinite(x).all()) for x in a):
+        raise AssertionError("serve: non-finite prefill logits or cache")
+    out["prefill_logit_max_abs_diff"] = float((a[0] - b[0]).abs().max())
+    out["prefill_logit_max_abs"] = float(b[0].abs().max())
+    out["prefill_kv_max_abs_diff"] = max(float((a[i] - b[i]).abs().max())
+                                         for i in (1, 2))
+    out["answers_identical"] = True
+    # slots freed and refilled mid-decode: waves half a batch apart
+    b = serve["batch_size"]
+    stag = {eng.attn_impl: staggered_serve(eng, prompts[:4 * b], b // 2)
+            for eng in (kern, plain)}
+    (ka, kr), (pa, pr) = stag[kern.attn_impl], stag[plain.attn_impl]
+    if ka != pa or kr["ids"] != pr["ids"]:
+        raise AssertionError("serve (staggered): answers differ between "
+                             "K7/K8 and the plain attention")
+    if not kr["mid_decode_admissions"]:
+        raise AssertionError("serve (staggered): no slot was refilled "
+                             "mid-decode")
+    out["staggered"] = {"prompts": 4 * b, "first_wave": b // 2,
+                        "mid_decode_admissions": kr["mid_decode_admissions"],
+                        "tokens_compared": sum(map(len, kr["ids"]))}
+    # K8's lengths in a first decode round of these prompts: pos + 1
+    out["decode_lengths"] = [kern.encode_row(p)[1] for p in
+                             prompts[:serve["batch_size"]]]
+    out["answer_sample"] = answers["kernel"][:4]
+    out["engines"] = (kern, plain)
+    return out
+
+
+def run_llm_query(device, engines, scale: float = 0.15) -> dict:
+    """Five corpus queries (one per schema) through per-schema
+    ``FrontDoor``s sharing one runner over ``ModelBackend.from_engine``,
+    once per engine of ``engines`` (K7/K8, plain); everything the
+    queries report must agree, and so must the token ids the model
+    emitted for every backend prompt (with random weights the verdicts
+    parse to False on both paths, so the ids are what holds K7/K8 to
+    the plain path here)."""
+    import torch
+
+    from repro_torch.core import CostParams, Q, col, optimize
+    from repro_torch.data import SCHEMAS
+    from repro_torch.data import schemas as S
+    from repro_torch.engine import FrontDoor
+    from repro_torch.kernels import _build
+    from repro_torch.semantic import ModelBackend, SemanticRunner
+    from repro_torch.serving import ServingStats
+
+    specs = [sp for sp in corpus_specs(Q, col, S) if sp[0] != "Q25"]
+    fields = ("llm_calls", "cache_hits", "null_skipped", "probe_rows",
+              "pipeline_syncs", "serving_syncs")
+    runs = []
+    for eng in engines:
+        # fresh tables per run: a table caches what its first run fetched
+        dbs = {sp[1]: SCHEMAS[sp[1]](seed=0, scale=scale, device=device)
+               for sp in specs}
+        eng.stats = ServingStats()
+        backend = ModelBackend.from_engine(eng)
+        runner = SemanticRunner(backend)
+        doors = {name: FrontDoor(db, runner, n_lanes=2)
+                 for name, db in dbs.items()}
+        rec = record_serving(eng)
+        _build.reset_launches()
+        queries = {}
+        t_all = time.perf_counter()
+        for qid, schema, cols, build in specs:
+            db = dbs[schema]
+            t0 = time.perf_counter()
+            plan = optimize(build(), db.catalog(), strategy="cost",
+                            params=CostParams()).plan
+            t1 = time.perf_counter()
+            table, stats = doors[schema].execute(plan)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            t2 = time.perf_counter()
+            rows = _freeze(db.materialize(table, list(cols)))
+            t3 = time.perf_counter()
+            queries[qid] = {
+                "rows": rows, "stats": {f: getattr(stats, f)
+                                        for f in fields},
+                "split": {"optimize_s": t1 - t0, "execute_s": t2 - t1,
+                          "rel_s": stats.rel_wall_s,
+                          "sem_s": stats.sem_wall_s,
+                          "materialize_s": t3 - t2}}
+        wall = time.perf_counter() - t_all
+        unrecord_serving(eng)
+        runs.append({"queries": queries, "calls": backend.calls,
+                     "wall_s": wall, "launches": dict(_build.LAUNCHES),
+                     "serving": eng.stats.snapshot(), **rec})
+    kern, plain = runs
+    for qid, q in kern["queries"].items():
+        p = plain["queries"][qid]
+        if q["rows"] != p["rows"]:
+            raise AssertionError(f"llm_query {qid}: rows differ between "
+                                 f"K7/K8 and the plain attention")
+        if q["stats"] != p["stats"]:
+            raise AssertionError(f"llm_query {qid}: {q['stats']} != "
+                                 f"{p['stats']}")
+    if kern["calls"] != plain["calls"] or kern["calls"] == 0:
+        raise AssertionError(f"llm_query: backend calls {kern['calls']} "
+                             f"vs {plain['calls']}")
+    if kern["ids"] != plain["ids"]:
+        diff = sum(a != b for a, b in zip(kern["ids"], plain["ids"]))
+        raise AssertionError(
+            f"llm_query: the token ids of {diff} of {len(kern['ids'])} "
+            f"answers (counts {len(kern['ids'])} vs {len(plain['ids'])}) "
+            f"differ between K7/K8 and the plain attention")
+    split = {k: sum(q["split"][k] for q in kern["queries"].values())
+             for k in ("optimize_s", "execute_s", "rel_s", "sem_s",
+                       "materialize_s")}
+    return {"scale": scale, "backend_calls": kern["calls"],
+            "answers_compared": len(kern["ids"]),
+            "tokens_compared": sum(map(len, kern["ids"])),
+            "mid_decode_admissions": kern["mid_decode_admissions"],
+            "wall_s": kern["wall_s"], "plain_wall_s": plain["wall_s"],
+            "split": split, "serving": kern["serving"],
+            "launches": kern["launches"],
+            "plain_launches": plain["launches"],
+            "queries": {qid: {"rows": len(q["rows"]), **q["stats"],
+                              "split": q["split"]}
+                        for qid, q in kern["queries"].items()}}
+
+
+# ------------------------------------------------- timing at main-path shapes
+
+def sdpa_call(q, k, v, **kw):
+    """``scaled_dot_product_attention`` over GQA operands — the library
+    yardstick of K7/K8, never called by the port. Torch builds without
+    ``enable_gqa`` get K/V repeated H-wide here, outside the call."""
+    import torch.nn.functional as F
+
+    group = q.shape[1] // k.shape[1]
+    try:
+        F.scaled_dot_product_attention(q[:1, :1, :1], k[:1, :1, :1],
+                                       v[:1, :1, :1], enable_gqa=True)
+    except TypeError:
+        k = k.repeat_interleave(group, dim=1)
+        v = v.repeat_interleave(group, dim=1)
+        return lambda: F.scaled_dot_product_attention(q, k, v, **kw)
+    return lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True,
+                                                  **kw)
+
+
+def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
+                by_path: dict, decode_lengths, seed: int = 1) -> list[dict]:
+    """Time each kernel at the largest shape its path's run gave it
+    (``launches``/``shapes``: K1-K4 from ``e2e``, K5/K6 from
+    ``e2e_hash``, K7/K8 from ``serve``; K8's rows hold the
+    ``decode_lengths`` of a first decode round of the served prompts):
+    the kernel, its plain version and the library call each as
+    CUDA-graph replays (device time only), and the kernel's wrapper also
+    as one eager call between two events (``wrapper_eager_ms``, which
+    adds the wrapper's host work where the card waits for it).
+    ``by_path`` holds every path's launch counts."""
+    import torch
+
+    from repro_torch.kernels.attention_cases import TOLERANCE
     from repro_torch.kernels.compact.compact import prefix_count_kernel
     from repro_torch.kernels.compact.ref import prefix_count_torch
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        decode_attention_kernel)
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_ref)
     from repro_torch.kernels.expand.expand import running_segment_ids_kernel
     from repro_torch.kernels.expand.ref import running_segment_ids_torch
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_kernel)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.hash_dedup.group_build import (
         group_boundaries_kernel)
     from repro_torch.kernels.hash_dedup.hash_dedup import hash_rows_kernel
@@ -902,6 +1360,53 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
     if not torch.equal(order.long(), torch.argsort(slot_key, stable=True)):
         raise AssertionError("K6 chained order differs from the stable "
                              "argsort")
+
+    # K7 at a full admission: the (B, S, H, d) projections as the model
+    # passes them; 4d operations per visible (query, key) pair
+    B, H, K, S, _, d = shapes["flash_attention"]
+    q, k, v = (torch.randn(B, S, n, d, generator=g, device=device)
+               .transpose(1, 2) for n in (H, K, K))
+    kern7 = flash_attention_kernel(q, k, v, causal=True)
+    err7 = float((kern7 - attention_ref(q, k, v, causal=True)).abs().max())
+    if not err7 <= TOLERANCE:
+        raise AssertionError(f"K7 at the serve shape: {err7} > {TOLERANCE}")
+    pairs = B * H * S * (S + 1) // 2
+    row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:97",
+        lambda: flash_attention_kernel(q, k, v, causal=True),
+        lambda: attention_ref(q, k, v, causal=True),
+        sdpa_call(q, k, v, is_causal=True),
+        4 * (2 * B * H * S * d + 2 * B * K * S * d), 4 * d * pairs,
+        (B, H, K, S, S, d),
+        err=max(err7, max_err.get("flash_attention", 0.0)), causal=True,
+        tolerance=TOLERANCE,
+        library_call="scaled_dot_product_attention(is_causal, gqa)")
+
+    # K8 over a (B, T, K, d) cache with the first decode round's lengths
+    B, H, K, T, d = shapes["decode_attention"]
+    lengths = torch.tensor(list(decode_lengths)[:B], dtype=torch.int32,
+                           device=device)
+    qd = torch.randn(B, H, d, generator=g, device=device)
+    kc, vc = (torch.randn(B, T, K, d, generator=g, device=device)
+              .permute(0, 2, 1, 3) for _ in range(2))
+    kern8 = decode_attention_kernel(qd, kc, vc, lengths)
+    err8 = float((kern8 - decode_attention_ref(qd, kc, vc, lengths))
+                 .abs().max())
+    if not err8 <= TOLERANCE:
+        raise AssertionError(f"K8 at the serve shape: {err8} > {TOLERANCE}")
+    live = int(lengths.clamp(max=T).sum())
+    mask = (torch.arange(T, device=device)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    row("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention/decode_attention.py:78",
+        lambda: decode_attention_kernel(qd, kc, vc, lengths),
+        lambda: decode_attention_ref(qd, kc, vc, lengths),
+        sdpa_call(qd[:, :, None], kc, vc, attn_mask=mask),
+        4 * (2 * B * H * d + 2 * K * d * live + B), 4 * d * H * live,
+        (B, H, K, T, d),
+        err=max(err8, max_err.get("decode_attention", 0.0)),
+        lengths=lengths.tolist(), tolerance=TOLERANCE,
+        library_call="scaled_dot_product_attention(attn_mask, gqa)")
     return rows
 
 
@@ -912,6 +1417,7 @@ SORT_MERGE_KERNELS = ("prefix_count", "hash_rows", "group_boundaries",
                       "running_segment_ids")
 HASH_KERNELS = ("prefix_count", "running_segment_ids", "segment_reduce",
                 "radix_rank")
+ATTN_KERNELS = ("flash_attention", "decode_attention")
 
 
 def require_launched(path: str, launches: dict, names) -> None:
@@ -936,6 +1442,9 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     device = torch.device("cuda", 0)
+    # the reference computes in float32: no TF32 in matrix products
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()
     t0 = time.perf_counter()
     _build.library()
@@ -952,6 +1461,11 @@ def main() -> int:
     emit({"phase": "kernels", "bit_identical_cases": cases,
           "max_abs_err": errs, "tolerance": 0,
           "sizes": list(EDGE_SIZES), "seconds": time.perf_counter() - t0,
+          "gpu": smi})
+    t0 = time.perf_counter()
+    attn = check_attention(device)
+    errs.update(attn["max_abs_err"])
+    emit({"phase": "attention", **attn, "seconds": time.perf_counter() - t0,
           "gpu": smi})
 
     e2e = run_e2e(device)
@@ -979,14 +1493,35 @@ def main() -> int:
     require_launched("stream", stream["launches"],
                      ("radix_rank", "segment_reduce"))
 
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    serve = run_serve(device)
+    engines = serve.pop("engines")
+    emit({"phase": "serve", **serve, "seconds": time.perf_counter() - t0,
+          "gpu": smi})
+    require_launched("serve", serve["kernel"]["launches"], ATTN_KERNELS)
+
+    t0 = time.perf_counter()
+    llm = run_llm_query(device, engines)
+    emit({"phase": "llm_query", **llm, "seconds": time.perf_counter() - t0,
+          "gpu": smi})
+    require_launched("llm_query", llm["launches"], ATTN_KERNELS)
+    del engines
+
     launches = dict(e2e["launches"])
     shapes = dict(e2e["shapes"])
     for k in ("segment_reduce", "radix_rank"):
         launches[k] = e2e_hash["launches"][k]
         shapes[k] = e2e_hash["shapes"][k]
+    for k in ATTN_KERNELS:
+        launches[k] = serve["kernel"]["launches"][k]
+        shapes[k] = serve["kernel"]["shapes"][k]
     rows = kernel_rows(device, launches, shapes, errs,
                        {"e2e": e2e["launches"],
-                        "e2e_hash": e2e_hash["launches"]})
+                        "e2e_hash": e2e_hash["launches"],
+                        "serve": serve["kernel"]["launches"],
+                        "llm_query": llm["launches"]},
+                       serve["decode_lengths"])
     emit({"kernels": rows})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {

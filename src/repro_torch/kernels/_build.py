@@ -29,11 +29,13 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("compact.cu", "hash_rows.cu", "group_build.cu", "expand.cu",
-           "segment_reduce.cu", "radix_rank.cu")
+           "segment_reduce.cu", "radix_rank.cu", "flash_attention.cu",
+           "decode_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
 # C entry point -> argument types (pointers and the stream are c_void_p)
 SIGNATURES = {
     "repro_prefix_count": (_P, _P, _P, _I, _P),
@@ -44,12 +46,21 @@ SIGNATURES = {
     "repro_segment_reduce": (_P, _P, _P, _I, _I, _I, _I, _P),
     "repro_radix_rank": (_P, _P, _P, _P, _I, _I, _P),
     "repro_radix_rank_tiles": (_I,),
+    # q, k, v, o, B, H, K, Sq, Sk, d, the (b, h, s) strides of q, k, v
+    # and o, scale, causal, stream
+    "repro_flash_attention": (_P,) * 4 + (_I,) * 6 + (_LL,) * 12
+    + (_F, _I, _P),
+    # q, k, v, lengths, o, B, H, K, T, d, q (b, h), k and v (b, kv, t),
+    # o (b, h) strides, scale, stream
+    "repro_decode_attention": (_P,) * 5 + (_I,) * 5 + (_LL,) * 10
+    + (_F, _P),
 }
 
 # kernel name -> launches since the last reset_launches(), and the
 # largest input shape launched in that time
 LAUNCHES = {"prefix_count": 0, "hash_rows": 0, "group_boundaries": 0,
-            "running_segment_ids": 0, "segment_reduce": 0, "radix_rank": 0}
+            "running_segment_ids": 0, "segment_reduce": 0, "radix_rank": 0,
+            "flash_attention": 0, "decode_attention": 0}
 MAX_SHAPES: dict[str, tuple] = {}
 
 _LIB: ctypes.CDLL | None = None
@@ -152,9 +163,11 @@ def library() -> ctypes.CDLL:
 
 
 def check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype,
-               ndim: int) -> None:
-    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` with
-    ``ndim`` dimensions and fewer than 2^31 elements."""
+               ndim: int, contiguous: bool = True) -> None:
+    """Raise unless ``t`` is a CUDA tensor of ``dtype`` with ``ndim``
+    dimensions and fewer than 2^31 elements, contiguous (or, with
+    ``contiguous=False``, of unit stride on its last axis: a kernel that
+    takes the other strides as arguments)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
@@ -162,8 +175,11 @@ def check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype,
     if t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim}-D, got shape "
                          f"{tuple(t.shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+    if not contiguous and t.shape[-1] > 1 and t.stride(-1) != 1:
+        raise ValueError(f"{name}: expected unit stride on the last axis, "
+                         f"got strides {t.stride()}")
     if t.numel() >= 2**31:
         raise ValueError(f"{name}: {t.numel()} elements exceed int32")
 

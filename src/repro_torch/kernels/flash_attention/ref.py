@@ -1,0 +1,27 @@
+"""Plain PyTorch version of K7, flash attention: float32 softmax, GQA
+(a copy of the reference's ``attention_ref`` in torch)."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True, sm_scale: float | None = None
+                  ) -> torch.Tensor:
+    """q: (B,H,Sq,d), k/v: (B,K,Sk,d); returns (B,H,Sq,d)."""
+    B, H, Sq, d = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    group = H // K
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    kk = torch.repeat_interleave(k, group, dim=1)
+    vv = torch.repeat_interleave(v, group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk.float()) * sm_scale
+    if causal:
+        mask = (torch.arange(Sq, device=q.device)[:, None]
+                >= torch.arange(Sk, device=q.device)[None, :])
+        s = torch.where(mask[None, None], s, torch.full_like(s, -1e30))
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", w, vv.float()).to(q.dtype)

@@ -1,0 +1,131 @@
+"""Parameters of the dense decoder-only LM.
+
+``build_params(cfg, creator)`` walks the architecture and calls
+``creator(path, shape, scale)`` for each tensor, with the reference's
+paths, shapes and stacked ``(L, ...)`` layer layout
+(``src/repro/models/params.py``; the logical sharding axes are dropped:
+the port serves on one card). Two creators:
+
+* ``init_params(cfg, generator, device)`` — random weights drawn from a
+  ``torch.Generator`` at the reference's scales (norm gains 1, biases 0,
+  otherwise normal / sqrt(fan_in)); the numbers are not the reference's;
+* ``params_from_numpy(tree, device)`` — the reference's own parameters
+  (``jax.tree.map(np.asarray, params)``) as tensors, unchanged in
+  layout, so both packages compute the same function.
+
+Only the dense family is ported (``check_supported``).
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from .config import ModelConfig
+
+Creator = Callable[[str, tuple, float], object]
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` unless ``cfg`` is a dense
+    decoder-only LM with full causal attention: the port's LLM slice.
+    The other families wait for later slices (ROADMAP)."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family (SSD, K9) waits for the "
+            f"port's SSM/hybrid slice")
+    if cfg.family != "dense" or cfg.num_experts or cfg.use_mla:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} (experts "
+            f"{cfg.num_experts}, MLA {cfg.use_mla}) waits for the port's "
+            f"MoE/MLA/encoder-decoder/VLM slice; only dense LMs are ported")
+    if (cfg.attn_window or cfg.encoder_layers or cfg.num_image_tokens
+            or cfg.mtp_depth):
+        raise NotImplementedError(
+            f"{cfg.name}: sliding windows, encoders, image prefixes and MTP "
+            f"heads are not ported")
+
+
+def _attn_tree(cfg: ModelConfig, L, p, prefix: str):
+    D = cfg.d_model
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    t = {
+        "wq": p(f"{prefix}/wq", (*L, D, H, hd), D),
+        "wk": p(f"{prefix}/wk", (*L, D, K, hd), D),
+        "wv": p(f"{prefix}/wv", (*L, D, K, hd), D),
+        "wo": p(f"{prefix}/wo", (*L, H, hd, D), H * hd),
+    }
+    if cfg.qkv_bias:
+        t["bq"] = p(f"{prefix}/bq", (*L, H, hd), 0)
+        t["bk"] = p(f"{prefix}/bk", (*L, K, hd), 0)
+        t["bv"] = p(f"{prefix}/bv", (*L, K, hd), 0)
+    return t
+
+
+def _mlp_tree(cfg: ModelConfig, L, p, prefix="mlp"):
+    D, F = cfg.d_model, cfg.d_ff
+    t = {
+        "w_in": p(f"{prefix}/w_in", (*L, D, F), D),
+        "w_out": p(f"{prefix}/w_out", (*L, F, D), F),
+    }
+    if cfg.gated_mlp:
+        t["w_gate"] = p(f"{prefix}/w_gate", (*L, D, F), D)
+    return t
+
+
+def build_params(cfg: ModelConfig, creator: Creator) -> dict:
+    """The dense LM's parameter tree, one ``creator`` call per leaf."""
+    check_supported(cfg)
+    p = creator
+    D, V = cfg.d_model, cfg.vocab_size
+    L = (cfg.num_layers,)
+    tree: dict = {
+        "embed": p("embed", (V, D), D),
+        "blocks": {
+            "ln1": p("ln1", (*L, D), -1),
+            "ln2": p("ln2", (*L, D), -1),
+            "attn": _attn_tree(cfg, L, p, "attn"),
+            "mlp": _mlp_tree(cfg, L, p),
+        },
+        "final_ln": p("final_ln", (D,), -1),
+    }
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = p("lm_head", (D, V), D)
+    return tree
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device="cuda") -> dict:
+    """Random float32 weights from ``generator`` (which must live on
+    ``device``) at the reference's scales: norm gains 1, biases 0, other
+    leaves normal / sqrt(fan_in)."""
+    def make(path, shape, scale):
+        if scale == -1:  # norm gains
+            return torch.ones(shape, device=device)
+        if scale == 0:  # biases
+            return torch.zeros(shape, device=device)
+        w = torch.randn(shape, generator=generator, device=device)
+        return w.mul_(1.0 / np.sqrt(scale))
+
+    return build_params(cfg, make)
+
+
+def params_from_numpy(tree: dict, device="cuda") -> dict:
+    """The reference's parameter tree, as numpy arrays, as tensors on
+    ``device`` with the same nesting, shapes and dtypes."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    return torch.tensor(np.asarray(tree), device=device)
+
+
+def count_params(cfg: ModelConfig) -> int:
+    """Elements over every leaf of ``build_params``."""
+    total = 0
+
+    def make(path, shape, scale):
+        nonlocal total
+        total += int(np.prod(shape))
+
+    build_params(cfg, make)
+    return total

@@ -1,10 +1,10 @@
 """Semantic-operator runtime: function cache, backends, batched runner."""
-from .backend import Backend, OracleBackend
+from .backend import Backend, ModelBackend, OracleBackend
 from .cache import CacheStats, FunctionCache, VerdictTable
 from .runner import SemanticResult, SemanticRunner, render_prompt
 
 __all__ = [
-    "Backend", "OracleBackend",
+    "Backend", "ModelBackend", "OracleBackend",
     "CacheStats", "FunctionCache", "VerdictTable",
     "SemanticResult", "SemanticRunner", "render_prompt",
 ]

@@ -10,10 +10,11 @@
   paper's observation that even semantics-preserving rewrites show F1 < 1
   against a separate execution.
 
-The reference's ``ModelBackend`` (a language model served through the
-serving tier) waits for the port's LLM slice.
+* ``ModelBackend`` — answers prompts with the port's LM served through
+  the serving tier (``repro_torch.serving.ServingEngine``: prefill +
+  continuous decode, K7/K8 on the card).
 
-Backends count invocations so benchmarks can report C_LLM exactly.
+Both count invocations so benchmarks can report C_LLM exactly.
 """
 from __future__ import annotations
 
@@ -88,3 +89,89 @@ class OracleBackend(Backend):
             # what makes cache-avoided calls visible in wall time
             time.sleep(self.per_call_latency_s * len(prompts))
         return out
+
+
+class ModelBackend(Backend):
+    """Wraps a callable ``answer_fn(prompts) -> list[str]`` (typically
+    ``ServingEngine.answer``); parses YES/NO or integers out of the reply.
+
+    Constructed via ``from_engine(engine)`` (the default, continuous
+    mode) it also speaks the async ticket protocol: ``submit_batch``
+    enqueues prompts on the engine's continuous scheduler — row weights
+    become weighted-fair admission priorities — and returns once the
+    admissions are queued on the device, ``collect`` drains the tickets
+    and parses the answers. ``from_engine(engine, continuous=False)``
+    keeps the drain-per-batch dispatch."""
+
+    def __init__(self, answer_fn: Callable[[Sequence[str]], list[str]],
+                 out_dtype: str = "bool",
+                 preferred_batch_rows: Optional[int] = None,
+                 engine=None):
+        self.answer_fn = answer_fn
+        self.out_dtype = out_dtype
+        self.preferred_batch_rows = preferred_batch_rows
+        self.engine = engine
+        self.calls = 0
+
+    @property
+    def supports_async(self) -> bool:
+        """Ticket protocol available iff a continuous engine is bound."""
+        return self.engine is not None
+
+    @classmethod
+    def from_engine(cls, engine, out_dtype: str = "bool",
+                    continuous: bool = True) -> "ModelBackend":
+        """Wrap a ``ServingEngine``, inheriting its bucket-aligned
+        dispatch size so runner chunks map onto whole serving batches.
+        ``continuous=False`` pins the drained path."""
+        if continuous:
+            return cls(engine.answer, out_dtype=out_dtype,
+                       preferred_batch_rows=getattr(
+                           engine, "preferred_batch_rows", None),
+                       engine=engine)
+        return cls(engine.answer_drained, out_dtype=out_dtype,
+                   preferred_batch_rows=getattr(
+                       engine, "preferred_batch_rows", None))
+
+    # ------------------------------------------------- async ticket API
+    def submit_batch(self, prompts, contexts, weights=None):
+        """Enqueue one chunk on the continuous scheduler; returns an
+        opaque handle for ``collect``. Does not wait for the device."""
+        prompts = list(prompts)
+        self.calls += len(prompts)
+        ticket = self.engine.submit(prompts, weights=weights)
+        return ticket, list(contexts)
+
+    def collect(self, handles):
+        """Drain every submitted ticket and parse answers, in order."""
+        out = []
+        for ticket, ctxs in handles:
+            self.engine.drain(ticket)
+            raw = self.engine.answers(ticket)
+            out.extend(self._parse(r, ctx) for r, ctx in zip(raw, ctxs))
+        return out
+
+    # ------------------------------------------------------ sync path
+    def evaluate_batch(self, prompts, contexts):
+        self.calls += len(prompts)
+        raw = self.answer_fn(list(prompts))
+        return [self._parse(r, ctx) for r, ctx in zip(raw, contexts)]
+
+    def _parse(self, r, ctx):
+        dtype = ctx.get("__dtype__", self.out_dtype)
+        txt = (r or "").strip().upper()
+        if dtype in ("bool",):
+            return (txt.startswith("YES") or txt.startswith("TRUE")
+                    or txt.startswith("1"))
+        if dtype in ("int", "float"):
+            num = ""
+            for ch in txt:
+                if ch.isdigit() or (ch == "-" and not num):
+                    num += ch
+                elif num:
+                    break
+            try:
+                return int(num) if dtype == "int" else float(num)
+            except ValueError:
+                return 0
+        return r

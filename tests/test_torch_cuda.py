@@ -1,8 +1,10 @@
 """The port's CUDA kernels and the ops built on them, on the card: each
 kernel bit-identical to its plain PyTorch version, each host-facing op
 at ``impl="kernel"`` identical to its ``impl="host"`` numpy oracle, and
-every launch counted (K1-K6). Imports neither JAX nor the reference, so
-it runs where only PyTorch is installed:
+every launch counted (K1-K6); K7/K8 within 1e-4 of their plain
+versions, and the dense LM's kernel path equal to its plain path
+(K7/K8). Imports neither JAX nor the reference, so it runs where only
+PyTorch is installed:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -19,7 +21,18 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import attention_cases as AC  # noqa: E402
 from repro_torch.kernels.compact import compact as t_compact  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention as t_dec,
+)
+from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
+    decode_attention_ref,
+)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention as t_fa,
+)
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.compact.ops import compact_index  # noqa: E402
 from repro_torch.kernels.compact.ref import prefix_count_torch  # noqa: E402
 from repro_torch.kernels.expand import expand as t_expand  # noqa: E402
@@ -178,7 +191,8 @@ def test_kernels_match_plain_versions(dev, n):
     assert _build.LAUNCHES == {"prefix_count": 1, "hash_rows": 3,
                                "group_boundaries": 4,
                                "running_segment_ids": int(marks.numel() > 0),
-                               "segment_reduce": 0, "radix_rank": 0}
+                               "segment_reduce": 0, "radix_rank": 0,
+                               "flash_attention": 0, "decode_attention": 0}
 
 
 @pytest.mark.cuda
@@ -342,3 +356,105 @@ def test_hash_join_and_min_max_on_card_match_host(dev):
         np.testing.assert_array_equal(_np(a), b)
     # three radix histograms, four aggregates, two histograms of counts
     assert _build.LAUNCHES["segment_reduce"] == 9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", AC.HEAD_DIMS)
+@pytest.mark.parametrize("group", AC.GROUPS)
+@pytest.mark.parametrize("S", AC.SEQ_LENS)
+def test_flash_attention_kernel_matches_plain_version(dev, S, group, d):
+    g = torch.Generator(device=dev).manual_seed(S * 131 + group * 7 + d)
+    B, K = 2, 2
+    H = group * K
+    # the model's (B, S, H, d) layout, read through transposed views
+    q = torch.randn(B, S, H, d, generator=g, device=dev).transpose(1, 2)
+    k = torch.randn(B, S, K, d, generator=g, device=dev).transpose(1, 2)
+    v = torch.randn(B, S, K, d, generator=g, device=dev).transpose(1, 2)
+    for causal in (True, False):
+        _build.reset_launches()
+        got = t_fa.flash_attention_kernel(q, k, v, causal=causal)
+        assert _build.LAUNCHES["flash_attention"] == 1
+        want = attention_ref(q, k, v, causal=causal)
+        assert got.stride() == q.stride()
+        err = float((got - want).abs().max())
+        assert err <= AC.TOLERANCE, (causal, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", AC.HEAD_DIMS)
+@pytest.mark.parametrize("group", AC.GROUPS)
+@pytest.mark.parametrize("T", AC.CACHE_LENS)
+def test_decode_attention_kernel_matches_plain_version(dev, T, group, d):
+    g = torch.Generator(device=dev).manual_seed(T * 17 + group * 3 + d)
+    K = 2
+    H = group * K
+    lengths = torch.tensor(AC.decode_lengths(T), dtype=torch.int32,
+                           device=dev)
+    B = lengths.shape[0]
+    q = torch.randn(B, H, d, generator=g, device=dev)
+    # the model's (B, T, K, d) cache, read through a permuted view
+    k = torch.randn(B, T, K, d, generator=g, device=dev).permute(0, 2, 1, 3)
+    v = torch.randn(B, T, K, d, generator=g, device=dev).permute(0, 2, 1, 3)
+    _build.reset_launches()
+    got = t_dec.decode_attention_kernel(q, k, v, lengths)
+    assert _build.LAUNCHES["decode_attention"] == 1
+    err = float((got - decode_attention_ref(q, k, v, lengths)).abs().max())
+    assert err <= AC.TOLERANCE, err
+    zero = t_dec.decode_attention_kernel(q, k, v, torch.zeros_like(lengths))
+    err0 = (zero - decode_attention_ref(q, k, v, torch.zeros_like(lengths)))
+    assert float(err0.abs().max()) <= AC.TOLERANCE  # the mean of V
+
+
+@pytest.mark.cuda
+def test_attention_wrappers_reject_wrong_operands(dev):
+    q = torch.zeros(1, 4, 8, 16, device=dev)
+    k = torch.zeros(1, 3, 8, 16, device=dev)
+    wide = torch.zeros(1, 2, 8, 129, device=dev)
+    flash = t_fa.flash_attention_kernel
+    with pytest.raises(ValueError):  # 4 heads over 3 KV heads
+        flash(q, k, k)
+    with pytest.raises(ValueError):  # head_dim above 128
+        flash(wide, wide[:, :1], wide[:, :1])
+    with pytest.raises(TypeError):
+        flash(q.double(), k.double(), k.double())
+    with pytest.raises(ValueError):  # unit stride on d required
+        flash(q.transpose(2, 3), q.transpose(2, 3), q.transpose(2, 3))
+    with pytest.raises(ValueError):  # 33 query heads per KV head
+        t_dec.decode_attention_kernel(
+            torch.zeros(1, 33, 16, device=dev),
+            torch.zeros(1, 1, 4, 16, device=dev),
+            torch.zeros(1, 1, 4, 16, device=dev),
+            torch.ones(1, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.cuda
+def test_serving_kernel_path_matches_plain_path(dev):
+    """A tiny GQA model served on the card with K7/K8 (``auto``) and
+    with the plain grouped einsum (``ref``): the same answers through
+    slot recycling, K7 launched once per layer per admission and K8 once
+    per layer per round."""
+    from repro_torch.configs import get_tiny
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServingEngine
+
+    cfg = get_tiny("internlm2-20b").replace(vocab_size=512)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    prompts = [f"card serving probe {i} " + "word " * (i % 11)
+               for i in range(13)]
+    out = {}
+    for impl in ("auto", "ref"):
+        eng = ServingEngine(cfg, params, batch_size=4, max_seq=24,
+                            max_new_tokens=3, device=dev, attn_impl=impl)
+        _build.reset_launches()
+        out[impl] = eng.answer(prompts)
+        launches = dict(_build.LAUNCHES)
+        if impl == "auto":
+            assert launches["flash_attention"] == \
+                cfg.num_layers * eng.stats.batches
+            assert launches["decode_attention"] == \
+                cfg.num_layers * eng.stats.decode_steps
+        else:
+            assert launches["flash_attention"] == 0
+            assert launches["decode_attention"] == 0
+    assert out["auto"] == out["ref"]

@@ -36,10 +36,17 @@ def _imported_roots(path: Path) -> set[str]:
 def test_port_files_exist():
     files = _port_files()
     assert len(files) > 20
-    assert (PORT / "csrc" / "scan.cuh").exists()
+    for src in ("scan.cuh", "flash_attention.cu", "decode_attention.cu"):
+        assert (PORT / "csrc" / src).exists(), src
     # the scan below covers the modules of every slice
     for rel in ("streaming/state.py", "streaming/ingest.py",
-                "streaming/standing.py", "core/estimate.py"):
+                "streaming/standing.py", "core/estimate.py",
+                "models/config.py", "models/params.py", "models/layers.py",
+                "models/lm.py", "configs/__init__.py",
+                "configs/starcoder2_3b.py", "training/data.py",
+                "serving/scheduler.py", "serving/engine.py",
+                "launch/serve.py", "kernels/flash_attention/ops.py",
+                "kernels/decode_attention/ops.py"):
         assert PORT / rel in files, rel
 
 

@@ -1,0 +1,164 @@
+"""The port's dense LM against the reference's on the same weights: the
+reference's parameters (``repro.models.init_params``) carried across
+with ``params_from_numpy``, the same token ids from a numpy seed, and
+``prefill`` logits and every cache leaf, one ``decode_step`` and
+decode-matches-forward compared. Tolerance: 1e-4 absolute and relative
+on float32 logits and K/V (the two frameworks sum and round matrix
+products in different orders; logits here are O(1–10)); ``slot_pos``
+exact. Other families raise ``NotImplementedError``."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs import get_tiny  # noqa: E402
+from repro.models import (  # noqa: E402
+    count_params,
+    decode_step,
+    forward,
+    init_params,
+    prefill,
+)
+from repro.sharding import ShardingPolicy  # noqa: E402
+import repro_torch.models as pm  # noqa: E402
+from repro_torch.configs import all_arch_ids  # noqa: E402
+from repro_torch.configs import get_config as port_config  # noqa: E402
+from repro_torch.configs import get_tiny as port_tiny  # noqa: E402
+
+DENSE = ("stablelm-3b", "starcoder2-3b", "qwen2.5-32b", "internlm2-20b")
+TOL = dict(atol=1e-4, rtol=1e-4)
+POLICY = ShardingPolicy.single()
+_CACHE: dict = {}
+
+
+def setup(arch):
+    """(cfg, reference params, port params) for ``arch``'s tiny config."""
+    if arch not in _CACHE:
+        cfg = get_tiny(arch)
+        ref = init_params(cfg, jax.random.PRNGKey(0))
+        port = pm.params_from_numpy(jax.tree.map(np.asarray, ref), "cpu")
+        assert same_config(port_tiny(arch), cfg)
+        _CACHE[arch] = (cfg, ref, port)
+    return _CACHE[arch]
+
+
+def same_config(a, b) -> bool:
+    """Field-for-field equality of the port's and the reference's
+    ``ModelConfig`` (two classes, so ``==`` is always False)."""
+    return dataclasses.asdict(a) == dataclasses.asdict(b)
+
+
+def close(got, want, **tol):
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               **(tol or TOL))
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_params_layout(arch):
+    cfg, ref, port = setup(arch)
+    assert pm.count_params(cfg) == count_params(cfg)
+    leaves = jax.tree_util.tree_leaves_with_path(ref)
+    assert len(leaves) == len(jax.tree_util.tree_leaves(port))
+    shapes = pm.build_params(cfg, lambda path, shape, scale: shape)
+    for path, leaf in leaves:
+        keys = [p.key for p in path]
+        node, want = port, shapes
+        for k in keys:
+            node, want = node[k], want[k]
+        assert tuple(node.shape) == leaf.shape == tuple(want), keys
+        assert node.dtype == torch.float32
+    gen = torch.Generator().manual_seed(0)
+    rand = pm.init_params(cfg, gen, device="cpu")
+    blocks = rand["blocks"]
+    assert torch.equal(blocks["ln1"], torch.ones_like(blocks["ln1"]))
+    w = blocks["attn"]["wq"]
+    assert abs(float(w.std()) * np.sqrt(cfg.d_model) - 1) < 0.1
+    if cfg.qkv_bias:
+        assert not blocks["attn"]["bq"].any()
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_prefill_logits_and_cache(arch):
+    cfg, ref, port = setup(arch)
+    toks = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (3, 13)).astype(np.int32)
+    lr, cr = prefill(cfg, POLICY, ref, {"tokens": jnp.asarray(toks)},
+                     max_seq=17)
+    lp, cp = pm.prefill(port_tiny(arch), port,
+                        {"tokens": torch.as_tensor(toks)}, max_seq=17)
+    close(lp, lr)
+    assert set(cp) == set(cr)
+    for k in ("k", "v"):
+        close(cp[k], cr[k])
+    np.testing.assert_array_equal(cp["slot_pos"].numpy(),
+                                  np.asarray(cr["slot_pos"]))
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_decode_step(arch):
+    cfg, ref, port = setup(arch)
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, cfg.vocab_size, (3, 10)).astype(np.int32)
+    _, cr = prefill(cfg, POLICY, ref, {"tokens": jnp.asarray(toks)},
+                    max_seq=14)
+    _, cp = pm.prefill(cfg, port, {"tokens": torch.as_tensor(toks)},
+                       max_seq=14)
+    nxt = rng.integers(0, cfg.vocab_size, 3).astype(np.int32)
+    pos = np.array([10, 3, 13], np.int32)  # append, overwrite, last slot
+    ld, cr2 = decode_step(cfg, POLICY, ref, cr, jnp.asarray(nxt),
+                          jnp.asarray(pos))
+    lp, cp2 = pm.decode_step(cfg, port, cp, torch.as_tensor(nxt),
+                             torch.as_tensor(pos))
+    assert cp2 is cp  # updated in place
+    close(lp, ld)
+    for k in ("k", "v"):
+        close(cp[k], cr2[k])
+    np.testing.assert_array_equal(cp["slot_pos"].numpy(),
+                                  np.asarray(cr2["slot_pos"]))
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_decode_matches_forward(arch):
+    """Prefill S tokens, decode the next three one at a time: each step's
+    logits equal the full forward's at that position, in both packages."""
+    cfg, ref, port = setup(arch)
+    toks = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 9)).astype(np.int32)
+    S = 6
+    full_r, _, _ = forward(cfg, POLICY, ref, {"tokens": jnp.asarray(toks)})
+    full_p, _ = pm.forward(cfg, port, {"tokens": torch.as_tensor(toks)})
+    close(full_p, full_r)
+    _, cache = pm.prefill(cfg, port, {"tokens": torch.as_tensor(toks[:, :S])},
+                          max_seq=toks.shape[1])
+    for t in range(S, toks.shape[1]):
+        lg, cache = pm.decode_step(
+            cfg, port, cache, torch.as_tensor(toks[:, t]),
+            torch.full((2,), t, dtype=torch.int32))
+        close(lg, full_r[:, t])
+
+
+@pytest.mark.parametrize("arch", sorted(set(all_arch_ids()) - {
+    "stablelm-3b", "starcoder2-3b", "qwen2.5-32b", "internlm2-20b"}))
+def test_other_families_raise(arch):
+    for cfg in (port_config(arch), port_tiny(arch)):
+        with pytest.raises(NotImplementedError):
+            pm.build_params(cfg, lambda *a: None)
+        with pytest.raises(NotImplementedError):
+            pm.init_cache(cfg, 1, 4, device="cpu")
+
+
+def test_full_configs_are_the_references():
+    from repro.configs import get_config
+
+    for arch in all_arch_ids():
+        assert same_config(port_config(arch), get_config(arch))
+        assert same_config(port_tiny(arch), get_tiny(arch))
+    cfg = port_config("starcoder2-3b")
+    assert pm.count_params(cfg) == count_params(cfg)
+    assert cfg.param_count() == 3_180_515_328  # without the final norm
+    assert (cfg.num_heads // cfg.num_kv_heads, cfg.resolved_head_dim) == \
+        (12, 128)
