@@ -38,13 +38,24 @@ Phases, each printing one JSON line:
 7. ``attention`` — K7 (flash attention) and K8 (flash-decode) against
    their plain versions on unit-normal inputs: K7 at S in {1, 63, 64,
    65, 128, 1000}, GQA group in {1, 2, 12}, head_dim in {64, 80, 128},
-   causal and not, through the model's transposed (B, S, H, d) views;
-   K8 at T in {1, 131, 1000} with rows of lengths {1, 2, T-1, T} in one
-   batch, through the model's permuted (B, T, K, d) cache; within
-   1e-4 (float32 sums over <= 1000 keys in another order). The sweep
-   and its tolerance are ``repro_torch.kernels.attention_cases``, which
-   the card tests share;
-8. ``serve`` — starcoder2-3b at full width (30 layers, d_model 3072,
+   causal and not, through the model's transposed (B, S, H, d) views,
+   and causal with a sliding window of {1, 17, 64} at S = 1000; K8 at T
+   in {1, 131, 1000} with rows of lengths {1, 2, T-1, T} in one batch,
+   through the model's permuted (B, T, K, d) cache, and with the
+   reference's slot mask over wrapped rings of 16 and 64 slots (entries
+   above pos, entries too old for the window, empty slots); within 1e-4
+   (float32 sums over <= 1000 keys in another order). The sweep and its
+   tolerance are ``repro_torch.kernels.attention_cases``, which the
+   card tests share;
+8. ``ssd`` — K9 (the SSD intra-chunk step) against its plain version,
+   all four outputs, over ``repro_torch.kernels.ssd_cases``: chunk in
+   {64, 128}, s in {1, chunk-1, chunk, chunk+1, 4 chunk+3} (padded as
+   ``ops.ssd`` pads), (h, p, n) in {(1, 16, 16), (32, 64, 128),
+   (50, 64, 16)}, b in {1, 16}, on the model's distribution (dt =
+   softplus(3 N), A = -U[1, 16]: exp above the diagonal overflows) and
+   strided layout; then ``ops.ssd`` against the sequential oracle at
+   (1, 1000, 4, 16, 16, 128); within ``ssd_cases.tolerance``;
+9. ``serve`` — starcoder2-3b at full width (30 layers, d_model 3072,
    24 query heads over 2 KV heads, head_dim 128, float32 weights from a
    seeded generator) behind ``ServingEngine(batch_size=16, max_seq=128,
    max_new_tokens=2)``: 256 prompts made from a seed, served
@@ -57,21 +68,40 @@ Phases, each printing one JSON line:
    then serves 64 of the prompts in two waves half a batch apart, so
    slots are freed and refilled while others are mid-decode, and holds
    the K7/K8 engine's token ids to the plain engine's there too;
-9. ``llm_query`` — five corpus queries (one per schema, scale 0.15,
+10. ``llm_query`` — five corpus queries (one per schema, scale 0.15,
    ``CostParams()``) through per-schema ``FrontDoor``s sharing one
    runner over ``ModelBackend.from_engine`` on the same starcoder2-3b
    engine, once with K7/K8 and once with the plain attention: rows,
    order, ``llm_calls``, ``cache_hits``, ``pipeline_syncs``,
    ``serving_syncs``, backend calls and the token ids the model emitted
    for every prompt must be equal;
-10. the ``kernels`` line: per kernel, its launches in the run of the
+11. ``serve_ssm`` and ``serve_hybrid`` — the same serving checks with
+   mamba2-370m (48 SSM layers, d_model 1024, 32 heads x 64, state 128,
+   chunk 128) and hymba-1.5b (32 layers, d_model 1600, attention of 25
+   query over 5 KV heads with window 2048 beside 50 SSM heads x 64,
+   state 16, chunk 64) at full width, 128 prompts each, kernel path
+   (K9, and K7/K8 for the hybrid) against the plain path (grouped
+   einsum and ``ssd_chunked``, no kernel): identical answers and token
+   ids (two-wave run included), K9 once per layer per admission, and
+   one admission's prefill logits, SSM ``state`` and ``conv`` compared;
+12. ``long_prefill`` — the shapes admissions never reach: mamba2-370m
+   prefills 2 x 2048 tokens (16 chunks), hymba-1.5b 1 x 4096 tokens
+   into a 4104-position cache (a 2048-slot ring; the window cuts) and
+   decodes 8 steps past the wrap, both paths, logits (and the SSM
+   state) within LONG_TOLERANCE of max|plain|;
+13. ``llm_query_hybrid`` — Q13 and q8 through ``ModelBackend`` on the
+   hymba-1.5b engines, held as ``llm_query`` holds its queries;
+14. the ``kernels`` line: per kernel, its launches in the run of the
    path it belongs to (``e2e`` for K1-K4, ``e2e_hash`` for K5 and K6,
-   ``serve`` for K7 and K8) and, at the largest shape that run gave it,
-   its device time, its plain version's, the bound and one PyTorch
-   library call's time where one computes the same function
+   ``serve`` for K7 and K8, ``serve_ssm`` for K9; every path's counts
+   beside) and, at the largest shape that run gave it, its device time,
+   its plain version's, the bound and one PyTorch library call's time
+   where one computes the same function
    (``scaled_dot_product_attention`` for K7/K8; each timed as
    CUDA-graph replays, so no host work is counted), plus the wrapper's
-   eager call time.
+   eager call time; K7 also with the hybrid's window and K8 with its
+   slot mask at ``serve_hybrid``'s shapes (and K7 at ``long_prefill``'s),
+   K9 also at ``serve_hybrid``'s and ``long_prefill``'s shapes.
 
 Float32 matrix products run in full float32: TF32 is switched off for
 cuBLAS and cuDNN, as the reference computes in float32.
@@ -83,6 +113,7 @@ the JAX package.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -109,6 +140,21 @@ EDGE_SIZES = (1, 1023, 1024, 1025, 65537, 1 << 24)
 INT32_MAX = 2**31 - 1
 SERVE_ARCH = "starcoder2-3b"
 SERVE = dict(batch_size=16, max_seq=128, max_new_tokens=2)
+SSM_ARCH = "mamba2-370m"
+HYBRID_ARCH = "hymba-1.5b"
+SSM_PROMPTS = 128
+# the kernels of the LLM tier, each path's launches of them
+LLM_KERNELS = ("flash_attention", "decode_attention", "ssd_chunk")
+# long_prefill: kernel path against plain path at full width, relative
+# to max|plain|: 48 (32) layers of float32 in which the SSD's chunk sums
+# (K9 against ssd_chunked), the attention sums (K7/K8 against the
+# grouped einsum) and the GEMMs' inputs differ in their last bits; the
+# chunk step alone is held to ssd_cases.tolerance, 2^-23 max|cum| of
+# max|plain|: 1e-4 to 1e-3 at the |cum| of 10^3 to 10^4 that random
+# dt·A reach in a chunk
+LONG_TOLERANCE = 1e-3
+# the hybrid's corpus queries through ModelBackend
+HYBRID_QIDS = ("Q13", "q8")
 
 
 def emit(obj) -> None:
@@ -800,11 +846,14 @@ def run_stream(device, n_base: int = 1 << 20, n_batch: int = 1 << 16,
 # ------------------------------------------------------- attention kernels
 
 def check_attention(device, seq=None, groups=None, dims=None,
-                    cache_lens=None, seed: int = 0) -> dict:
+                    cache_lens=None, windows=None, window_seq=None,
+                    ring_windows=None, seed: int = 0) -> dict:
     """K7 and K8 against their plain versions on ``device`` (unit-normal
     inputs from ``seed``, in the model's layouts) over the sweep of
-    ``attention_cases`` (or the given one); raises above its
-    tolerance. Returns the cases and the worst max|Δ| per kernel."""
+    ``attention_cases`` (or the given one): K7 causal and not, and
+    causal with a sliding window; K8 with per-row lengths, and with the
+    slot mask over a wrapped ring; raises above its tolerance. Returns
+    the cases and the worst max|Δ| per kernel and mask."""
     import torch
 
     from repro_torch.kernels import attention_cases as AC
@@ -818,9 +867,13 @@ def check_attention(device, seq=None, groups=None, dims=None,
     groups = groups or AC.GROUPS
     dims = dims or AC.HEAD_DIMS
     cache_lens = cache_lens or AC.CACHE_LENS
+    windows = windows or AC.WINDOWS
+    window_seq = window_seq or AC.WINDOW_SEQ
+    ring_windows = ring_windows or AC.RING_WINDOWS
     impl = "kernel" if device.type == "cuda" else "ref"
     g = torch.Generator(device=device).manual_seed(seed)
-    errs = {"flash_attention": 0.0, "decode_attention": 0.0}
+    errs = {"flash_attention": 0.0, "decode_attention": 0.0,
+            "flash_attention_window": 0.0, "decode_attention_ring": 0.0}
     cases = dict.fromkeys(errs, 0)
 
     def hold(name, got, want, what):
@@ -859,10 +912,99 @@ def check_attention(device, seq=None, groups=None, dims=None,
                      decode_attention(q, kt, vt, lengths, impl=impl),
                      decode_attention_ref(q, kt, vt, lengths),
                      f"K8 T={T} lengths={lens} group={grp} d={d}")
+            S = window_seq
+            q = torch.randn(B, S, H, d, generator=g, device=device)
+            k = torch.randn(B, S, K, d, generator=g, device=device)
+            v = torch.randn(B, S, K, d, generator=g, device=device)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            for w in windows:
+                hold("flash_attention_window",
+                     flash_attention(qt, kt, vt, causal=True, window=w,
+                                     impl=impl),
+                     attention_ref(qt, kt, vt, causal=True, window=w),
+                     f"K7 S={S} window={w} group={grp} d={d}")
+            for W in ring_windows:
+                rows = AC.ring_rows(W)
+                sp = torch.tensor(AC.ring_slot_pos(W, rows),
+                                  dtype=torch.int32, device=device)
+                pos = torch.tensor([p for _, p in rows], dtype=torch.int32,
+                                   device=device)
+                Bd = len(rows)
+                q = torch.randn(Bd, H, d, generator=g, device=device)
+                kc, vc = (torch.randn(Bd, W, K, d, generator=g,
+                                      device=device).permute(0, 2, 1, 3)
+                          for _ in range(2))
+                hold("decode_attention_ring",
+                     decode_attention(q, kc, vc, slot_pos=sp, pos=pos,
+                                      window=W, impl=impl),
+                     decode_attention_ref(q, kc, vc, slot_pos=sp, pos=pos,
+                                          window=W),
+                     f"K8 ring W={W} rows={rows} group={grp} d={d}")
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return {"cases": cases, "max_abs_err": errs,
             "tolerance": AC.TOLERANCE}
+
+
+# ------------------------------------------------------------ SSD kernel
+
+def check_ssd(device, cases=None, oracle=None, seed: int = 0) -> dict:
+    """K9 against its plain version ``ssd_chunk_ref`` on ``device``, all
+    four outputs, over the ``ssd_cases`` sweep (or ``cases``), on the
+    model's input distribution and strided layout; then ``ops.ssd``
+    (K9 plus the torch recurrence) against the sequential oracle at
+    ``ssd_cases.ORACLE_CASE`` (or ``oracle``, (b, s, h, p, n, chunk)).
+    Each output within ``ssd_cases.tolerance`` of max(1, max|plain|).
+    Returns the cases, the worst kernel-vs-plain error, the oracle's
+    error and the worst error over its allowance."""
+    import torch
+
+    from repro_torch.kernels import ssd_cases as SC
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_chunk_ref, ssd_reference
+    from repro_torch.kernels.ssd.ssd import ssd_chunk_kernel
+
+    cuda = device.type == "cuda"
+    step = ssd_chunk_kernel if cuda else ssd_chunk_ref
+    g = torch.Generator(device=device).manual_seed(seed)
+    worst = {"max_abs_err": 0.0, "oracle_max_abs_err": 0.0,
+             "err_over_allowance": 0.0}
+
+    def hold(got, want, tol, what, key="max_abs_err"):
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{what}: non-finite output")
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        allow = tol * max(1.0, float(want.abs().max()))
+        if not err <= allow:
+            raise AssertionError(f"{what}: max|diff| {err} > {allow}")
+        worst[key] = max(worst[key], err)
+        worst["err_over_allowance"] = max(worst["err_over_allowance"],
+                                          err / allow)
+
+    sweep = cases or SC.sweep()
+    for b, s, h, p, n, chunk in sweep:
+        x, dt, A, B, C = SC.case_inputs(b, s, h, p, n, chunk, g, device)
+        tol = SC.tolerance(SC.cum_max(dt, A, chunk))
+        got = step(x, dt, A, B, C, chunk=chunk)
+        want = ssd_chunk_ref(x, dt, A, B, C, chunk)
+        for name, a, w in zip(("y_diag", "states", "decay", "cum"), got,
+                              want):
+            hold(a, w, tol, f"K9 {name} (b,s,h,p,n,chunk)="
+                            f"{(b, s, h, p, n, chunk)}")
+    case = oracle or SC.ORACLE_CASE
+    b, s, h, p, n, chunk = case
+    x, dt, A, B, C = SC.oracle_inputs(g, device, case)
+    y, _ = ssd_ops.ssd(x, dt, A, B, C, chunk,
+                       impl="kernel" if cuda else "ref")
+    hold(y, ssd_reference(x, dt, A, B, C),
+         SC.tolerance(SC.cum_max(dt, A, chunk)),
+         f"ops.ssd vs the sequential oracle {(b, s, h, p, n, chunk)}",
+         key="oracle_max_abs_err")
+    if cuda:
+        torch.cuda.synchronize(device)
+    return {"cases": len(sweep), "oracle_case": [b, s, h, p, n, chunk],
+            **worst, "tolerance": "ssd_cases.tolerance(max|cum|) = "
+            "1e-5 + 2^-23 max|cum|, relative to max(1, max|plain|)"}
 
 
 # ------------------------------------------------------------ the serving
@@ -880,12 +1022,25 @@ def serve_prompts(n: int, seed: int = 0) -> list[str]:
 
 
 def serve_engine_pair(device, cfg, params, serve=SERVE):
-    """Two engines on the same weights: K7/K8 ("auto", the plain path on
-    a CPU rehearsal) and the plain path ("ref")."""
+    """Two engines on the same weights: the kernel path (K7/K8/K9,
+    "auto"; the plain path on a CPU rehearsal) and the plain path
+    ("ref": the grouped einsum and ``ssd_chunked``, no kernel)."""
     from repro_torch.serving import ServingEngine
 
     return tuple(ServingEngine(cfg, params, device=device, attn_impl=i,
-                               **serve) for i in ("auto", "ref"))
+                               ssd_impl=i, **serve) for i in ("auto", "ref"))
+
+
+def path_launches(cfg, admissions: int, rounds: int) -> dict:
+    """The LLM kernels' launches a served run must make: K7 and K9 once
+    per layer per admission, K8 once per layer per round, as far as the
+    family has attention (K7/K8) and SSM heads (K9)."""
+    attn = cfg.family != "ssm"
+    ssm = cfg.family in ("ssm", "hybrid")
+    L = cfg.num_layers
+    return {"flash_attention": L * admissions * attn,
+            "decode_attention": L * rounds * attn,
+            "ssd_chunk": L * admissions * ssm}
 
 
 def timed_serve(eng, prompts) -> tuple[list[str], dict]:
@@ -985,9 +1140,10 @@ def staggered_serve(eng, prompts, first: int) -> tuple[list[str], dict]:
 def run_serve(device, arch: str = SERVE_ARCH, n_prompts: int = 256,
               seed: int = 0, tiny: bool = False, serve=SERVE) -> dict:
     """The serving path at full width (``tiny`` for a CPU rehearsal):
-    weights from a seeded generator on ``device``, 256 prompts through
-    the K7/K8 engine and the plain engine. Returns the phase's numbers
-    and keeps the engines under ``"engines"`` for ``run_llm_query``."""
+    weights from a seeded generator on ``device``, ``n_prompts`` prompts
+    through the kernel-path engine and the plain engine. Returns the
+    phase's numbers and keeps the engines under ``"engines"`` for
+    ``run_llm_query`` and ``run_long_prefill``."""
     import torch
 
     from repro_torch.configs import get_config, get_tiny
@@ -1007,8 +1163,12 @@ def run_serve(device, arch: str = SERVE_ARCH, n_prompts: int = 256,
     prompts = serve_prompts(n_prompts, seed)
     out = {"arch": cfg.name, "params": count_params(cfg),
            "layers": cfg.num_layers, "d_model": cfg.d_model,
-           "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
-           "head_dim": cfg.resolved_head_dim, "prompts": n_prompts,
+           "family": cfg.family, "heads": cfg.num_heads,
+           "kv_heads": cfg.num_kv_heads,
+           "head_dim": cfg.resolved_head_dim, "attn_window":
+           cfg.attn_window, "ssm_heads": cfg.ssm_num_heads * (
+               cfg.family != "dense"), "ssm_state": cfg.ssm_state,
+           "ssm_chunk": cfg.ssm_chunk, "prompts": n_prompts,
            **serve, "init_s": init_s,
            "allow_tf32": [torch.backends.cuda.matmul.allow_tf32,
                           torch.backends.cudnn.allow_tf32]}
@@ -1035,77 +1195,273 @@ def run_serve(device, arch: str = SERVE_ARCH, n_prompts: int = 256,
             "serving_round_syncs": HOST_SYNCS.by_site.get(
                 "serving_round", 0) - rounds0,
             "occupancy": st.occupancy,
-            "launches": {k: launches[k] for k in ("flash_attention",
-                                                  "decode_attention")},
+            "launches": {k: launches[k] for k in LLM_KERNELS},
             "shapes": {k: list(v) for k, v in shapes.items()},
             "peak_device_bytes": (torch.cuda.max_memory_allocated(device)
                                   if cuda else None)}
+    name = cfg.name
     if answers["kernel"] != answers["plain"]:
         diff = sum(a != b for a, b in zip(answers["kernel"],
                                           answers["plain"]))
-        raise AssertionError(f"serve: {diff} of {n_prompts} answers differ "
-                             f"between K7/K8 and the plain attention")
+        raise AssertionError(f"serve {name}: {diff} of {n_prompts} answers "
+                             f"differ between the kernel and plain paths")
     if len(answers["kernel"]) != n_prompts or not all(answers["kernel"]):
-        raise AssertionError("serve: missing answers")
+        raise AssertionError(f"serve {name}: missing answers")
     k = out["kernel"]
     if k["serving_round_syncs"] != k["decode_rounds"]:
-        raise AssertionError("serve: not one serving_round sync per round")
+        raise AssertionError(f"serve {name}: not one serving_round sync "
+                             f"per round")
     if cuda:
-        want = {"flash_attention": cfg.num_layers * k["admissions"],
-                "decode_attention": cfg.num_layers * k["decode_rounds"]}
+        want = path_launches(cfg, k["admissions"], k["decode_rounds"])
         if k["launches"] != want:
-            raise AssertionError(f"serve: launches {k['launches']} != "
-                                 f"{want}")
+            raise AssertionError(f"serve {name}: launches {k['launches']} "
+                                 f"!= {want}")
         if any(out["plain"]["launches"].values()):
-            raise AssertionError("serve: the plain engine launched K7/K8")
-    # one admission's prefill logits and cache, both attention paths
+            raise AssertionError(f"serve {name}: the plain engine launched "
+                                 f"{out['plain']['launches']}")
+    # one admission's prefill logits and cache leaves, both paths
     toks = torch.from_numpy(np.stack([kern.encode_row(p)[0] for p in
                                       prompts[:serve["batch_size"]]])
                             ).to(device)
     lg = {}
     for eng in (kern, plain):
-        logits, cache = prefill(cfg, params, {"tokens": toks},
-                                max_seq=kern.cache_len,
-                                attn_impl=eng.attn_impl)
-        lg[eng.attn_impl] = (logits, cache["k"], cache["v"])
-    a, b = lg[kern.attn_impl], lg[plain.attn_impl]
-    if not all(bool(torch.isfinite(x).all()) for x in a):
-        raise AssertionError("serve: non-finite prefill logits or cache")
-    out["prefill_logit_max_abs_diff"] = float((a[0] - b[0]).abs().max())
-    out["prefill_logit_max_abs"] = float(b[0].abs().max())
-    out["prefill_kv_max_abs_diff"] = max(float((a[i] - b[i]).abs().max())
-                                         for i in (1, 2))
+        lg[eng.attn_impl] = prefill(cfg, params, {"tokens": toks},
+                                    max_seq=kern.cache_len,
+                                    attn_impl=eng.attn_impl,
+                                    ssd_impl=eng.ssd_impl)
+    (la, ca), (lb, cb) = lg[kern.attn_impl], lg[plain.attn_impl]
+    if not all(bool(torch.isfinite(x).all())
+               for x in (la, *(v for n, v in ca.items()
+                               if n != "slot_pos"))):
+        raise AssertionError(f"serve {name}: non-finite prefill logits or "
+                             f"cache")
+    out["prefill_logit_max_abs_diff"] = float((la - lb).abs().max())
+    out["prefill_logit_max_abs"] = float(lb.abs().max())
+    if "k" in ca:
+        out["prefill_kv_max_abs_diff"] = max(
+            float((ca[n] - cb[n]).abs().max()) for n in ("k", "v"))
+        if not torch.equal(ca["slot_pos"], cb["slot_pos"]):
+            raise AssertionError(f"serve {name}: slot_pos differs")
+    for n in ("state", "conv"):
+        if n in ca:
+            out[f"prefill_{n}_max_abs_diff"] = float(
+                (ca[n] - cb[n]).abs().max())
+            out[f"prefill_{n}_max_abs"] = float(cb[n].abs().max())
     out["answers_identical"] = True
+    if cuda:
+        out["breakdown"] = serve_breakdown(kern, toks, out["kernel"])
     # slots freed and refilled mid-decode: waves half a batch apart
     b = serve["batch_size"]
     stag = {eng.attn_impl: staggered_serve(eng, prompts[:4 * b], b // 2)
             for eng in (kern, plain)}
     (ka, kr), (pa, pr) = stag[kern.attn_impl], stag[plain.attn_impl]
     if ka != pa or kr["ids"] != pr["ids"]:
-        raise AssertionError("serve (staggered): answers differ between "
-                             "K7/K8 and the plain attention")
+        raise AssertionError(f"serve {name} (staggered): answers differ "
+                             f"between the kernel and plain paths")
     if not kr["mid_decode_admissions"]:
-        raise AssertionError("serve (staggered): no slot was refilled "
-                             "mid-decode")
+        raise AssertionError(f"serve {name} (staggered): no slot was "
+                             f"refilled mid-decode")
     out["staggered"] = {"prompts": 4 * b, "first_wave": b // 2,
                         "mid_decode_admissions": kr["mid_decode_admissions"],
                         "tokens_compared": sum(map(len, kr["ids"]))}
     # K8's lengths in a first decode round of these prompts: pos + 1
     out["decode_lengths"] = [kern.encode_row(p)[1] for p in
                              prompts[:serve["batch_size"]]]
+    out["cache_len"] = kern.cache_len
     out["answer_sample"] = answers["kernel"][:4]
     out["engines"] = (kern, plain)
     return out
 
 
-def run_llm_query(device, engines, scale: float = 0.15) -> dict:
-    """Five corpus queries (one per schema) through per-schema
-    ``FrontDoor``s sharing one runner over ``ModelBackend.from_engine``,
-    once per engine of ``engines`` (K7/K8, plain); everything the
-    queries report must agree, and so must the token ids the model
-    emitted for every backend prompt (with random weights the verdicts
-    parse to False on both paths, so the ids are what holds K7/K8 to
-    the plain path here)."""
+GEMM_LEAVES = ("wq", "wk", "wv", "wo", "w_in", "w_out", "w_gate")
+
+
+def serve_breakdown(eng, toks, run: dict) -> dict:
+    """Where one admission's and one round's time goes on the kernel
+    path of ``eng``: the admission's prefill of ``toks`` and one decode
+    round over its cache, each as CUDA-graph replays (device time, no
+    host work) beside the eager times ``run`` measured (``prefill_s`` /
+    admissions, ``decode_s`` / rounds: device time plus the time the
+    card waited on the host); and the projection GEMMs of the prefill
+    alone (every layer's ``GEMM_LEAVES`` matrices at the admission's
+    B x S rows, as graph replays)."""
+    import torch
+
+    from repro_torch.models import decode_step, prefill
+
+    cfg, params = eng.cfg, eng.params
+    B, S = toks.shape
+
+    def run_prefill():
+        return prefill(cfg, params, {"tokens": toks}, max_seq=eng.cache_len,
+                       attn_impl=eng.attn_impl, ssd_impl=eng.ssd_impl)
+
+    prefill_ms = time_ms(run_prefill, reps=3, inner=2, warmup=1)
+    _, cache = run_prefill()
+    tok = toks[:, -1].contiguous()
+    pos = torch.full((B,), S - 1, dtype=torch.int32, device=toks.device)
+    decode_ms = time_ms(lambda: decode_step(cfg, params, cache, tok, pos,
+                                            attn_impl=eng.attn_impl),
+                        reps=5, inner=5, warmup=1)
+    g = torch.Generator(device=toks.device).manual_seed(3)
+    gemm_ms, gemm_flops = 0.0, 0
+    for part in params["blocks"].values():
+        if not isinstance(part, dict):
+            continue
+        for name, w in part.items():
+            if name not in GEMM_LEAVES:
+                continue
+            w0 = w[0].reshape(w.shape[1], -1) if name != "wo" else \
+                w[0].reshape(-1, w.shape[-1])
+            x = torch.randn(B * S, w0.shape[0], generator=g,
+                            device=toks.device)
+            gemm_ms += cfg.num_layers * time_ms(lambda: x @ w0, reps=10,
+                                                inner=5)
+            gemm_flops += cfg.num_layers * 2 * B * S * w0.numel()
+    del cache
+    eager_prefill = run["prefill_s"] / run["admissions"] * 1e3
+    eager_round = run["decode_s"] / run["decode_rounds"] * 1e3
+    return {"rows": B, "seq": S,
+            "prefill_eager_ms": eager_prefill, "prefill_graph_ms": prefill_ms,
+            "prefill_gemm_ms": gemm_ms,
+            "prefill_gemm_tflop_per_s": gemm_flops / gemm_ms / 1e9,
+            "decode_round_eager_ms": eager_round,
+            "decode_round_graph_ms": decode_ms,
+            "decode_host_share": 1.0 - decode_ms / eager_round}
+
+
+def run_long_prefill(device, ssm_eng, hybrid_eng, ssm_shape=(2, 2048),
+                     hybrid_shape=(1, 4096), hybrid_max_seq: int = 4104,
+                     steps: int = 8, seed: int = 0) -> dict:
+    """Full width at the multi-tile shapes the 128-token admissions never
+    reach: the SSM model's ``prefill`` at ``ssm_shape`` (B, S) (16 chunks
+    of 128 at full width), both paths, logits and final ``state``
+    compared; the hybrid's ``prefill`` at ``hybrid_shape`` with cache
+    length ``hybrid_max_seq``, so that its ring holds W = 2048 slots and
+    the window cuts, then ``steps`` decode steps past the wrap, both
+    paths, logits compared at every step. Each within LONG_TOLERANCE of
+    max|plain|; launches counted per path."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.models import decode_step, prefill
+
+    cuda = device.type == "cuda"
+    rng = np.random.default_rng(seed)
+
+    def rel(a, b):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError("long_prefill: non-finite output")
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    def timed(fn):
+        if not cuda:
+            t0 = time.perf_counter()
+            return fn(), time.perf_counter() - t0
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        res = fn()
+        b.record()
+        b.synchronize()
+        return res, a.elapsed_time(b) / 1e3
+
+    out = {"tolerance": LONG_TOLERANCE}
+    # the SSM model: 16 chunks per row
+    eng = ssm_eng
+    cfg, params = eng.cfg, eng.params
+    B, S = ssm_shape
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
+                            .astype(np.int32)).to(device)
+    res = {}
+    for impl in ("auto", "ref"):
+        _build.reset_launches()
+        (lg, cache), sec = timed(lambda: prefill(
+            cfg, params, {"tokens": toks}, max_seq=S, attn_impl=impl,
+            ssd_impl=impl))
+        res[impl] = (lg, cache["state"], sec, dict(_build.LAUNCHES),
+                     dict(_build.MAX_SHAPES))
+    (la, sa, ta, na, shapes), (lb, sb, tb, nb, _) = res["auto"], res["ref"]
+    ssm = {"arch": cfg.name, "batch": B, "seq": S,
+           "chunks": S // cfg.ssm_chunk, "prefill_s": ta,
+           "plain_prefill_s": tb,
+           "logit_rel_diff": rel(la, lb), "state_rel_diff": rel(sa, sb),
+           "logit_max_abs": float(lb.abs().max()),
+           "state_max_abs": float(sb.abs().max()),
+           "launches": {k: na[k] for k in LLM_KERNELS},
+           "plain_launches": {k: nb[k] for k in LLM_KERNELS},
+           "shapes": {k: list(v) for k, v in shapes.items()}}
+    del res, cache, la, lb, sa, sb
+    # the hybrid: the ring wraps and the window cuts
+    eng = hybrid_eng
+    cfg, params = eng.cfg, eng.params
+    B, S = hybrid_shape
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S + steps))
+                            .astype(np.int32)).to(device)
+    res = {}
+    for impl in ("auto", "ref"):
+        _build.reset_launches()
+        (lg, cache), sec = timed(lambda: prefill(
+            cfg, params, {"tokens": toks[:, :S]}, max_seq=hybrid_max_seq,
+            attn_impl=impl, ssd_impl=impl))
+        shapes = dict(_build.MAX_SHAPES)
+        logits = [lg]
+        t_dec = 0.0
+        for i in range(steps):
+            pos = torch.full((B,), S + i, dtype=torch.int32, device=device)
+            (ld, cache), sec_d = timed(lambda: decode_step(
+                cfg, params, cache, toks[:, S + i], pos, attn_impl=impl))
+            logits.append(ld)
+            t_dec += sec_d
+        res[impl] = (logits, sec, t_dec, dict(_build.LAUNCHES), shapes,
+                     cache["slot_pos"])
+    ka, kb = res["auto"], res["ref"]
+    W = ka[5].shape[2]
+    hyb = {"arch": cfg.name, "batch": B, "seq": S,
+           "cache_len": hybrid_max_seq, "ring_slots": W,
+           "attn_window": cfg.attn_window, "decode_steps": steps,
+           "prefill_s": ka[1], "plain_prefill_s": kb[1],
+           "decode_s": ka[2], "plain_decode_s": kb[2],
+           "logit_rel_diff_per_step": [rel(a, b) for a, b in
+                                       zip(ka[0], kb[0])],
+           "logit_max_abs": max(float(b.abs().max()) for b in kb[0]),
+           "launches": {k: ka[3][k] for k in LLM_KERNELS},
+           "plain_launches": {k: kb[3][k] for k in LLM_KERNELS},
+           "shapes": {k: list(v) for k, v in ka[4].items()}}
+    if not torch.equal(ka[5], kb[5]) or int(ka[5].max()) != S + steps - 1:
+        raise AssertionError("long_prefill: ring slot_pos differs or the "
+                             "decode steps did not wrap")
+    del res, ka, kb
+    worst = max([ssm["logit_rel_diff"], ssm["state_rel_diff"]]
+                + hyb["logit_rel_diff_per_step"])
+    if not worst <= LONG_TOLERANCE:
+        raise AssertionError(f"long_prefill: kernel vs plain path "
+                             f"{worst} > {LONG_TOLERANCE} of max|plain|")
+    if cuda:
+        want_ssm = {"flash_attention": 0, "decode_attention": 0,
+                    "ssd_chunk": ssm_eng.cfg.num_layers}
+        L = cfg.num_layers
+        want_hyb = {"flash_attention": L, "decode_attention": L * steps,
+                    "ssd_chunk": L}
+        if ssm["launches"] != want_ssm or hyb["launches"] != want_hyb:
+            raise AssertionError(f"long_prefill: launches {ssm['launches']}"
+                                 f" / {hyb['launches']}")
+        if any(ssm["plain_launches"].values()) or \
+                any(hyb["plain_launches"].values()):
+            raise AssertionError("long_prefill: the plain path launched a "
+                                 "kernel")
+    out.update(ssm=ssm, hybrid=hyb, worst_rel_diff=worst)
+    return out
+
+
+def run_llm_query(device, engines, scale: float = 0.15, qids=None) -> dict:
+    """Five corpus queries (one per schema; or those of ``qids``) through
+    per-schema ``FrontDoor``s sharing one runner over
+    ``ModelBackend.from_engine``, once per engine of ``engines`` (kernel
+    path, plain path); everything the queries report must agree, and so
+    must the token ids the model emitted for every backend prompt (with
+    random weights the verdicts parse to False on both paths, so the ids
+    are what holds the kernels to the plain path here)."""
     import torch
 
     from repro_torch.core import CostParams, Q, col, optimize
@@ -1116,7 +1472,8 @@ def run_llm_query(device, engines, scale: float = 0.15) -> dict:
     from repro_torch.semantic import ModelBackend, SemanticRunner
     from repro_torch.serving import ServingStats
 
-    specs = [sp for sp in corpus_specs(Q, col, S) if sp[0] != "Q25"]
+    specs = [sp for sp in corpus_specs(Q, col, S)
+             if (sp[0] in qids if qids else sp[0] != "Q25")]
     fields = ("llm_calls", "cache_hits", "null_skipped", "probe_rows",
               "pipeline_syncs", "serving_syncs")
     runs = []
@@ -1162,7 +1519,7 @@ def run_llm_query(device, engines, scale: float = 0.15) -> dict:
         p = plain["queries"][qid]
         if q["rows"] != p["rows"]:
             raise AssertionError(f"llm_query {qid}: rows differ between "
-                                 f"K7/K8 and the plain attention")
+                                 f"the kernel and plain paths")
         if q["stats"] != p["stats"]:
             raise AssertionError(f"llm_query {qid}: {q['stats']} != "
                                  f"{p['stats']}")
@@ -1174,11 +1531,12 @@ def run_llm_query(device, engines, scale: float = 0.15) -> dict:
         raise AssertionError(
             f"llm_query: the token ids of {diff} of {len(kern['ids'])} "
             f"answers (counts {len(kern['ids'])} vs {len(plain['ids'])}) "
-            f"differ between K7/K8 and the plain attention")
+            f"differ between the kernel and plain paths")
     split = {k: sum(q["split"][k] for q in kern["queries"].values())
              for k in ("optimize_s", "execute_s", "rel_s", "sem_s",
                        "materialize_s")}
-    return {"scale": scale, "backend_calls": kern["calls"],
+    return {"arch": engines[0].cfg.name, "qids": list(kern["queries"]),
+            "scale": scale, "backend_calls": kern["calls"],
             "answers_compared": len(kern["ids"]),
             "tokens_compared": sum(map(len, kern["ids"])),
             "mid_decode_admissions": kern["mid_decode_admissions"],
@@ -1211,12 +1569,38 @@ def sdpa_call(q, k, v, **kw):
                                                   **kw)
 
 
+def ssd_work(b, s, h, p, n, chunk) -> tuple[int, int]:
+    """(bytes, operations) K9 must move and do at (b, s, h, p, n, chunk):
+    x, dt, B, C read once, y_diag, states, decay and cum written once;
+    2 l^2 n per (row, chunk) for C.B^T, 2 p per visible (i >= j) pair
+    and head for y_diag, 2 l h p n per (row, chunk) for the states."""
+    nc = s // chunk
+    n_bytes = 4 * (2 * b * s * h * p + 2 * b * s * h + h + 2 * b * s * n
+                   + b * nc * h * p * n + b * nc * h)
+    cells = b * nc
+    n_ops = cells * (2 * chunk * chunk * n + h * p * chunk * (chunk + 1)
+                     + 2 * chunk * h * p * n)
+    return n_bytes, n_ops
+
+
+def window_pairs(S: int, window: int) -> int:
+    """Visible (query, key) pairs of one causal (row, head) over S
+    positions within ``window`` (0: none)."""
+    if window <= 0 or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
 def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
-                by_path: dict, decode_lengths, seed: int = 1) -> list[dict]:
+                by_path: dict, decode_lengths, seed: int = 1,
+                llm: dict | None = None) -> list[dict]:
     """Time each kernel at the largest shape its path's run gave it
     (``launches``/``shapes``: K1-K4 from ``e2e``, K5/K6 from
-    ``e2e_hash``, K7/K8 from ``serve``; K8's rows hold the
-    ``decode_lengths`` of a first decode round of the served prompts):
+    ``e2e_hash``, K7/K8 from ``serve``, K9 from ``serve_ssm``; K8's rows
+    hold the ``decode_lengths`` of a first decode round of the served
+    prompts; ``llm`` adds K7 with the hybrid's window and K8 with its
+    slot mask at ``serve_hybrid``'s and ``long_prefill``'s shapes, and
+    K9 at ``long_prefill``'s and ``serve_hybrid``'s):
     the kernel, its plain version and the library call each as
     CUDA-graph replays (device time only), and the kernel's wrapper also
     as one eager call between two events (``wrapper_eager_ms``, which
@@ -1247,8 +1631,12 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
     from repro_torch.kernels.segmented_reduce.ref import segment_reduce_torch
     from repro_torch.kernels.segmented_reduce.segmented_reduce import (
         segment_reduce_kernel)
+    from repro_torch.kernels import ssd_cases as SC
+    from repro_torch.kernels.ssd.ref import ssd_chunk_ref
+    from repro_torch.kernels.ssd.ssd import ssd_chunk_kernel
 
     g = torch.Generator(device=device).manual_seed(seed)
+    llm = llm or {}
     rows = []
 
     def row(name, source, replaces, kern, plain, library, n_bytes, n_ops,
@@ -1371,6 +1759,37 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
     if not err7 <= TOLERANCE:
         raise AssertionError(f"K7 at the serve shape: {err7} > {TOLERANCE}")
     pairs = B * H * S * (S + 1) // 2
+
+    def k7_window(shape, window):
+        """K7 with the hybrid's window at ``shape`` (B, H, K, S, S, d):
+        kernel, plain and SDPA (with the window as a boolean mask) as
+        graph replays, the bound over the visible pairs."""
+        B, H, K, S, _, d = shape
+        q, k, v = (torch.randn(B, S, n, d, generator=g, device=device)
+                   .transpose(1, 2) for n in (H, K, K))
+        err = float((flash_attention_kernel(q, k, v, causal=True,
+                                            window=window)
+                     - attention_ref(q, k, v, causal=True, window=window))
+                    .abs().max())
+        if not err <= TOLERANCE:
+            raise AssertionError(f"K7 window {window} at {shape}: {err}")
+        dq = (torch.arange(S, device=device)[:, None]
+              - torch.arange(S, device=device)[None, :])
+        mask = (dq >= 0) & (dq < window)
+        b_ms, b_by = bound_ms(4 * (2 * B * H * S * d + 2 * B * K * S * d),
+                              4 * d * B * H * window_pairs(S, window))
+        out = {"shape": list(shape), "window": window, "max_abs_err": err,
+               "ms": time_ms(lambda: flash_attention_kernel(
+                   q, k, v, causal=True, window=window)),
+               "plain_ms": time_ms(lambda: attention_ref(
+                   q, k, v, causal=True, window=window)),
+               "library_ms": time_ms(sdpa_call(q, k, v, attn_mask=mask)),
+               "bound_ms": b_ms, "bound_by": b_by}
+        del q, k, v
+        return out
+
+    k7_extra = {f"window_{label}": k7_window(shape, w)
+                for label, (shape, w) in llm.get("k7", {}).items()}
     row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:97",
         lambda: flash_attention_kernel(q, k, v, causal=True),
@@ -1378,9 +1797,12 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
         sdpa_call(q, k, v, is_causal=True),
         4 * (2 * B * H * S * d + 2 * B * K * S * d), 4 * d * pairs,
         (B, H, K, S, S, d),
-        err=max(err7, max_err.get("flash_attention", 0.0)), causal=True,
-        tolerance=TOLERANCE,
-        library_call="scaled_dot_product_attention(is_causal, gqa)")
+        err=max([err7, max_err.get("flash_attention", 0.0),
+                 max_err.get("flash_attention_window", 0.0)]
+                + [x["max_abs_err"] for x in k7_extra.values()]),
+        causal=True, tolerance=TOLERANCE,
+        library_call="scaled_dot_product_attention(is_causal, gqa)",
+        **k7_extra)
 
     # K8 over a (B, T, K, d) cache with the first decode round's lengths
     B, H, K, T, d = shapes["decode_attention"]
@@ -1397,6 +1819,45 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
     live = int(lengths.clamp(max=T).sum())
     mask = (torch.arange(T, device=device)[None, :]
             < lengths[:, None])[:, None, None, :]
+    k8_extra = {}
+    if "k8" in llm:
+        # the hybrid's first decode round: prefill wrote slots 0..S-1 and
+        # the round's slot pos = len - 1 holds pos; the slot mask form
+        shape, lens, window = llm["k8"]
+        Bh, Hh, Kh, Th, dh = shape
+        ph = torch.tensor(list(lens)[:Bh], dtype=torch.int32,
+                          device=device) - 1
+        sp = torch.arange(Th, dtype=torch.int32, device=device).expand(
+            Bh, Th).contiguous()
+        sp[:, llm["k8_prefill_len"]:] = -1
+        qh = torch.randn(Bh, Hh, dh, generator=g, device=device)
+        kh, vh = (torch.randn(Bh, Th, Kh, dh, generator=g, device=device)
+                  .permute(0, 2, 1, 3) for _ in range(2))
+
+        def k8s():
+            return decode_attention_kernel(qh, kh, vh, slot_pos=sp, pos=ph,
+                                           window=window)
+
+        def k8p():
+            return decode_attention_ref(qh, kh, vh, slot_pos=sp, pos=ph,
+                                        window=window)
+
+        errh = float((k8s() - k8p()).abs().max())
+        if not errh <= TOLERANCE:
+            raise AssertionError(f"K8 slot mask at {shape}: {errh}")
+        ok_h = (sp >= 0) & (sp <= ph[:, None])
+        live_h = int(ok_h.sum())
+        b_ms, b_by = bound_ms(
+            4 * (2 * Bh * Hh * dh + 2 * Kh * dh * live_h + Bh * Th + Bh),
+            4 * dh * Hh * live_h)
+        k8_extra["slot_mask_hybrid"] = {
+            "shape": list(shape), "window": window, "live": live_h,
+            "max_abs_err": errh, "ms": time_ms(k8s),
+            "plain_ms": time_ms(k8p), "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(sdpa_call(
+                qh[:, :, None], kh, vh,
+                attn_mask=ok_h[:, None, None, :])),
+            "wrapper_eager_ms": eager_ms(k8s)}
     row("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention/decode_attention.py:78",
         lambda: decode_attention_kernel(qd, kc, vc, lengths),
@@ -1404,9 +1865,51 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
         sdpa_call(qd[:, :, None], kc, vc, attn_mask=mask),
         4 * (2 * B * H * d + 2 * K * d * live + B), 4 * d * H * live,
         (B, H, K, T, d),
-        err=max(err8, max_err.get("decode_attention", 0.0)),
+        err=max([err8, max_err.get("decode_attention", 0.0),
+                 max_err.get("decode_attention_ring", 0.0)]
+                + [x["max_abs_err"] for x in k8_extra.values()]),
         lengths=lengths.tolist(), tolerance=TOLERANCE,
-        library_call="scaled_dot_product_attention(attn_mask, gqa)")
+        library_call="scaled_dot_product_attention(attn_mask, gqa)",
+        **k8_extra)
+
+    # K9 at a full admission of the SSM model, then at the other shapes
+    # its paths gave it; the model's strided layout and distribution
+    def k9_case(shape):
+        b, s, h, p, n, chunk = shape
+        x, dt, A, B, C = SC.case_inputs(b, s, h, p, n, chunk, g, device)
+        got = ssd_chunk_kernel(x, dt, A, B, C, chunk=chunk)
+        want = ssd_chunk_ref(x, dt, A, B, C, chunk)
+        tol = SC.tolerance(SC.cum_max(dt, A, chunk))
+        err = 0.0
+        for a, w in zip(got, want):
+            e = float((a - w).abs().max())
+            if not e <= tol * max(1.0, float(w.abs().max())):
+                raise AssertionError(f"K9 at {shape}: {e}")
+            err = max(err, e)
+        return (x, dt, A, B, C, chunk), err
+
+    extra9 = {}
+    for label, shape in llm.get("k9", {}).items():
+        args, err = k9_case(shape)
+        b_ms, b_by = bound_ms(*ssd_work(*shape))
+        extra9[f"at_{label}"] = {
+            "shape": list(shape), "max_abs_err": err,
+            "ms": time_ms(lambda: ssd_chunk_kernel(*args[:5],
+                                                   chunk=args[5])),
+            "plain_ms": time_ms(lambda: ssd_chunk_ref(*args)),
+            "bound_ms": b_ms, "bound_by": b_by}
+        del args
+    if "ssd_chunk" in shapes:
+        shape = shapes["ssd_chunk"]
+        args, err9 = k9_case(shape)
+        row("ssd_chunk", "src/repro_torch/csrc/ssd.cu",
+            "src/repro/kernels/ssd/ssd.py:68",
+            lambda: ssd_chunk_kernel(*args[:5], chunk=args[5]),
+            lambda: ssd_chunk_ref(*args), None, *ssd_work(*shape), shape,
+            err=max([err9, max_err.get("ssd_chunk", 0.0)]
+                    + [x["max_abs_err"] for x in extra9.values()]),
+            tolerance="ssd_cases.tolerance: 1e-5 + 2^-23 max|cum|, of "
+                      "max(1, max|plain|)", library_call=None, **extra9)
     return rows
 
 
@@ -1467,6 +1970,11 @@ def main() -> int:
     errs.update(attn["max_abs_err"])
     emit({"phase": "attention", **attn, "seconds": time.perf_counter() - t0,
           "gpu": smi})
+    t0 = time.perf_counter()
+    ssd = check_ssd(device)
+    errs["ssd_chunk"] = ssd["max_abs_err"]
+    emit({"phase": "ssd", **ssd, "seconds": time.perf_counter() - t0,
+          "gpu": smi})
 
     e2e = run_e2e(device)
     emit({"phase": "e2e", **e2e, "gpu": smi})
@@ -1507,6 +2015,37 @@ def main() -> int:
           "gpu": smi})
     require_launched("llm_query", llm["launches"], ATTN_KERNELS)
     del engines
+    gc.collect()  # an engine and its scheduler refer to each other
+
+    served = {}
+    for phase, arch, need in (("serve_ssm", SSM_ARCH, ("ssd_chunk",)),
+                              ("serve_hybrid", HYBRID_ARCH, LLM_KERNELS)):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        served[phase] = run_serve(device, arch=arch, n_prompts=SSM_PROMPTS)
+        out = {k: v for k, v in served[phase].items() if k != "engines"}
+        emit({"phase": phase, **out, "seconds": time.perf_counter() - t0,
+              "gpu": smi})
+        require_launched(phase, out["kernel"]["launches"], need)
+    ssm, hyb = served["serve_ssm"], served["serve_hybrid"]
+
+    t0 = time.perf_counter()
+    long = run_long_prefill(device, ssm["engines"][0], hyb["engines"][0])
+    emit({"phase": "long_prefill", **long,
+          "seconds": time.perf_counter() - t0, "gpu": smi})
+    require_launched("long_prefill (ssm)", long["ssm"]["launches"],
+                     ("ssd_chunk",))
+    require_launched("long_prefill (hybrid)", long["hybrid"]["launches"],
+                     LLM_KERNELS)
+    del ssm["engines"]
+    gc.collect()
+
+    t0 = time.perf_counter()
+    llm_h = run_llm_query(device, hyb.pop("engines"), qids=HYBRID_QIDS)
+    emit({"phase": "llm_query_hybrid", **llm_h,
+          "seconds": time.perf_counter() - t0, "gpu": smi})
+    require_launched("llm_query_hybrid", llm_h["launches"], LLM_KERNELS)
+    torch.cuda.empty_cache()
 
     launches = dict(e2e["launches"])
     shapes = dict(e2e["shapes"])
@@ -1516,12 +2055,30 @@ def main() -> int:
     for k in ATTN_KERNELS:
         launches[k] = serve["kernel"]["launches"][k]
         shapes[k] = serve["kernel"]["shapes"][k]
+    launches["ssd_chunk"] = ssm["kernel"]["launches"]["ssd_chunk"]
+    shapes["ssd_chunk"] = ssm["kernel"]["shapes"]["ssd_chunk"]
+    hshapes = hyb["kernel"]["shapes"]
+    lshapes = long["hybrid"]["shapes"]
+    window = hyb["attn_window"]
+    llm_shapes = {
+        "k7": {"serve_hybrid": (hshapes["flash_attention"], window),
+               "long_prefill": (lshapes["flash_attention"], window)},
+        "k8": (hshapes["decode_attention"], hyb["decode_lengths"], window),
+        "k8_prefill_len": hyb["max_seq"],
+        "k9": {"serve_hybrid": hshapes["ssd_chunk"],
+               "long_prefill_ssm": long["ssm"]["shapes"]["ssd_chunk"],
+               "long_prefill_hybrid": lshapes["ssd_chunk"]}}
     rows = kernel_rows(device, launches, shapes, errs,
                        {"e2e": e2e["launches"],
                         "e2e_hash": e2e_hash["launches"],
                         "serve": serve["kernel"]["launches"],
-                        "llm_query": llm["launches"]},
-                       serve["decode_lengths"])
+                        "llm_query": llm["launches"],
+                        "serve_ssm": ssm["kernel"]["launches"],
+                        "serve_hybrid": hyb["kernel"]["launches"],
+                        "long_prefill_ssm": long["ssm"]["launches"],
+                        "long_prefill_hybrid": long["hybrid"]["launches"],
+                        "llm_query_hybrid": llm_h["launches"]},
+                       serve["decode_lengths"], llm=llm_shapes)
     emit({"kernels": rows})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {

@@ -4,7 +4,16 @@
 //   o[b,h] = sum_{t < len[b]} softmax_t(q[b,h] . k[b,h/G,t] * scale)
 //            v[b,h/G,t]
 //
-// with G = H / K query heads per KV head and per-row cache lengths.
+// with G = H / K query heads per KV head, over one of two masks:
+//
+//   * per-row cache lengths (the dense LM, whose slot t holds position
+//     t): positions t < len[b] are live;
+//   * the reference's slot mask (the hybrid LM's ring cache, whose slot
+//     t holds position slot_pos[b, t], written at pos % window): slot t
+//     is live iff 0 <= slot_pos[b,t] <= pos[b] and, with a window,
+//     pos[b] - slot_pos[b,t] < window (models/layers.py::
+//     attention_decode). A ring breaks slot_pos[t] == t, so no length
+//     can stand for this mask.
 //
 // Replaces the TPU kernel
 // src/repro/kernels/decode_attention/decode_attention.py::
@@ -20,13 +29,17 @@
 //     products hit distinct banks;
 //   * m and l are warp-uniform registers and each lane keeps d/32 output
 //     columns in float32; probabilities reach the P.V loop by shuffle;
-//   * only the row's first len[b] positions are read; the cache is read
-//     through its (b, kv, t) strides, so the model's (B, T, K, d) cache
-//     goes in as a permuted view.
+//   * under lengths only the row's first len[b] positions are read;
+//     under the slot mask all T are read and masked one by one, and a
+//     tile whose slots are all masked leaves the row's state as it was;
+//     the cache is read through its (b, kv, t) strides, so the model's
+//     (B, T, K, d) cache goes in as a permuted view.
 //
-// A length <= 0 follows the plain version (kernels/decode_attention/
-// ref.py), which softmaxes T equal masked scores: the mean of V over all
-// T positions. The serving path never passes it (lengths = pos + 1).
+// A row with nothing live (a length <= 0, or no live slot) follows the
+// plain version (kernels/decode_attention/ref.py), which softmaxes T
+// equal masked scores: the mean of V over all T positions. The serving
+// path never passes one (lengths = pos + 1; a row's current slot is
+// always live).
 //
 // Bound: memory, the cache prefix each row reads. At this slice's
 // widths T <= 131, so no split over T (flash-decoding's combine) is
@@ -71,6 +84,8 @@ __global__ void decode_kernel(const float* __restrict__ q,
                               const float* __restrict__ k,
                               const float* __restrict__ v,
                               const int* __restrict__ lengths,
+                              const int* __restrict__ slot_pos,
+                              const int* __restrict__ pos, int window,
                               float* __restrict__ o, int K, int group, int T,
                               int d, long long q_sb, long long q_sh,
                               Strides ks, Strides vs, long long o_sb,
@@ -92,9 +107,24 @@ __global__ void decode_kernel(const float* __restrict__ q,
     const int col = i - g * d;
     Qs[i] = q[b * q_sb + (kh * group + g) * q_sh + col];
   }
-  const int len = lengths[b];
-  const bool uniform = len <= 0;
-  const int n = uniform ? T : min(len, T);
+  const bool slots = slot_pos != nullptr;
+  const int* sp = slots ? slot_pos + static_cast<long long>(b) * T : nullptr;
+  const int p = slots ? pos[b] : 0;
+  bool uniform;
+  int n;
+  if (slots) {
+    int any = 0;
+    for (int t = threadIdx.x; t < T; t += nthreads) {
+      const int v = sp[t];
+      any |= v >= 0 && v <= p && (window <= 0 || p - v < window);
+    }
+    uniform = !__syncthreads_or(any);
+    n = T;
+  } else {
+    const int len = lengths[b];
+    uniform = len <= 0;
+    n = uniform ? T : min(len, T);
+  }
   const float* kb = k + b * ks.b + kh * ks.h;
   const float* vb = v + b * vs.b + kh * vs.h;
 
@@ -121,19 +151,25 @@ __global__ void decode_kernel(const float* __restrict__ q,
     const float* qrow = Qs + warp * d;
     float s = 0.f;
     for (int kk = 0; kk < d; ++kk) s = fmaf(qrow[kk], Ks[lane * dk + kk], s);
-    const bool ok = t0 + lane < n;
+    const int t = t0 + lane;
+    bool ok = t < n;
+    if (ok && slots && !uniform) {
+      const int v = sp[t];
+      ok = v >= 0 && v <= p && (window <= 0 || p - v < window);
+    }
     s = ok ? (uniform ? 0.f : s * scale) : -INFINITY;
-    // lane 0 of every tile is a live position, so m_new is finite
+    // a tile with nothing live leaves m = -inf, l = 0 and acc = 0
     const float m_new = fmaxf(m, warp_max(s));
-    const float alpha = expf(m - m_new);
-    const float p = expf(s - m_new);
-    l = l * alpha + warp_sum(p);
+    const float m_use = m_new == -INFINITY ? 0.f : m_new;
+    const float alpha = expf(m - m_use);
+    const float pr = expf(s - m_use);
+    l = l * alpha + warp_sum(pr);
     m = m_new;
 #pragma unroll
     for (int j = 0; j < DPL; ++j) acc[j] *= alpha;
     const int t_end = min(kBT, n - t0);
     for (int tt = 0; tt < t_end; ++tt) {
-      const float pt = __shfl_sync(kFull, p, tt);
+      const float pt = __shfl_sync(kFull, pr, tt);
 #pragma unroll
       for (int j = 0; j < DPL; ++j) {
         const int col = lane + 32 * j;
@@ -153,7 +189,8 @@ __global__ void decode_kernel(const float* __restrict__ q,
 
 template <int DPL>
 cudaError_t launch(const float* q, const float* k, const float* v,
-                   const int* lengths, float* o, int B, int K, int group,
+                   const int* lengths, const int* slot_pos, const int* pos,
+                   int window, float* o, int B, int K, int group,
                    int T, int d, long long q_sb, long long q_sh, Strides ks,
                    Strides vs, long long o_sb, long long o_sh, float scale,
                    cudaStream_t st) {
@@ -170,32 +207,37 @@ cudaError_t launch(const float* q, const float* k, const float* v,
   }
   const size_t bytes = smem_bytes(group, d);
   decode_kernel<DPL><<<B * K, 32 * group, bytes, st>>>(
-      q, k, v, lengths, o, K, group, T, d, q_sb, q_sh, ks, vs, o_sb, o_sh,
-      scale);
+      q, k, v, lengths, slot_pos, pos, window, o, K, group, T, d, q_sb, q_sh,
+      ks, vs, o_sb, o_sh, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q: (B, H, d) with (b, h) strides; k/v: (B, K, T, d) with (b, kv, t)
-// strides; lengths: (B,) int32 contiguous; o: (B, H, d) with (b, h)
-// strides; float32, unit stride on d; H % K == 0, H / K <= 32,
-// 1 <= d <= 128. Returns the CUDA error code of the launch (0 on
-// success).
+// strides; either lengths: (B,) int32 (slot_pos and pos null) or
+// slot_pos: (B, T) and pos: (B,) int32 with window >= 0 (lengths null),
+// contiguous; o: (B, H, d) with (b, h) strides; float32, unit stride on
+// d; H % K == 0, H / K <= 32, 1 <= d <= 128. Returns the CUDA error code
+// of the launch (0 on success).
 extern "C" int repro_decode_attention(
     const void* q, const void* k, const void* v, const void* lengths,
-    void* o, int B, int H, int K, int T, int d, long long q_sb,
+    const void* slot_pos, const void* pos, int window, void* o, int B, int H, int K, int T, int d, long long q_sb,
     long long q_sh, long long k_sb, long long k_sh, long long k_st,
     long long v_sb, long long v_sh, long long v_st, long long o_sb,
     long long o_sh, float scale, void* stream) {
   if (B <= 0 || H <= 0) return 0;
   if (K <= 0 || H % K != 0 || H / K > kMaxGroup || d <= 0 ||
-      d > 32 * kMaxDpl || T <= 0)
+      d > 32 * kMaxDpl || T <= 0 ||
+      (lengths == nullptr) == (slot_pos == nullptr) ||
+      (slot_pos != nullptr && pos == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
   const int* lf = static_cast<const int*>(lengths);
+  const int* spf = static_cast<const int*>(slot_pos);
+  const int* pf = static_cast<const int*>(pos);
   float* of = static_cast<float*>(o);
   const Strides ks{k_sb, k_sh, k_st}, vs{v_sb, v_sh, v_st};
   const int group = H / K;
@@ -204,8 +246,8 @@ extern "C" int repro_decode_attention(
   switch ((d + 31) / 32) {
 #define REPRO_DECODE_CASE(N)                                                \
   case N:                                                                   \
-    err = launch<N>(qf, kf, vf, lf, of, B, K, group, T, d, q_sb, q_sh, ks,  \
-                    vs, o_sb, o_sh, scale, st);                             \
+    err = launch<N>(qf, kf, vf, lf, spf, pf, window, of, B, K, group, T, d, \
+                    q_sb, q_sh, ks, vs, o_sb, o_sh, scale, st);             \
     break;
     REPRO_DECODE_CASE(1)
     REPRO_DECODE_CASE(2)

@@ -3,7 +3,9 @@
 //
 //   o[b,h,i] = sum_j softmax_j(q[b,h,i] . k[b,h/G,j] * scale) v[b,h/G,j]
 //
-// over keys j <= i when causal, with G = H / K query heads per KV head.
+// over keys j <= i when causal, and only over i - j < window when a
+// sliding window is given (window > 0; the hybrid family's attention),
+// with G = H / K query heads per KV head.
 //
 // Replaces the TPU kernel
 // src/repro/kernels/flash_attention/flash_attention.py::
@@ -22,7 +24,10 @@
 //   * m, l and acc stay in registers in float32; row maxima and sums
 //     reduce over the 16 lanes of a row group with shuffles;
 //   * under causal, key tiles wholly after the query tile are never
-//     loaded; the ragged ends of queries and keys are masked, not padded;
+//     loaded, and under a window, key tiles wholly before the first
+//     query's window; the ragged ends of queries and keys are masked,
+//     not padded; a row whose keys of a tile are all masked keeps its
+//     state (every row sees at least its own key);
 //   * the KV head is h / G, so K and V are never repeated H-wide;
 //   * q, k, v and o are read and written through their (b, h, s) strides
 //     (unit stride on d), so the model's (B, S, H, d) projections go in
@@ -77,7 +82,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int H,
                  int group, int Sq, int Sk, int d, Strides qs, Strides ks,
-                 Strides vs, Strides os, float scale, int causal) {
+                 Strides vs, Strides os, float scale, int causal,
+                 int window) {
   extern __shared__ float smem[];
   const int dq = d + 1;                // padded row stride of the Q tile
   float* Qs = smem;                    // kBQ x dq
@@ -113,9 +119,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
   }
 
-  // causal: keys past the tile's last query are never visible
+  // causal: keys past the tile's last query are never visible; window:
+  // keys before the first query's window are never visible
   const int k_end = causal ? min(Sk, q0 + kBQ) : Sk;
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
+  const int k_begin = window > 0 ? max(0, q0 - window + 1) / kBK * kBK : 0;
+  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
     __syncthreads();  // the last tile's Vs/Ps reads are done
     for (int i = tid; i < kBK * d; i += kThreads) {
       const int t = i / d;
@@ -155,7 +163,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
         const int kj = k0 + c + 16 * j;
-        const bool ok = kj < Sk && (!causal || kj <= qi);
+        const bool ok = kj < Sk && (!causal || kj <= qi) &&
+                        (window <= 0 || qi - kj < window);
         s[i][j] = ok ? s[i][j] * scale : -INFINITY;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -211,7 +220,7 @@ template <int DPT>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o,
                    int B, int H, int group, int Sq, int Sk, int d,
                    Strides qs, Strides ks, Strides vs, Strides os,
-                   float scale, int causal, cudaStream_t st) {
+                   float scale, int causal, int window, cudaStream_t st) {
   // raise the dynamic shared memory limit once per instantiation, to
   // what its widest head_dim needs, so a call inside a CUDA graph
   // capture makes no attribute change
@@ -226,7 +235,8 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
   const size_t bytes = smem_bytes(d);
   const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
   flash_fwd_kernel<DPT><<<grid, kThreads, bytes, st>>>(
-      q, k, v, o, H, group, Sq, Sk, d, qs, ks, vs, os, scale, causal);
+      q, k, v, o, H, group, Sq, Sk, d, qs, ks, vs, os, scale, causal,
+      window);
   return cudaGetLastError();
 }
 
@@ -234,14 +244,15 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
 
 // q: (B, H, Sq, d), k/v: (B, K, Sk, d), o: (B, H, Sq, d), all float32
 // with unit stride on d and the given (b, h, s) strides in elements;
-// H % K == 0, 1 <= d <= 128, B * H < 2^31, Sq < 2^16 * 64. Returns the
-// CUDA error code of the launch (0 on success).
+// H % K == 0, 1 <= d <= 128, B * H < 2^31, Sq < 2^16 * 64; window 0 is
+// none. Returns the CUDA error code of the launch (0 on success).
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, int B, int H,
     int K, int Sq, int Sk, int d, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long o_sb,
-    long long o_sh, long long o_ss, float scale, int causal, void* stream) {
+    long long o_sh, long long o_ss, float scale, int causal, int window,
+    void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;
   if (K <= 0 || H % K != 0 || d <= 0 || d > 16 * kMaxDpt)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -258,7 +269,7 @@ extern "C" int repro_flash_attention(
 #define REPRO_FLASH_CASE(N)                                                 \
   case N:                                                                   \
     err = launch<N>(qf, kf, vf, of, B, H, group, Sq, Sk, d, qs, ks, vs, os, \
-                    scale, causal, st);                                     \
+                    scale, causal, window, st);                             \
     break;
     REPRO_FLASH_CASE(1)
     REPRO_FLASH_CASE(2)

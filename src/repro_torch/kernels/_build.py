@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("compact.cu", "hash_rows.cu", "group_build.cu", "expand.cu",
            "segment_reduce.cu", "radix_rank.cu", "flash_attention.cu",
-           "decode_attention.cu")
+           "decode_attention.cu", "ssd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,20 +47,23 @@ SIGNATURES = {
     "repro_radix_rank": (_P, _P, _P, _P, _I, _I, _P),
     "repro_radix_rank_tiles": (_I,),
     # q, k, v, o, B, H, K, Sq, Sk, d, the (b, h, s) strides of q, k, v
-    # and o, scale, causal, stream
+    # and o, scale, causal, window, stream
     "repro_flash_attention": (_P,) * 4 + (_I,) * 6 + (_LL,) * 12
-    + (_F, _I, _P),
-    # q, k, v, lengths, o, B, H, K, T, d, q (b, h), k and v (b, kv, t),
-    # o (b, h) strides, scale, stream
-    "repro_decode_attention": (_P,) * 5 + (_I,) * 5 + (_LL,) * 10
-    + (_F, _P),
+    + (_F, _I, _I, _P),
+    # q, k, v, lengths, slot_pos, pos, window, o, B, H, K, T, d, q (b, h),
+    # k and v (b, kv, t), o (b, h) strides, scale, stream
+    "repro_decode_attention": (_P,) * 6 + (_I, _P) + (_I,) * 5
+    + (_LL,) * 10 + (_F, _P),
+    # x, dt, A, B, C, y, states, decay, cum, cb scratch, b, s, h, p, n,
+    # chunk, x (b, s, h), B (b, s) and C (b, s) strides, stream
+    "repro_ssd_chunk": (_P,) * 10 + (_I,) * 6 + (_LL,) * 7 + (_P,),
 }
 
 # kernel name -> launches since the last reset_launches(), and the
 # largest input shape launched in that time
 LAUNCHES = {"prefix_count": 0, "hash_rows": 0, "group_boundaries": 0,
             "running_segment_ids": 0, "segment_reduce": 0, "radix_rank": 0,
-            "flash_attention": 0, "decode_attention": 0}
+            "flash_attention": 0, "decode_attention": 0, "ssd_chunk": 0}
 MAX_SHAPES: dict[str, tuple] = {}
 
 _LIB: ctypes.CDLL | None = None
@@ -186,6 +189,11 @@ def check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype,
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def opt_ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    """``ptr(t)``, or a null pointer for an operand left out."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def stream(t: torch.Tensor) -> ctypes.c_void_p:

@@ -19,3 +19,32 @@ def decode_lengths(T: int) -> list[int]:
     """Unequal per-row lengths for one K8 batch over a T-long cache:
     1, 2, T - 1 and T, those of them in [1, T]."""
     return sorted({1, 2, max(T - 1, 1), T} & set(range(1, T + 1)))
+# K7's sliding window (causal), at a sequence it cuts many times over
+WINDOWS = (1, 17, 64)
+WINDOW_SEQ = 1000
+# K8's slot mask over a ring cache of T = window slots
+RING_WINDOWS = (16, 64)
+
+
+def ring_rows(W: int) -> list[tuple[int, int]]:
+    """(prefilled length S, decode position pos) of the rows of one K8
+    ring batch over a W-slot cache: a ring wrapped once and decoding on,
+    a short prompt behind a wrapped padded prefill (every prefilled
+    entry above pos: only the slot it writes is live), a decode far past
+    the wrap, a nearly empty ring (-1 entries) and an unwrapped one."""
+    return [(W + 5, W + 4), (2 * W + 3, 3), (W, 3 * W + 7), (1, 0),
+            (W // 2, W // 2 - 1)]
+
+
+def ring_slot_pos(W: int, rows) -> list[list[int]]:
+    """``slot_pos`` of a W-slot ring after each row's prefill of S
+    positions (the last W at slot p % W) and its decode write at
+    ``pos`` (slot pos % W), as the hybrid model leaves it."""
+    out = []
+    for S, pos in rows:
+        sp = [-1] * W
+        for p in range(max(S - W, 0), S):
+            sp[p % W] = p
+        sp[pos % W] = pos
+        out.append(sp)
+    return out

@@ -1,7 +1,7 @@
 """Public single-token decode attention over a (B, K, T, d) cache: K8 on
 the card, the plain version on the CPU (``impl="auto"``). The
 reference's ``block_k`` padding knob does not carry over: the kernel
-reads only each row's live prefix."""
+masks what it reads."""
 from __future__ import annotations
 
 import torch
@@ -12,15 +12,26 @@ from .ref import decode_attention_ref
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lengths: torch.Tensor, *, impl: str = "auto"
-                     ) -> torch.Tensor:
-    """One query token per row, q (B, H, d), over the first
-    ``lengths[b]`` positions of k/v (B, K, T, d). ``impl``: "kernel"
+                     lengths: torch.Tensor | None = None, *,
+                     slot_pos: torch.Tensor | None = None,
+                     pos: torch.Tensor | None = None, window: int = 0,
+                     impl: str = "auto") -> torch.Tensor:
+    """One query token per row, q (B, H, d), over k/v (B, K, T, d):
+    either the first ``lengths[b]`` positions, or the slots the
+    reference's mask keeps (``slot_pos`` (B, T), ``pos`` (B,),
+    ``window``; see ``decode_attention_kernel``). ``impl``: "kernel"
     (K8; raises off the card) | "ref" (plain torch) | "auto" (the kernel
     for CUDA tensors, "ref" for CPU ones)."""
     impl = resolve_impl(impl, "ref", q)
     if impl == "ref":
-        return decode_attention_ref(q, k, v, lengths)
+        return decode_attention_ref(q, k, v, lengths, slot_pos=slot_pos,
+                                    pos=pos, window=window)
     if impl == "kernel":
-        return decode_attention_kernel(q, k, v, lengths.to(torch.int32))
+        if lengths is not None:
+            lengths = lengths.to(torch.int32)
+        else:
+            slot_pos = slot_pos.to(torch.int32)
+            pos = pos.to(torch.int32)
+        return decode_attention_kernel(q, k, v, lengths, slot_pos=slot_pos,
+                                       pos=pos, window=window)
     raise ValueError(f"decode_attention has no {impl!r} impl")

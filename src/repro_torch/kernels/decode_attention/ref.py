@@ -1,5 +1,6 @@
 """Plain PyTorch version of K8, single-token decode attention (a copy
-of the reference's ``decode_attention_ref`` in torch)."""
+of the reference's ``decode_attention_ref`` in torch, plus the
+reference model's slot mask of ``attention_decode``)."""
 from __future__ import annotations
 
 import math
@@ -7,11 +8,30 @@ import math
 import torch
 
 
+def live_slots(slot_pos: torch.Tensor, pos: torch.Tensor,
+               window: int = 0) -> torch.Tensor:
+    """The reference's decode mask (``models/layers.py::
+    attention_decode``): slot t of row b is live iff 0 <= slot_pos[b,t]
+    <= pos[b] and, for window > 0, pos[b] - slot_pos[b,t] < window.
+    Returns (B, T) bool."""
+    p = pos.to(slot_pos.device)[:, None]
+    ok = (slot_pos >= 0) & (slot_pos <= p)
+    if window > 0:
+        ok = ok & (p - slot_pos < window)
+    return ok
+
+
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor,
-                         v: torch.Tensor, lengths: torch.Tensor,
-                         sm_scale: float | None = None) -> torch.Tensor:
-    """q: (B,H,d); k/v: (B,K,T,d); lengths: (B,). Returns (B,H,d). A row
-    of length 0 softmaxes T equal masked scores: the mean of V."""
+                         v: torch.Tensor,
+                         lengths: torch.Tensor | None = None,
+                         sm_scale: float | None = None, *,
+                         slot_pos: torch.Tensor | None = None,
+                         pos: torch.Tensor | None = None,
+                         window: int = 0) -> torch.Tensor:
+    """q: (B,H,d); k/v: (B,K,T,d); the first ``lengths`` (B,) positions
+    live, or the slots ``live_slots(slot_pos, pos, window)`` keeps.
+    Returns (B,H,d). A row with nothing live softmaxes T equal masked
+    scores: the mean of V."""
     B, H, d = q.shape
     K, T = k.shape[1], k.shape[2]
     group = H // K
@@ -20,8 +40,11 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor,
     kk = torch.repeat_interleave(k, group, dim=1)
     vv = torch.repeat_interleave(v, group, dim=1)
     s = torch.einsum("bhd,bhtd->bht", q.float(), kk.float()) * sm_scale
-    mask = (torch.arange(T, device=q.device)[None, None, :]
-            < lengths.to(q.device)[:, None, None])
+    if slot_pos is not None:
+        mask = live_slots(slot_pos, pos, window)[:, None, :]
+    else:
+        mask = (torch.arange(T, device=q.device)[None, None, :]
+                < lengths.to(q.device)[:, None, None])
     s = torch.where(mask, s, torch.full_like(s, -1e30))
     w = torch.softmax(s, dim=-1)
     return torch.einsum("bht,bhtd->bhd", w, vv.float()).to(q.dtype)

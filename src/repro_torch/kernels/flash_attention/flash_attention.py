@@ -6,8 +6,9 @@ flash_attention_kernel``, whose sequential key-block grid axis carries
 the online-softmax state in VMEM. On Hopper one block owns a tile of 64
 queries of one (row, head) and loops over 32-key tiles staged in shared
 memory, with m, l and the output accumulators in registers; whole
-future tiles are skipped under ``causal``, ragged ends are masked, the
-KV head is ``h // group`` and every operand is addressed through its
+future tiles are skipped under ``causal`` and whole tiles before the
+first query's window under ``window``, ragged ends are masked, the KV
+head is ``h // group`` and every operand is addressed through its
 strides. CUDA-core float32 FMAs (no TF32). Bound: operations, 4d per
 visible (query, key) pair.
 """
@@ -23,13 +24,15 @@ MAX_HEAD_DIM = 128
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
-                           v: torch.Tensor, *, causal: bool = True
-                           ) -> torch.Tensor:
+                           v: torch.Tensor, *, causal: bool = True,
+                           window: int = 0) -> torch.Tensor:
     """q: (B, H, Sq, d), k/v: (B, K, Sk, d) float32 CUDA tensors with
     H % K == 0, d <= 128 and unit stride on d; other strides are free
     (the model passes transposed views of its (B, S, H, d)
-    projections). Returns (B, H, Sq, d), laid out like ``q``. Raises for
-    a tensor off the card: there is no fallback."""
+    projections). ``window`` > 0 also masks keys ``window`` or more
+    positions before the query (the hybrid's sliding window); 0 is
+    none. Returns (B, H, Sq, d), laid out like ``q``. Raises for a
+    tensor off the card: there is no fallback."""
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _build.check_cuda(t, name, torch.float32, 4, contiguous=False)
     B, H, Sq, d = q.shape
@@ -44,6 +47,8 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"head_dim {d} outside [1, {MAX_HEAD_DIM}]")
     if Sk == 0:
         raise ValueError("flash_attention: no keys")
+    if window < 0:
+        raise ValueError(f"window {window} must be >= 0 (0 = none)")
     out = torch.empty_like(q)  # keeps a dense view's strides
     if out.numel() == 0:
         return out
@@ -51,6 +56,6 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                 _build.ptr(k), _build.ptr(v), _build.ptr(out), B, H, K, Sq,
                 Sk, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 *out.stride()[:3], 1.0 / math.sqrt(d), int(causal),
-                _build.stream(q))
+                int(window), _build.stream(q))
     _build.count_launch("flash_attention", (B, H, K, Sq, Sk, d))
     return out

@@ -12,13 +12,15 @@ from .ref import attention_ref
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, impl: str = "auto") -> torch.Tensor:
-    """Attention of q (B, H, Sq, d) over k/v (B, K, Sk, d), H % K == 0.
-    ``impl``: "kernel" (K7; raises off the card) | "ref" (plain torch) |
+                    causal: bool = True, window: int = 0,
+                    impl: str = "auto") -> torch.Tensor:
+    """Attention of q (B, H, Sq, d) over k/v (B, K, Sk, d), H % K == 0;
+    ``window`` > 0 keeps only keys less than ``window`` positions
+    before the query (0: none). ``impl``: "kernel" (K7; raises off the card) | "ref" (plain torch) |
     "auto" (the kernel for CUDA tensors, "ref" for CPU ones)."""
     impl = resolve_impl(impl, "ref", q)
     if impl == "ref":
-        return attention_ref(q, k, v, causal=causal)
+        return attention_ref(q, k, v, causal=causal, window=window)
     if impl == "kernel":
-        return flash_attention_kernel(q, k, v, causal=causal)
+        return flash_attention_kernel(q, k, v, causal=causal, window=window)
     raise ValueError(f"flash_attention has no {impl!r} impl")

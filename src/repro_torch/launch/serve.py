@@ -1,15 +1,19 @@
-"""Serving driver: stand up the dense LM behind the serving tier and
-answer prompts, on the card unless ``--device cpu``.
+"""Serving driver: stand up an LM (dense, SSM or hybrid) behind the
+serving tier and answer prompts, on the card unless ``--device cpu``.
 
     # full-width starcoder2-3b, random weights (seed 0), on the card
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch starcoder2-3b --prompts "is product 3 electronics?"
 
+    # the SSM and hybrid families: mamba2-370m, hymba-1.5b
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch hymba-1.5b --prompts "is product 3 electronics?"
+
     # tiny random-weight smoke on the CPU
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \\
         --tiny --device cpu --prompts "hello" "world"
 
-Only dense configurations are served. There are no trained weights to
+Dense, SSM and hybrid configurations are served. There are no trained weights to
 restore yet (``--ckpt`` waits for the training slice) and no mesh
 (``--dp``/``--tp`` wait for the partitioned slice).
 """
@@ -28,11 +32,13 @@ from ..training.data import HashTokenizer
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        description="Serve a dense LM with random weights (seed 0). "
+        description="Serve a dense, SSM or hybrid LM with random weights "
+                    "(seed 0). "
                     "Not ported: --ckpt (training slice), --dp/--tp "
                     "(partitioned slice).")
     ap.add_argument("--arch", default="starcoder2-3b",
-                    help="a dense configuration (default starcoder2-3b)")
+                    help="a dense, SSM or hybrid configuration (default "
+                         "starcoder2-3b)")
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--batch", type=int, default=16)

@@ -1,8 +1,10 @@
-"""Building blocks of the dense LM, the subset of the reference's
-``src/repro/models/layers.py`` that a dense decoder-only model runs:
-``rms_norm``, ``rope`` (halves concatenated, not interleaved), ``mlp``,
-``_qkv``, ``_mask_bias``, ``gqa_attention`` and the prefill / decode
-attention blocks.
+"""Building blocks of the decoder-only LM, the subset of the reference's
+``src/repro/models/layers.py`` that the dense, SSM (Mamba-2) and hybrid
+families run: ``rms_norm``, ``rope`` (halves concatenated, not
+interleaved), ``mlp``, ``_qkv``, ``_mask_bias``, ``gqa_attention``, the
+prefill / decode attention blocks (with the hybrid's sliding window),
+and the SSM block: ``causal_conv1d``, ``ssd_chunked``,
+``ssd_reference``, ``ssm_block`` and ``ssm_decode``.
 
 Attention has two paths, chosen by ``attn_impl`` through
 ``kernels/util.py::resolve_impl`` ("auto": the kernel on a CUDA tensor,
@@ -14,11 +16,19 @@ the plain path on a CPU one):
   additive mask, the plain path.
 
 Both compute the same function: prefill is causal over positions
-``arange(S)`` on every row with no window, which is all K7 masks; a
-decode row's cache holds position ``t`` at slot ``t`` for every
-``t <= pos`` (prefill writes ``arange(S)``, decode writes slot ``pos``,
-admission replaces the whole row), so K8's ``lengths = pos + 1`` masks
-what ``slot_pos`` masks.
+``arange(S)`` on every row, within ``window`` when one is given, which
+is all K7 masks. Without a window a decode row's cache holds position
+``t`` at slot ``t`` for every ``t <= pos`` (prefill writes
+``arange(S)``, decode writes slot ``pos``, admission replaces the whole
+row), so K8's ``lengths = pos + 1`` masks what ``slot_pos`` masks; the
+hybrid's ring cache (slot ``pos % window``) breaks that, so there K8
+takes the reference's slot mask itself.
+
+The SSD scan has two paths too, chosen by ``ssd_impl``: "kernel" runs
+``kernels/ssd/ops.py::ssd`` (K9 for the intra-chunk step, the
+recurrence across chunks in torch), "ref" the reference's plain
+``ssd_chunked``. ``ssm_decode`` is plain torch on both (the reference
+has no decode kernel for it).
 """
 from __future__ import annotations
 
@@ -29,6 +39,8 @@ import torch.nn.functional as F
 
 from ..kernels.decode_attention.ops import decode_attention
 from ..kernels.flash_attention.ops import flash_attention
+from ..kernels.ssd import ops as ssd_ops
+from ..kernels.ssd.ref import ssd_reference  # noqa: F401  (re-export)
 from ..kernels.util import resolve_impl
 from .config import ModelConfig
 
@@ -36,10 +48,11 @@ ATTN_IMPLS = ("auto", "kernel", "ref")
 
 
 def attn_path(attn_impl: str, x: torch.Tensor) -> str:
-    """``attn_impl`` resolved for activations ``x``: "kernel" or "ref"."""
+    """``attn_impl`` (or ``ssd_impl``) resolved for activations ``x``:
+    "kernel" or "ref"."""
     if attn_impl not in ATTN_IMPLS:
-        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
-                         f"{attn_impl!r}")
+        raise ValueError(f"attn_impl / ssd_impl must be one of "
+                         f"{ATTN_IMPLS}, got {attn_impl!r}")
     return resolve_impl(attn_impl, "ref", x)
 
 
@@ -99,14 +112,18 @@ def _qkv(cfg, p, x):
     return q, k, v
 
 
-def _mask_bias(q_pos, k_pos):
-    """Causal additive bias from position comparisons. q_pos: (B, S);
-    k_pos: (T,) or (B, T). Returns (B, S, T) float32."""
+def _mask_bias(q_pos, k_pos, window: int = 0):
+    """Causal additive bias from position comparisons, with the
+    sliding-window bound when ``window`` > 0. q_pos: (B, S); k_pos: (T,)
+    or (B, T). Returns (B, S, T) float32."""
     if k_pos.dim() == 1:
         k_pos = k_pos[None].expand(q_pos.shape[0], k_pos.shape[0])
     d = q_pos[:, :, None] - k_pos[:, None, :]
+    ok = d >= 0
+    if window > 0:
+        ok = ok & (d < window)
     zero = torch.zeros((), dtype=torch.float32, device=d.device)
-    return torch.where(d >= 0, zero, torch.full_like(zero, -1e30))
+    return torch.where(ok, zero, torch.full_like(zero, -1e30))
 
 
 def gqa_attention(q, k, v, bias):
@@ -124,10 +141,12 @@ def gqa_attention(q, k, v, bias):
     return out.reshape(B, S, H, hd)
 
 
-def attention_block(cfg: ModelConfig, p, x, attn_impl: str = "auto"):
+def attention_block(cfg: ModelConfig, p, x, attn_impl: str = "auto",
+                    window: int = 0):
     """Causal self-attention over positions ``arange(S)`` on every row
-    (train forward / prefill). Returns (out (B,S,D), k, v) with the
-    roped keys and values (B,S,K,hd) the decode cache stores."""
+    (train forward / prefill), within ``window`` when it is > 0.
+    Returns (out (B,S,D), k, v) with the roped keys and values
+    (B,S,K,hd) the decode cache stores."""
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     q, k, v = _qkv(cfg, p, x)
@@ -137,38 +156,206 @@ def attention_block(cfg: ModelConfig, p, x, attn_impl: str = "auto"):
         # K7 reads the (B, S, H, hd) projections through their strides
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=True,
-                              impl="kernel").transpose(1, 2)
+                              window=window, impl="kernel").transpose(1, 2)
     else:
-        out = gqa_attention(q, k, v, _mask_bias(positions, positions))
+        out = gqa_attention(q, k, v, _mask_bias(positions, positions,
+                                                window))
     o = out.reshape(B, S, -1) @ p["wo"].reshape(-1, cfg.d_model)
     return o, k, v
 
 
 def attention_decode(cfg: ModelConfig, p, x, k_cache, v_cache, slot_pos,
-                     pos, attn_impl: str = "auto"):
+                     pos, attn_impl: str = "auto", window: int = 0):
     """Single-token decode. x: (B,1,D); caches (B,T,K,hd) and slot_pos
-    (B,T) (-1 = empty) are updated IN PLACE at slot ``pos`` of each row;
-    pos: (B,) current absolute positions, each < T. Returns (B,1,D)."""
+    (B,T) (-1 = empty) are updated IN PLACE at slot ``pos`` of each row,
+    or ``pos % window`` when ``window`` > 0 (the hybrid's ring); pos:
+    (B,) current absolute positions. Returns (B,1,D)."""
     B = x.shape[0]
     q, k_new, v_new = _qkv(cfg, p, x)
     q = rope(q, pos[:, None], cfg.rope_theta)
     k_new = rope(k_new, pos[:, None], cfg.rope_theta)
     bidx = torch.arange(B, device=x.device)
-    slot = pos.long()
+    slot = (pos % window if window > 0 else pos).long()
     k_cache[bidx, slot] = k_new[:, 0]
     v_cache[bidx, slot] = v_new[:, 0]
     slot_pos[bidx, slot] = pos.to(slot_pos.dtype)
-    if attn_path(attn_impl, x) == "kernel":
+    kernel = attn_path(attn_impl, x) == "kernel"
+    if kernel and window > 0:
+        # a ring slot does not hold its own position: K8 takes the
+        # reference's slot mask; it reads the (B, T, K, hd) cache
+        # through its strides
+        out = decode_attention(q[:, 0], k_cache.permute(0, 2, 1, 3),
+                               v_cache.permute(0, 2, 1, 3),
+                               slot_pos=slot_pos, pos=pos, window=window,
+                               impl="kernel")[:, None]
+    elif kernel:
         # slot_pos[t] == t for every t <= pos, so the live prefix is
-        # pos + 1 long; K8 reads the (B, T, K, hd) cache through its
-        # strides
+        # pos + 1 long
         out = decode_attention(q[:, 0], k_cache.permute(0, 2, 1, 3),
                                v_cache.permute(0, 2, 1, 3),
                                (pos + 1).to(torch.int32),
                                impl="kernel")[:, None]
     else:
         ok = (slot_pos >= 0) & (slot_pos <= pos[:, None])
+        if window > 0:
+            ok = ok & (pos[:, None] - slot_pos < window)
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         bias = torch.where(ok, zero, torch.full_like(zero, -1e30))[:, None]
         out = gqa_attention(q, k_cache, v_cache, bias)
     return out.reshape(B, 1, -1) @ p["wo"].reshape(-1, cfg.d_model)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD (state-space duality, chunked)
+# ---------------------------------------------------------------------------
+
+
+def causal_conv1d(x, w, b):
+    """Depthwise causal conv. x: (B,S,C), w: (cw,C). The reference's cw
+    shifted multiply-adds in its order (tap i multiplies x[t-(cw-1-i)]),
+    not a library convolution, whose float32 may run in TF32."""
+    cw, S = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, cw - 1, 0))
+    y = 0
+    for i in range(cw):
+        y = y + xp[:, i:i + S] * w[i]
+    return y + b
+
+
+def _segsum(a):
+    """a: (..., L). Returns (..., L, L) lower-tri cumulative sums:
+    out[i,j] = sum(a[j+1..i]) for i>=j, -inf above diagonal."""
+    L = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1)
+    d = cs[..., :, None] - cs[..., None, :]
+    mask = torch.ones(L, L, dtype=torch.bool, device=a.device).tril()
+    return torch.where(mask, d, torch.full_like(d, -torch.inf))
+
+
+def ssd_chunked(x, dt, A, B, C, chunk: int):
+    """Chunked SSD forward (Mamba-2 §6), the plain path. Shapes:
+    x: (b,s,h,p), dt: (b,s,h) (post-softplus), A: (h,) negative,
+    B,C: (b,s,n) single group. Returns y: (b,s,h,p) and final state
+    (b,h,p,n)."""
+    b, s, h, p_ = x.shape
+    n = B.shape[-1]
+    s_orig = s
+    if s % chunk != 0:
+        # pad with dt=0 steps: decay exp(0·A)=1 and zero input leave the
+        # state untouched; padded outputs are sliced away below.
+        pad = chunk - s % chunk
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, pad))
+        s = s + pad
+    nc = s // chunk
+    xc = x.reshape(b, nc, chunk, h, p_)
+    dtc = dt.reshape(b, nc, chunk, h)
+    Bc = B.reshape(b, nc, chunk, n)
+    Cc = C.reshape(b, nc, chunk, n)
+    dA = dtc * A  # (b,c,l,h)
+    dA_cum = torch.cumsum(dA, dim=2)
+
+    # intra-chunk (diagonal blocks): L = exp(segsum(dA)) per head
+    Lmat = torch.exp(_segsum(dA.permute(0, 1, 3, 2)))  # (b,c,h,l,l)
+    xdt = xc * dtc[..., None]  # (b,c,l,h,p)
+    cb = Cc @ Bc.transpose(-1, -2)  # (b,c,l,s)
+    y_diag = torch.einsum("bchls,bcshp->bclhp", cb[:, :, None] * Lmat, xdt)
+
+    # chunk states: contribution of each chunk to its final state
+    decay_states = torch.exp(dA_cum[:, :, -1:, :] - dA_cum)  # (b,c,l,h)
+    states = torch.einsum("bcln,bclhp->bchpn", Bc,
+                          decay_states[..., None] * xdt)
+
+    # inter-chunk recurrence, carried in float32
+    chunk_decay = torch.exp(dA_cum[:, :, -1, :])  # (b,c,h)
+    hstate = torch.zeros((b, h, p_, n), dtype=torch.float32,
+                         device=x.device)
+    prev = []
+    for c in range(nc):
+        prev.append(hstate)
+        hstate = hstate * chunk_decay[:, c, :, None, None] \
+            + states[:, c].float()
+    prev_states = torch.stack(prev, dim=1)  # (b,c,h,p,n)
+
+    # inter-chunk output: state entering the chunk, decayed to each position
+    state_decay = torch.exp(dA_cum)  # (b,c,l,h)
+    y_off = torch.einsum("bcln,bchpn->bclhp", Cc, prev_states) \
+        * state_decay[..., None]
+    y = (y_diag + y_off).reshape(b, s, h, p_)
+    return y[:, :s_orig], hstate
+
+
+def _ssm_split(cfg: ModelConfig, zxbcdt):
+    di, ns = cfg.ssm_d_inner, cfg.ssm_state
+    z = zxbcdt[..., :di]
+    xs = zxbcdt[..., di:2 * di]
+    Bv = zxbcdt[..., 2 * di:2 * di + ns]
+    Cv = zxbcdt[..., 2 * di + ns:2 * di + 2 * ns]
+    dt = zxbcdt[..., 2 * di + 2 * ns:]
+    return z, xs, Bv, Cv, dt
+
+
+def ssm_block(cfg: ModelConfig, p, x, ssd_impl: str = "auto"):
+    """Mamba2 block, full sequence. Returns (out, final_state (B,nh,hd,ns),
+    conv_tail (B,cw-1,conv_dim)). ``ssd_impl``: "kernel" (K9 through
+    ``kernels/ssd/ops.py::ssd``; raises off the card), "ref" (the plain
+    ``ssd_chunked``) or "auto" (the kernel for a CUDA tensor)."""
+    B_, S, D = x.shape
+    di, ns, nh = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_num_heads
+    hd = cfg.ssm_head_dim
+    zxbcdt = _proj(x, p["w_in"])
+    z, xs, Bv, Cv, dt = _ssm_split(cfg, zxbcdt)
+    conv_in = torch.cat([xs, Bv, Cv], dim=-1)
+    conv_out = F.silu(causal_conv1d(conv_in, p["conv_w"], p["conv_b"]))
+    xs, Bv, Cv = (conv_out[..., :di], conv_out[..., di:di + ns],
+                  conv_out[..., di + ns:])
+    dt = F.softplus(dt + p["dt_bias"])  # (b,s,nh)
+    A = -torch.exp(p["A_log"].float())  # (nh,)
+    xh = xs.reshape(B_, S, nh, hd)  # a strided view of conv_out
+    if attn_path(ssd_impl, x) == "kernel":
+        y, state = ssd_ops.ssd(xh, dt, A, Bv, Cv, cfg.ssm_chunk,
+                               impl="kernel")
+    else:
+        y, state = ssd_chunked(xh, dt, A, Bv, Cv, cfg.ssm_chunk)
+    y = y + xh * p["D"][None, None, :, None]
+    y = y.reshape(B_, S, di).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    out = (y @ p["w_out"]).to(x.dtype)
+    # the tail of the conv INPUT, which the decode step's window extends
+    conv_tail = conv_in[:, -(cfg.ssm_conv_width - 1):, :].to(x.dtype)
+    return out, state.to(x.dtype), conv_tail
+
+
+def ssm_decode(cfg: ModelConfig, p, x, ssm_state, conv_state):
+    """Single-step SSM. x: (B,1,D); ssm_state: (B,nh,hd,ns);
+    conv_state: (B,cw-1,conv_dim) previous conv inputs. Returns
+    (out (B,1,D), new_state, new_conv)."""
+    B_ = x.shape[0]
+    di, ns, nh = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_num_heads
+    hd = cfg.ssm_head_dim
+    zxbcdt = _proj(x, p["w_in"])
+    z, xs, Bv, Cv, dt = _ssm_split(cfg, zxbcdt)
+    conv_in = torch.cat([xs, Bv, Cv], dim=-1)  # (B,1,conv_dim)
+    window = torch.cat([conv_state, conv_in], dim=1)  # (B,cw,conv)
+    conv_out = F.silu(torch.einsum("bkc,kc->bc", window, p["conv_w"])
+                      + p["conv_b"])
+    xs = conv_out[:, :di]
+    Bv = conv_out[:, di:di + ns]
+    Cv = conv_out[:, di + ns:]
+    dt = F.softplus(dt[:, 0] + p["dt_bias"])  # (B,nh)
+    A = -torch.exp(p["A_log"].float())
+    xh = xs.reshape(B_, nh, hd)
+    decay = torch.exp(dt * A)  # (B,nh)
+    new_state = (ssm_state.float() * decay[..., None, None]
+                 + torch.einsum("bhp,bn->bhpn",
+                                xh * dt[..., None].to(xh.dtype), Bv
+                                ).float())
+    y = torch.einsum("bhpn,bn->bhp", new_state, Cv.float())
+    y = y + xh.float() * p["D"][None, :, None]
+    y = y.reshape(B_, di).to(x.dtype)
+    y = rms_norm(y * F.silu(z[:, 0]), p["norm"], cfg.norm_eps)
+    out = (y @ p["w_out"])[:, None, :].to(x.dtype)
+    return (out, new_state.to(ssm_state.dtype),
+            window[:, 1:, :].to(conv_state.dtype))

@@ -1,4 +1,4 @@
-"""Parameters of the dense decoder-only LM.
+"""Parameters of the decoder-only LM (dense, SSM and hybrid families).
 
 ``build_params(cfg, creator)`` walks the architecture and calls
 ``creator(path, shape, scale)`` for each tensor, with the reference's
@@ -13,7 +13,8 @@ the port serves on one card). Two creators:
   (``jax.tree.map(np.asarray, params)``) as tensors, unchanged in
   layout, so both packages compute the same function.
 
-Only the dense family is ported (``check_supported``).
+The dense, SSM (Mamba-2) and hybrid (parallel attention + SSM heads)
+families are ported (``check_supported``).
 """
 from __future__ import annotations
 
@@ -28,23 +29,22 @@ Creator = Callable[[str, tuple, float], object]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is a dense
-    decoder-only LM with full causal attention: the port's LLM slice.
-    The other families wait for later slices (ROADMAP)."""
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family (SSD, K9) waits for the "
-            f"port's SSM/hybrid slice")
-    if cfg.family != "dense" or cfg.num_experts or cfg.use_mla:
+    """Raise ``NotImplementedError`` unless ``cfg`` is a decoder-only LM
+    of the dense, SSM or hybrid family: the port's LLM slices. Sliding
+    windows are ported for the hybrid only (its attention heads). The
+    other families wait for later slices (ROADMAP)."""
+    if cfg.family not in ("dense", "ssm", "hybrid") or cfg.num_experts \
+            or cfg.use_mla:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} (experts "
             f"{cfg.num_experts}, MLA {cfg.use_mla}) waits for the port's "
-            f"MoE/MLA/encoder-decoder/VLM slice; only dense LMs are ported")
-    if (cfg.attn_window or cfg.encoder_layers or cfg.num_image_tokens
-            or cfg.mtp_depth):
+            f"MoE/MLA/encoder-decoder/VLM slice; only dense, SSM and "
+            f"hybrid LMs are ported")
+    if ((cfg.attn_window and cfg.family != "hybrid") or cfg.encoder_layers
+            or cfg.num_image_tokens or cfg.mtp_depth):
         raise NotImplementedError(
-            f"{cfg.name}: sliding windows, encoders, image prefixes and MTP "
-            f"heads are not ported")
+            f"{cfg.name}: sliding windows outside the hybrid family, "
+            f"encoders, image prefixes and MTP heads are not ported")
 
 
 def _attn_tree(cfg: ModelConfig, L, p, prefix: str):
@@ -74,20 +74,48 @@ def _mlp_tree(cfg: ModelConfig, L, p, prefix="mlp"):
     return t
 
 
+def _ssm_tree(cfg: ModelConfig, L, p):
+    D = cfg.d_model
+    di = cfg.ssm_d_inner
+    ns, nh = cfg.ssm_state, cfg.ssm_num_heads
+    cw = cfg.ssm_conv_width
+    conv_dim = di + 2 * ns
+    return {
+        # in_proj emits [z, x, B, C, dt]
+        "w_in": p("ssm/w_in", (*L, D, 2 * di + 2 * ns + nh), D),
+        "conv_w": p("ssm/conv_w", (*L, cw, conv_dim), cw),
+        "conv_b": p("ssm/conv_b", (*L, conv_dim), 0),
+        "A_log": p("ssm/A_log", (*L, nh), -2),
+        "D": p("ssm/D", (*L, nh), -1),
+        "dt_bias": p("ssm/dt_bias", (*L, nh), 0),
+        "norm": p("ssm/norm", (*L, di), -1),
+        "w_out": p("ssm/w_out", (*L, di, D), di),
+    }
+
+
+def _block_tree(cfg: ModelConfig, L, p) -> dict:
+    t = {"ln1": p("ln1", (*L, cfg.d_model), -1),
+         "ln2": p("ln2", (*L, cfg.d_model), -1)}
+    if cfg.family == "ssm":
+        t["ssm"] = _ssm_tree(cfg, L, p)
+        return t  # no FFN: ln2 exists but feeds nothing
+    t["attn"] = _attn_tree(cfg, L, p, "attn")
+    if cfg.family == "hybrid":
+        t["ssm"] = _ssm_tree(cfg, L, p)
+        t["attn_norm"] = p("attn_norm", (*L, cfg.d_model), -1)
+        t["ssm_norm"] = p("ssm_norm", (*L, cfg.d_model), -1)
+    t["mlp"] = _mlp_tree(cfg, L, p)
+    return t
+
+
 def build_params(cfg: ModelConfig, creator: Creator) -> dict:
-    """The dense LM's parameter tree, one ``creator`` call per leaf."""
+    """The LM's parameter tree, one ``creator`` call per leaf."""
     check_supported(cfg)
     p = creator
     D, V = cfg.d_model, cfg.vocab_size
-    L = (cfg.num_layers,)
     tree: dict = {
         "embed": p("embed", (V, D), D),
-        "blocks": {
-            "ln1": p("ln1", (*L, D), -1),
-            "ln2": p("ln2", (*L, D), -1),
-            "attn": _attn_tree(cfg, L, p, "attn"),
-            "mlp": _mlp_tree(cfg, L, p),
-        },
+        "blocks": _block_tree(cfg, (cfg.num_layers,), p),
         "final_ln": p("final_ln", (D,), -1),
     }
     if not cfg.tie_embeddings:
@@ -98,11 +126,15 @@ def build_params(cfg: ModelConfig, creator: Creator) -> dict:
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> dict:
     """Random float32 weights from ``generator`` (which must live on
-    ``device``) at the reference's scales: norm gains 1, biases 0, other
-    leaves normal / sqrt(fan_in)."""
+    ``device``) at the reference's scales: norm gains 1, biases 0, the
+    SSM's ``A_log`` the log of U[1, 16], other leaves normal /
+    sqrt(fan_in)."""
     def make(path, shape, scale):
         if scale == -1:  # norm gains
             return torch.ones(shape, device=device)
+        if scale == -2:  # ssm A_log init: A in [1, 16]
+            u = torch.rand(shape, generator=generator, device=device)
+            return torch.log(u.mul_(15.0).add_(1.0))
         if scale == 0:  # biases
             return torch.zeros(shape, device=device)
         w = torch.randn(shape, generator=generator, device=device)

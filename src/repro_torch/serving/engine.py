@@ -16,9 +16,12 @@ weights and one tokenizer:
   next chunk. The two paths are verdict-for-verdict identical.
 
 JAX's buffer donation becomes in-place updates of the shared cache and
-slot state (``index_copy_`` on the slot axis). ``attn_impl`` picks the
-attention path of every layer (``models/layers.py``): on the card
-"auto" is the K7/K8 kernels, "ref" the plain grouped einsum.
+slot state (``index_copy_`` on the slot axis; the SSM ``state`` and
+``conv`` leaves travel along batch axis 1 like K/V). ``attn_impl``
+picks the attention path of every layer and ``ssd_impl`` the SSD path
+of the SSM/hybrid prefill (``models/layers.py``): on the card "auto" is
+the K7/K8 and K9 kernels, "ref" the plain grouped einsum and
+``ssd_chunked``; an engine with both "ref" launches no kernel.
 """
 from __future__ import annotations
 
@@ -104,15 +107,17 @@ class ServingEngine:
                  tokenizer: Optional[HashTokenizer] = None,
                  batch_size: int = 16, max_seq: int = 128,
                  max_new_tokens: int = 2, device="cuda",
-                 attn_impl: str = "auto"):
+                 attn_impl: str = "auto", ssd_impl: str = "auto"):
         check_supported(cfg)
-        if attn_impl not in ATTN_IMPLS:
-            raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
-                             f"{attn_impl!r}")
+        for name, impl in (("attn_impl", attn_impl), ("ssd_impl", ssd_impl)):
+            if impl not in ATTN_IMPLS:
+                raise ValueError(f"{name} must be one of {ATTN_IMPLS}, got "
+                                 f"{impl!r}")
         self.cfg = cfg
         self.params = params
         self.device = resolve_device(device)
         self.attn_impl = attn_impl
+        self.ssd_impl = ssd_impl
         self.tok = tokenizer or HashTokenizer(cfg.vocab_size)
         self.batch_size = batch_size
         self.max_seq = max_seq
@@ -130,7 +135,8 @@ class ServingEngine:
     # ------------------------------------------------- device functions
     def _prefill(self, tokens: torch.Tensor):
         return prefill(self.cfg, self.params, {"tokens": tokens},
-                       max_seq=self.cache_len, attn_impl=self.attn_impl)
+                       max_seq=self.cache_len, attn_impl=self.attn_impl,
+                       ssd_impl=self.ssd_impl)
 
     def _decode(self, cache, tok, pos):
         return decode_step(self.cfg, self.params, cache, tok, pos,

@@ -6,6 +6,11 @@ a numpy seed. GQA groups 1, 2 and 4, sequence lengths that are not a
 block multiple, rows of unequal cache length. Tolerance: 1e-5 absolute
 and relative, float32 (the sums over <= 200 keys differ only in order).
 
+The hybrid's additions: K7's plain version with a sliding window and
+K8's with the reference's slot mask over a wrapped ring, against the
+reference model's grouped einsum with its ``_mask_bias`` window bound
+and its ``attention_decode`` mask (``repro.models.layers``).
+
 Length 0: the port's kernel and plain version both follow the plain
 softmax over T equal masked scores (the mean of V); the Pallas kernel
 averages over its padded cache instead. The serving path never passes
@@ -43,6 +48,9 @@ from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_ref,
 )
+from repro.models import layers as ref_layers  # noqa: E402
+from repro.sharding import ShardingPolicy  # noqa: E402
+from repro_torch.kernels import attention_cases as AC  # noqa: E402
 from repro_torch.models.layers import _mask_bias, gqa_attention  # noqa: E402
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -157,3 +165,67 @@ def test_kernel_impl_raises_on_cpu(which):
                              impl="kernel")
     with pytest.raises(ValueError, match="impl"):
         flash_attention(q, k, k, impl="host")
+
+
+@pytest.mark.parametrize("window", (1, 5, 17, 64))
+@pytest.mark.parametrize("B,H,K,S,d", [(1, 4, 4, 50, 16),
+                                       (2, 6, 2, 70, 32)])
+def test_window_ref_matches_reference_mask(B, H, K, S, d, window):
+    """K7's plain version with ``window`` equals the reference model's
+    grouped einsum under ``_mask_bias("causal", ..., window)``, and the
+    port's own model-side bias; the (B, S, H, d) layout goes in as
+    transposed views, as ``attention_block`` passes it."""
+    rng = np.random.default_rng(window * 10 + S)
+    q, k, v = normal(rng, B, S, H, d), normal(rng, B, S, K, d), \
+        normal(rng, B, S, K, d)
+    pos = np.tile(np.arange(S)[None], (B, 1))
+    want = ref_layers.gqa_attention(
+        *map(jnp.asarray, (q, k, v)),
+        ref_layers._mask_bias("causal", jnp.asarray(pos), jnp.asarray(pos),
+                              window, 0), ShardingPolicy.single())
+    qt, kt, vt = (torch.as_tensor(a).transpose(1, 2) for a in (q, k, v))
+    got = flash_attention(qt, kt, vt, causal=True, window=window,
+                          impl="ref").transpose(1, 2)
+    close(got, want)
+    tp = torch.as_tensor(pos)
+    torch.testing.assert_close(
+        got, gqa_attention(*map(torch.as_tensor, (q, k, v)),
+                           _mask_bias(tp, tp, window)), **TOL)
+
+
+@pytest.mark.parametrize("W", AC.RING_WINDOWS)
+def test_slot_mask_ref_matches_reference_decode_mask(W):
+    """K8's plain version over a wrapped ring (``attention_cases``'
+    rows: slot entries above pos, entries too old for the window, empty
+    slots) equals the reference model's masked grouped einsum of
+    ``attention_decode``; every row keeps its own slot live."""
+    rows = AC.ring_rows(W)
+    sp = np.asarray(AC.ring_slot_pos(W, rows), np.int32)
+    pos = np.asarray([p for _, p in rows], np.int32)
+    B, H, K, d = len(rows), 4, 2, 16
+    rng = np.random.default_rng(W)
+    q, k, v = normal(rng, B, H, d), normal(rng, B, W, K, d), \
+        normal(rng, B, W, K, d)
+    ok = (sp >= 0) & (sp <= pos[:, None]) & (pos[:, None] - sp < W)
+    assert ok[np.arange(B), pos % W].all()
+    assert (ok.sum(1) < W).any() and (sp > pos[:, None]).any()
+    bias = jnp.where(jnp.asarray(ok), 0.0, -1e30)[:, None, :]
+    want = ref_layers.gqa_attention(
+        jnp.asarray(q)[:, None], jnp.asarray(k), jnp.asarray(v), bias,
+        ShardingPolicy.single())[:, 0]
+    kt, vt = (torch.as_tensor(a).permute(0, 2, 1, 3) for a in (k, v))
+    got = decode_attention(torch.as_tensor(q), kt, vt,
+                           slot_pos=torch.as_tensor(sp),
+                           pos=torch.as_tensor(pos), window=W)
+    close(got, want)
+    # the length form is the slot form on an in-order cache whose slot t
+    # holds position t up to pos (the dense model's invariant)
+    pos_in = np.minimum(pos, W - 1)
+    flat = np.where(np.arange(W)[None] <= pos_in[:, None],
+                    np.arange(W)[None], -1).astype(np.int32)
+    torch.testing.assert_close(
+        decode_attention(torch.as_tensor(q), kt, vt,
+                         torch.as_tensor(pos_in + 1)),
+        decode_attention(torch.as_tensor(q), kt, vt,
+                         slot_pos=torch.as_tensor(flat),
+                         pos=torch.as_tensor(pos_in)), **TOL)

@@ -2,8 +2,10 @@
 kernel bit-identical to its plain PyTorch version, each host-facing op
 at ``impl="kernel"`` identical to its ``impl="host"`` numpy oracle, and
 every launch counted (K1-K6); K7/K8 within 1e-4 of their plain
-versions, and the dense LM's kernel path equal to its plain path
-(K7/K8). Imports neither JAX nor the reference, so it runs where only
+versions (K7 with a sliding window, K8 with the slot mask over a
+wrapped ring too), K9 within ``ssd_cases.tolerance`` of its plain
+version over the ``ssd_cases`` sweep, and the dense, SSM and hybrid
+LMs' kernel paths equal to their plain paths (K7/K8/K9). Imports neither JAX nor the reference, so it runs where only
 PyTorch is installed:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -22,6 +24,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import attention_cases as AC  # noqa: E402
+from repro_torch.kernels import ssd_cases as SC  # noqa: E402
 from repro_torch.kernels.compact import compact as t_compact  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention as t_dec,
@@ -61,6 +64,12 @@ from repro_torch.kernels.segmented_reduce.ops import (  # noqa: E402
 )
 from repro_torch.kernels.segmented_reduce.ref import (  # noqa: E402
     segment_reduce_torch,
+)
+from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd import ssd as t_ssd  # noqa: E402
+from repro_torch.kernels.ssd.ref import (  # noqa: E402
+    ssd_chunk_ref,
+    ssd_reference,
 )
 
 INT32_MAX = 2**31 - 1
@@ -192,7 +201,8 @@ def test_kernels_match_plain_versions(dev, n):
                                "group_boundaries": 4,
                                "running_segment_ids": int(marks.numel() > 0),
                                "segment_reduce": 0, "radix_rank": 0,
-                               "flash_attention": 0, "decode_attention": 0}
+                               "flash_attention": 0, "decode_attention": 0,
+                               "ssd_chunk": 0}
 
 
 @pytest.mark.cuda
@@ -457,4 +467,144 @@ def test_serving_kernel_path_matches_plain_path(dev):
         else:
             assert launches["flash_attention"] == 0
             assert launches["decode_attention"] == 0
+    assert out["auto"] == out["ref"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", AC.HEAD_DIMS)
+@pytest.mark.parametrize("group", AC.GROUPS)
+@pytest.mark.parametrize("window", AC.WINDOWS)
+def test_flash_attention_window_matches_plain_version(dev, window, group,
+                                                      d):
+    g = torch.Generator(device=dev).manual_seed(window * 31 + group + d)
+    B, K, S = 2, 2, AC.WINDOW_SEQ
+    H = group * K
+    q, k, v = (torch.randn(B, S, n, d, generator=g, device=dev)
+               .transpose(1, 2) for n in (H, K, K))
+    _build.reset_launches()
+    got = t_fa.flash_attention_kernel(q, k, v, causal=True, window=window)
+    assert _build.LAUNCHES["flash_attention"] == 1
+    want = attention_ref(q, k, v, causal=True, window=window)
+    assert float((got - want).abs().max()) <= AC.TOLERANCE
+    # window 0 is no window: the dense path's numbers
+    assert torch.equal(t_fa.flash_attention_kernel(q, k, v, causal=True,
+                                                   window=0),
+                       t_fa.flash_attention_kernel(q, k, v, causal=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", AC.HEAD_DIMS)
+@pytest.mark.parametrize("group", AC.GROUPS)
+@pytest.mark.parametrize("W", AC.RING_WINDOWS)
+def test_decode_attention_ring_matches_plain_version(dev, W, group, d):
+    g = torch.Generator(device=dev).manual_seed(W * 17 + group + d)
+    rows = AC.ring_rows(W)
+    sp = torch.tensor(AC.ring_slot_pos(W, rows), dtype=torch.int32,
+                      device=dev)
+    pos = torch.tensor([p for _, p in rows], dtype=torch.int32, device=dev)
+    B, K = len(rows), 2
+    H = group * K
+    q = torch.randn(B, H, d, generator=g, device=dev)
+    k, v = (torch.randn(B, W, K, d, generator=g, device=dev)
+            .permute(0, 2, 1, 3) for _ in range(2))
+    _build.reset_launches()
+    got = t_dec.decode_attention_kernel(q, k, v, slot_pos=sp, pos=pos,
+                                        window=W)
+    assert _build.LAUNCHES["decode_attention"] == 1
+    want = decode_attention_ref(q, k, v, slot_pos=sp, pos=pos, window=W)
+    assert float((got - want).abs().max()) <= AC.TOLERANCE
+    # no live slot: the mean of V, as the plain version
+    empty = torch.full_like(sp, -1)
+    got0 = t_dec.decode_attention_kernel(q, k, v, slot_pos=empty, pos=pos,
+                                         window=W)
+    want0 = decode_attention_ref(q, k, v, slot_pos=empty, pos=pos, window=W)
+    assert float((got0 - want0).abs().max()) <= AC.TOLERANCE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SC.sweep())
+def test_ssd_chunk_kernel_matches_plain_version(dev, b, s, h, p, n, chunk):
+    g = torch.Generator(device=dev).manual_seed(s * 7 + h + n + b)
+    x, dt, A, B, C = SC.case_inputs(b, s, h, p, n, chunk, g, dev)
+    assert not x.is_contiguous()  # a slice of the conv output
+    _build.reset_launches()
+    got = t_ssd.ssd_chunk_kernel(x, dt, A, B, C, chunk=chunk)
+    assert _build.LAUNCHES["ssd_chunk"] == 1
+    want = ssd_chunk_ref(x, dt, A, B, C, chunk)
+    tol = SC.tolerance(SC.cum_max(dt, A, chunk))
+    for a, w in zip(got, want):
+        assert a.shape == w.shape and bool(torch.isfinite(a).all())
+        err = float((a - w).abs().max())
+        assert err <= tol * max(1.0, float(w.abs().max())), err
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_matches_sequential_oracle(dev):
+    b, s, h, p, n, chunk = SC.ORACLE_CASE
+    x, dt, A, B, C = SC.oracle_inputs(
+        torch.Generator(device=dev).manual_seed(0), dev)
+    _build.reset_launches()
+    y, state = ssd_ops.ssd(x, dt, A, B, C, chunk)  # auto: K9 on the card
+    assert _build.LAUNCHES["ssd_chunk"] == 1
+    want = ssd_reference(x, dt, A, B, C)
+    tol = SC.tolerance(SC.cum_max(dt, A, chunk))
+    assert y.shape == (b, s, h, p) and state.shape == (b, h, p, n)
+    assert float((y - want).abs().max()) <= tol * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_ssd_wrapper_rejects_wrong_operands(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    x, dt, A, B, C = SC.case_inputs(1, 64, 2, 16, 8, 64, g, dev)
+    k9 = t_ssd.ssd_chunk_kernel
+    with pytest.raises(TypeError):
+        k9(x.double(), dt, A, B, C, chunk=64)
+    with pytest.raises(ValueError):  # a CPU operand
+        k9(x, dt.cpu(), A, B, C, chunk=64)
+    with pytest.raises(ValueError):  # A for 3 heads, x has 2
+        k9(x, dt, torch.ones(3, device=dev), B, C, chunk=64)
+    with pytest.raises(ValueError):  # chunk 48 does not divide s = 64
+        k9(x, dt, A, B, C, chunk=48)
+    with pytest.raises(ValueError):  # chunk above 128
+        k9(x, dt, A, B, C, chunk=256)
+    with pytest.raises(ValueError):  # B and C of different widths
+        k9(x, dt, A, B, C[..., :4], chunk=64)
+    with pytest.raises(ValueError):  # unit stride on p required
+        k9(x.transpose(2, 3), dt, A, B, C, chunk=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ("mamba2-370m", "hymba-1.5b"))
+def test_ssm_serving_kernel_path_matches_plain_path(dev, arch):
+    """A tiny SSM or hybrid model served on the card with K9 (and, for
+    the hybrid, K7 with its window and K8 with the slot mask) and with
+    the plain paths, at max_seq 24, so the hybrid's 16-slot ring wraps:
+    the same answers through slot recycling; K9 (and K7) once per layer
+    per admission, K8 once per layer per round; the plain engine
+    launches nothing."""
+    from repro_torch.configs import get_tiny
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServingEngine
+
+    cfg = get_tiny(arch).replace(vocab_size=512)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    prompts = [f"card serving probe {i} " + "word " * (i % 11)
+               for i in range(13)]
+    out = {}
+    for impl in ("auto", "ref"):
+        eng = ServingEngine(cfg, params, batch_size=4, max_seq=24,
+                            max_new_tokens=3, device=dev, attn_impl=impl,
+                            ssd_impl=impl)
+        _build.reset_launches()
+        out[impl] = eng.answer(prompts)
+        launches = dict(_build.LAUNCHES)
+        attn = int(cfg.family == "hybrid")
+        L, st = cfg.num_layers, eng.stats
+        want = dict.fromkeys(launches, 0)
+        if impl == "auto":
+            want.update(ssd_chunk=L * st.batches,
+                        flash_attention=attn * L * st.batches,
+                        decode_attention=attn * L * st.decode_steps)
+        assert launches == want
     assert out["auto"] == out["ref"]

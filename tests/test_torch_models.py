@@ -1,11 +1,15 @@
-"""The port's dense LM against the reference's on the same weights: the
-reference's parameters (``repro.models.init_params``) carried across
-with ``params_from_numpy``, the same token ids from a numpy seed, and
-``prefill`` logits and every cache leaf, one ``decode_step`` and
-decode-matches-forward compared. Tolerance: 1e-4 absolute and relative
-on float32 logits and K/V (the two frameworks sum and round matrix
-products in different orders; logits here are O(1–10)); ``slot_pos``
-exact. Other families raise ``NotImplementedError``."""
+"""The port's LM (dense, SSM and hybrid families) against the
+reference's on the same weights: the reference's parameters
+(``repro.models.init_params``) carried across with
+``params_from_numpy``, the same token ids from a numpy seed, and
+``prefill`` logits and every cache leaf (K/V, ``slot_pos`` in ring
+layout, the SSM ``state`` and ``conv`` tail), ``decode_step`` and
+decode-matches-forward compared, including a hybrid prefill longer
+than its window, so that the ring wraps. Tolerance: 1e-4 absolute and
+relative on float32 logits, K/V and SSM state (the two frameworks sum
+and round matrix products and the SSD's chunk sums in different orders;
+logits here are O(1–10)); ``slot_pos`` exact. Other families raise
+``NotImplementedError``."""
 import dataclasses
 
 import jax
@@ -30,6 +34,7 @@ from repro_torch.configs import get_config as port_config  # noqa: E402
 from repro_torch.configs import get_tiny as port_tiny  # noqa: E402
 
 DENSE = ("stablelm-3b", "starcoder2-3b", "qwen2.5-32b", "internlm2-20b")
+ARCHS = DENSE + ("mamba2-370m", "hymba-1.5b")
 TOL = dict(atol=1e-4, rtol=1e-4)
 POLICY = ShardingPolicy.single()
 _CACHE: dict = {}
@@ -57,7 +62,18 @@ def close(got, want, **tol):
                                **(tol or TOL))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+def same_cache(got: dict, want: dict) -> None:
+    """Every leaf: ``slot_pos`` exactly, the float leaves within TOL."""
+    assert set(got) == set(want)
+    for k, v in got.items():
+        assert tuple(v.shape) == want[k].shape, k
+        if k == "slot_pos":
+            np.testing.assert_array_equal(v.numpy(), np.asarray(want[k]))
+        else:
+            close(v, want[k])
+
+
+@pytest.mark.parametrize("arch", ARCHS)
 def test_params_layout(arch):
     cfg, ref, port = setup(arch)
     assert pm.count_params(cfg) == count_params(cfg)
@@ -75,13 +91,21 @@ def test_params_layout(arch):
     rand = pm.init_params(cfg, gen, device="cpu")
     blocks = rand["blocks"]
     assert torch.equal(blocks["ln1"], torch.ones_like(blocks["ln1"]))
-    w = blocks["attn"]["wq"]
-    assert abs(float(w.std()) * np.sqrt(cfg.d_model) - 1) < 0.1
+    if "attn" in blocks:
+        w = blocks["attn"]["wq"]
+        assert abs(float(w.std()) * np.sqrt(cfg.d_model) - 1) < 0.1
     if cfg.qkv_bias:
         assert not blocks["attn"]["bq"].any()
+    if "ssm" in blocks:  # A = exp(A_log) in [1, 16], as the reference
+        a = torch.exp(blocks["ssm"]["A_log"])
+        assert float(a.min()) >= 1 and float(a.max()) <= 16
+        assert not blocks["ssm"]["dt_bias"].any()
+        w = blocks["ssm"]["w_in"]
+        assert abs(float(w.std()) * np.sqrt(cfg.d_model) - 1) < 0.1
+    assert ("mlp" in blocks) == (cfg.family != "ssm")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_logits_and_cache(arch):
     cfg, ref, port = setup(arch)
     toks = np.random.default_rng(1).integers(
@@ -91,14 +115,10 @@ def test_prefill_logits_and_cache(arch):
     lp, cp = pm.prefill(port_tiny(arch), port,
                         {"tokens": torch.as_tensor(toks)}, max_seq=17)
     close(lp, lr)
-    assert set(cp) == set(cr)
-    for k in ("k", "v"):
-        close(cp[k], cr[k])
-    np.testing.assert_array_equal(cp["slot_pos"].numpy(),
-                                  np.asarray(cr["slot_pos"]))
+    same_cache(cp, cr)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_decode_step(arch):
     cfg, ref, port = setup(arch)
     rng = np.random.default_rng(2)
@@ -115,13 +135,10 @@ def test_decode_step(arch):
                              torch.as_tensor(pos))
     assert cp2 is cp  # updated in place
     close(lp, ld)
-    for k in ("k", "v"):
-        close(cp[k], cr2[k])
-    np.testing.assert_array_equal(cp["slot_pos"].numpy(),
-                                  np.asarray(cr2["slot_pos"]))
+    same_cache(cp, cr2)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_forward(arch):
     """Prefill S tokens, decode the next three one at a time: each step's
     logits equal the full forward's at that position, in both packages."""
@@ -141,8 +158,35 @@ def test_decode_matches_forward(arch):
         close(lg, full_r[:, t])
 
 
-@pytest.mark.parametrize("arch", sorted(set(all_arch_ids()) - {
-    "stablelm-3b", "starcoder2-3b", "qwen2.5-32b", "internlm2-20b"}))
+@pytest.mark.parametrize("S,max_seq", [(20, 24), (16, 30), (40, 41)])
+def test_hybrid_ring_wraps(S, max_seq):
+    """A hybrid prefill longer than its window (tiny hymba: 16) keeps
+    the last 16 positions at slot ``pos % 16``; decode steps past the
+    wrap overwrite the ring. Every leaf and every step's logits equal
+    the reference's."""
+    cfg, ref, port = setup("hymba-1.5b")
+    rng = np.random.default_rng(S)
+    toks = rng.integers(0, cfg.vocab_size, (2, S)).astype(np.int32)
+    lr, cr = prefill(cfg, POLICY, ref, {"tokens": jnp.asarray(toks)},
+                     max_seq=max_seq)
+    lp, cp = pm.prefill(cfg, port, {"tokens": torch.as_tensor(toks)},
+                        max_seq=max_seq)
+    assert cp["slot_pos"].shape[2] == min(max_seq, cfg.attn_window)
+    close(lp, lr)
+    same_cache(cp, cr)
+    pos = np.array([S - 1, S // 2], np.int32)  # re-feed the last, rewind
+    for step in range(3):
+        nxt = rng.integers(0, cfg.vocab_size, 2).astype(np.int32)
+        ld, cr = decode_step(cfg, POLICY, ref, cr, jnp.asarray(nxt),
+                             jnp.asarray(pos))
+        lp, cp = pm.decode_step(cfg, port, cp, torch.as_tensor(nxt),
+                                torch.as_tensor(pos))
+        close(lp, ld)
+        same_cache(cp, cr)
+        pos = pos + 1
+
+
+@pytest.mark.parametrize("arch", sorted(set(all_arch_ids()) - set(ARCHS)))
 def test_other_families_raise(arch):
     for cfg in (port_config(arch), port_tiny(arch)):
         with pytest.raises(NotImplementedError):

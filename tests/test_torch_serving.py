@@ -6,9 +6,13 @@ and must give identical answers, continuous and drained (a partial final
 chunk included), identical ``ServingStats`` counters, the same
 ``serving_round``/``serving_decode`` sync counts, the same slot
 assignments under recycling and weighted/FIFO admission, and the same
-``ModelBackend`` parsing and tokenizer ids. On the CPU the port's
-attention takes its plain path; ``TestKernelPathGlue`` runs the K7/K8
-call sites with the kernels' plain versions swapped in.
+``ModelBackend`` parsing and tokenizer ids, for dense, SSM
+(mamba2-370m) and hybrid (hymba-1.5b) models. The tiny hybrid's window
+is 16, so its engines (max_seq 24) keep the last 16 padded positions
+in a ring, and a short prompt's first decode sees only the slot it
+writes (a reference behaviour the port keeps). On the CPU the port's
+attention and SSD take their plain paths; ``TestKernelPathGlue`` runs
+the K7/K8/K9 call sites with the kernels' plain versions swapped in.
 """
 import random
 
@@ -27,6 +31,8 @@ from repro.sharding import ShardingPolicy  # noqa: E402
 from repro.training.data import HashTokenizer  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd.ref import ssd_chunk_ref  # noqa: E402
 from repro_torch.kernels.sync import HOST_SYNCS, SERVING_SITES  # noqa: E402
 from repro_torch.models import layers as port_layers  # noqa: E402
 from repro_torch.models import params_from_numpy  # noqa: E402
@@ -37,7 +43,8 @@ from repro_torch.training.data import (  # noqa: E402
     HashTokenizer as PortTokenizer,
 )
 
-ARCHS = ("stablelm-3b", "starcoder2-3b", "qwen2.5-32b")
+ARCHS = ("stablelm-3b", "starcoder2-3b", "qwen2.5-32b", "mamba2-370m",
+         "hymba-1.5b")
 COUNTERS = ("prompts", "batches", "prefill_tokens", "decode_steps",
             "prefill_rows", "live_prefill_rows", "slot_steps",
             "live_slot_steps", "decode_tokens", "queued_peak")
@@ -206,27 +213,76 @@ def test_drained_partial_chunk_reports_dead_slots():
     assert port.stats.prefill_occupancy == 0.25
 
 
+def test_hybrid_short_prompt_sees_only_its_slot():
+    """The reference's ring-plus-padding behaviour, kept on purpose: the
+    admission prefills the whole 24-wide padded row, so the 16-slot ring
+    holds positions 8..23 (padding); a prompt shorter than 8 tokens
+    starts decoding at pos = len - 1 < 8 and sees only the slot it
+    writes. The answers still equal the reference's."""
+    ref, port = engines("hymba-1.5b")
+    prompts = ["short one", "tiny", "a slightly longer prompt here ok"]
+    sched = port.scheduler
+    ticket = port.submit(prompts)
+    sp = sched._cache["slot_pos"]
+    assert sp.shape[2] == 16 and port.cache_len == 27
+    for s in sched.live_slots():
+        pos = int(sched._pos[s])
+        assert sorted(sp[0, s].tolist()) == list(range(8, 24))
+        if pos < 8:  # nothing in the ring is at or before pos
+            assert bool((sp[:, s] > pos).all())
+    assert min(int(p) for p in sched._pos[:3]) < 8
+    port.drain(ticket)
+    assert port.answers(ticket) == ref.answer(prompts)
+
+
 class TestKernelPathGlue:
-    """The K7/K8 call sites of ``attention_block``/``attention_decode``
-    (strided (B,S,H,d) views, the (B,T,K,d) cache permuted,
-    ``lengths = pos + 1``) with the kernels' plain versions in place of
-    the kernels: the same answers as the plain grouped-einsum path
-    through slot recycling, and slot_pos[t] == t up to pos on every
-    live slot after every round (what makes K8's length mask equal the
-    reference's slot mask)."""
+    """The K7/K8/K9 call sites of ``attention_block``/
+    ``attention_decode``/``ssm_block`` (strided (B,S,H,d) views, the
+    (B,T,K,d) cache permuted, ``lengths = pos + 1`` for the dense
+    model and the slot mask for the hybrid's ring, the window, x/B/C as
+    strided slices of the conv output) with the kernels' plain versions
+    in place of the kernels: the same answers as the plain paths
+    through slot recycling. For the dense model, slot_pos[t] == t up to
+    pos on every live slot after every round (what makes K8's length
+    mask equal the reference's slot mask)."""
 
     @pytest.fixture
     def glue(self, monkeypatch):
-        def fa(q, k, v, *, causal=True, impl="auto"):
-            assert impl == "kernel"
-            return fa_ops.flash_attention(q, k, v, causal=causal, impl="ref")
+        calls = {"flash": 0, "decode_len": 0, "decode_slots": 0, "ssd": 0}
 
-        def dec(q, k, v, lengths, *, impl="auto"):
-            assert impl == "kernel" and lengths.dtype == torch.int32
-            return dec_ops.decode_attention(q, k, v, lengths, impl="ref")
+        def fa(q, k, v, *, causal=True, window=0, impl="auto"):
+            assert impl == "kernel"
+            calls["flash"] += 1
+            return fa_ops.flash_attention(q, k, v, causal=causal,
+                                          window=window, impl="ref")
+
+        def dec(q, k, v, lengths=None, *, slot_pos=None, pos=None,
+                window=0, impl="auto"):
+            assert impl == "kernel"
+            if lengths is not None:
+                assert lengths.dtype == torch.int32 and slot_pos is None
+                calls["decode_len"] += 1
+            else:
+                assert window > 0 and pos is not None
+                calls["decode_slots"] += 1
+            return dec_ops.decode_attention(q, k, v, lengths,
+                                            slot_pos=slot_pos, pos=pos,
+                                            window=window, impl="ref")
+
+        def chunk(x, dt, A, B, C, *, chunk):
+            # the kernel's operand contract: float32, unit stride on the
+            # last axis, dt and A contiguous, s a multiple of chunk
+            for a in (x, dt, A, B, C):
+                assert a.dtype == torch.float32 and a.stride(-1) == 1
+            assert dt.is_contiguous() and A.is_contiguous()
+            assert x.shape[1] % chunk == 0
+            calls["ssd"] += 1
+            return ssd_chunk_ref(x, dt, A, B, C, chunk)
 
         monkeypatch.setattr(port_layers, "flash_attention", fa)
         monkeypatch.setattr(port_layers, "decode_attention", dec)
+        monkeypatch.setattr(ssd_ops, "ssd_chunk_kernel", chunk)
+        return calls
 
     def test_kernel_path_matches_plain_path(self, glue):
         cfg, _, params = weights("starcoder2-3b")
@@ -253,6 +309,36 @@ class TestKernelPathGlue:
             assert checked > 0 and eng.stats.batches > 2
         assert runs["kernel"] == runs["ref"]
 
+    @pytest.mark.parametrize("arch", ("mamba2-370m", "hymba-1.5b"))
+    def test_ssm_kernel_paths_match_plain_path(self, glue, arch):
+        """Two waves through slot recycling; the hybrid at max_seq 24,
+        so its ring wraps; K9 once per layer per admission, K7 (with
+        the window) too for the hybrid, and K8 with the slot mask once
+        per layer per round."""
+        cfg, _, params = weights(arch)
+        runs = {}
+        for impl in ("kernel", "ref"):
+            for k in glue:
+                glue[k] = 0
+            eng = PortEngine(cfg, params, batch_size=4, max_seq=24,
+                             max_new_tokens=3, device="cpu", attn_impl=impl,
+                             ssd_impl=impl)
+            ta = eng.submit([f"glue wave one {i}" for i in range(3)])
+            eng.poll()
+            tb = eng.submit([f"glue wave two {i} " + "word " * i
+                             for i in range(6)])
+            eng.drain()
+            runs[impl] = eng.answers(ta) + eng.answers(tb)
+            st = eng.stats
+            L = cfg.num_layers
+            attn = cfg.family == "hybrid"
+            want = ({"flash": L * st.batches * attn, "decode_len": 0,
+                     "decode_slots": L * st.decode_steps * attn,
+                     "ssd": L * st.batches} if impl == "kernel"
+                    else dict.fromkeys(glue, 0))
+            assert glue == want and st.batches > 2
+        assert runs["kernel"] == runs["ref"]
+
     def test_prefill_and_decode_logits(self, glue):
         from repro_torch.models import decode_step, prefill
 
@@ -272,6 +358,37 @@ class TestKernelPathGlue:
         for k in ("k", "v", "slot_pos"):
             torch.testing.assert_close(out["kernel"][2][k],
                                        out["ref"][2][k], atol=1e-5,
+                                       rtol=1e-5)
+
+    def test_hybrid_prefill_and_decode_logits(self, glue):
+        """Prefill longer than the window (the ring wraps, K7's window
+        cuts), then decode steps past the wrap: every cache leaf and
+        every logit of the kernel path within 1e-5 of the plain path
+        (the stand-ins sum in other orders: the SSD's chunk step against
+        ``ssd_chunked``)."""
+        from repro_torch.models import decode_step, prefill
+
+        cfg, _, params = weights("hymba-1.5b")
+        toks = torch.as_tensor(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (3, 37)), dtype=torch.int32)
+        out = {}
+        for impl in ("kernel", "ref"):
+            lg, cache = prefill(cfg, params, {"tokens": toks}, max_seq=40,
+                                attn_impl=impl, ssd_impl=impl)
+            logits = [lg]
+            pos = torch.tensor([36, 20, 30], dtype=torch.int32)
+            for step in range(4):
+                ld, _ = decode_step(cfg, params, cache, toks[:, step], pos,
+                                    attn_impl=impl)
+                logits.append(ld)
+                pos = pos + 1
+            out[impl] = (logits, cache)
+        assert glue["flash"] == glue["ssd"] == cfg.num_layers
+        assert glue["decode_slots"] == 4 * cfg.num_layers
+        for a, b in zip(out["kernel"][0], out["ref"][0]):
+            torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+        for k, v in out["ref"][1].items():
+            torch.testing.assert_close(out["kernel"][1][k], v, atol=1e-5,
                                        rtol=1e-5)
 
 
@@ -329,3 +446,15 @@ def test_serve_entry_point_tiny_cpu(capsys):
     assert "random-weight stablelm-tiny on cpu" in out
     assert "'hello' -> " in out and "'world' -> " in out
     assert "2 prompts, 1 batches" in out
+
+
+@pytest.mark.parametrize("arch", ("mamba2-370m", "hymba-1.5b"))
+def test_serve_entry_point_ssm_families_tiny_cpu(capsys, arch):
+    from repro_torch.configs import get_tiny
+    from repro_torch.launch.serve import main
+
+    main(["--arch", arch, "--tiny", "--device", "cpu", "--max-seq", "24",
+          "--prompts", "hello", "world", "again"])
+    out = capsys.readouterr().out
+    assert f"random-weight {get_tiny(arch).name} on cpu" in out
+    assert "'again' -> " in out and "3 prompts, 2 batches" in out

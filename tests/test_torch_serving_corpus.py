@@ -6,7 +6,9 @@ package through per-schema ``FrontDoor``s that share ONE runner over
 function cache), the two engines on the same carried-across weights.
 Rows, order, ``llm_calls``, ``cache_hits``, ``null_skipped``,
 ``probe_rows``, ``pipeline_syncs``, ``serving_syncs`` and backend calls
-must be identical."""
+must be identical. The same holds for one query (q8) over a tiny
+hybrid (hymba-1.5b: attention with a sliding window beside Mamba-2
+heads)."""
 import jax
 import numpy as np
 import pytest
@@ -37,13 +39,13 @@ FIELDS = ("llm_calls", "cache_hits", "null_skipped", "probe_rows",
           "pipeline_syncs", "serving_syncs")
 
 
-def _specs():
+def _specs(qids=QIDS):
     by_id = {s.qid: s for s in corpus.ALL_QUERIES}
-    return [by_id[q] for q in QIDS]
+    return [by_id[q] for q in qids]
 
 
-def _run(port: bool):
-    cfg = get_tiny("stablelm-3b").replace(vocab_size=512)
+def _run(port: bool, arch: str = "stablelm-3b", qids=QIDS):
+    cfg = get_tiny(arch).replace(vocab_size=512)
     params = init_params(cfg, jax.random.PRNGKey(0))
     if port:
         eng = PortEngine(cfg, params_from_numpy(
@@ -57,7 +59,7 @@ def _run(port: bool):
         backend = ModelBackend.from_engine(eng)
         runner = SemanticRunner(backend)
     out = []
-    for spec in _specs():
+    for spec in _specs(qids):
         if port:
             db = PORT_SCHEMAS[spec.schema](seed=0, scale=SCALE,
                                            device="cpu")
@@ -93,6 +95,16 @@ def test_backend_calls_and_serving(runs):
     assert calls_p == calls_r > 0
     assert sum(s["llm_calls"] for _, _, s in got) == calls_p
     assert sum(s["serving_syncs"] for _, _, s in got) == st_p.decode_steps
+    for f in ("prompts", "batches", "prefill_tokens", "decode_steps",
+              "decode_tokens"):
+        assert getattr(st_p, f) == getattr(st_r, f), f
+
+
+def test_hybrid_query_matches_reference():
+    want, calls_r, st_r = _run(False, "hymba-1.5b", ("q8",))
+    got, calls_p, st_p = _run(True, "hymba-1.5b", ("q8",))
+    assert got == want
+    assert calls_p == calls_r > 0
     for f in ("prompts", "batches", "prefill_tokens", "decode_steps",
               "decode_tokens"):
         assert getattr(st_p, f) == getattr(st_r, f), f
