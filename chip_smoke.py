@@ -10,7 +10,10 @@ Phases, each printing one JSON line:
 2. ``kernels`` — holds every kernel against its plain PyTorch version
    on the card, at edge sizes up to 2^24 and on the edge inputs each
    kernel must handle: K1 prefix count, K2 FNV-1a row hash, K3 group
-   boundaries, K4 running segment ids and K6 radix rank bit-identical;
+   boundaries, K4 running segment ids, K6 radix rank and K10 shard rank
+   (over ``repro_torch.kernels.partition_cases``: P in {1, 2, 4, 8, 32},
+   uniform / one-bucket / half-hot destinations, fixed-stride or random
+   offsets) bit-identical;
    K5 segmented reduction over {sum, min, max} x {int32, float32} and
    G in {1, 16, 4097, 2^20} with NaN, ±inf, -0.0, empty segments and a
    hot segment — bit-identical except float32 sums, which are held to
@@ -35,7 +38,23 @@ Phases, each printing one JSON line:
    hash join served by the incremental stream table, and after every
    batch the standing output equals a cold host run on the
    concatenated data;
-7. ``attention`` — K7 (flash attention) and K8 (flash-decode) against
+7. ``e2e_sharded`` — the ``e2e_hash`` tables and query planned under
+   ``CostParams(n_shards=4)`` and run by the partitioned mesh executor
+   over four shards of the card (``make_data_mesh(4, devices=[card] *
+   4)``), cold then warm on one executor; both held to the
+   single-device kernel run and the host run in rows, order, the six
+   ExecStats fields and backend calls; both joins ``partitioned``,
+   collectives within 2 per join + 1 per grouped aggregate, K1, K2, K5
+   and K10 launched; prints the walls, their split, the collectives by
+   site and the peak memory;
+8. ``sharded_stream`` — ``benchmarks/bench_sharded.py``'s workload at
+   2^24 facts and 2^16 dims: its grouped aggregate and its join 8
+   times each on the mesh and on one device, every output identical,
+   the collective budget (aggregate <= 1 cold and 0 warm, join <= 2
+   cold and exactly 1 warm), per-query walls of both. Four shards on
+   one card measure the tier's kernels, layout and host merges, not
+   an interconnect;
+9. ``attention`` — K7 (flash attention) and K8 (flash-decode) against
    their plain versions on unit-normal inputs: K7 at S in {1, 63, 64,
    65, 128, 1000}, GQA group in {1, 2, 12}, head_dim in {64, 80, 128},
    causal and not, through the model's transposed (B, S, H, d) views,
@@ -47,7 +66,7 @@ Phases, each printing one JSON line:
    (float32 sums over <= 1000 keys in another order). The sweep and its
    tolerance are ``repro_torch.kernels.attention_cases``, which the
    card tests share;
-8. ``ssd`` — K9 (the SSD intra-chunk step) against its plain version,
+10. ``ssd`` — K9 (the SSD intra-chunk step) against its plain version,
    all four outputs, over ``repro_torch.kernels.ssd_cases``: chunk in
    {64, 128}, s in {1, chunk-1, chunk, chunk+1, 4 chunk+3} (padded as
    ``ops.ssd`` pads), (h, p, n) in {(1, 16, 16), (32, 64, 128),
@@ -55,7 +74,7 @@ Phases, each printing one JSON line:
    softplus(3 N), A = -U[1, 16]: exp above the diagonal overflows) and
    strided layout; then ``ops.ssd`` against the sequential oracle at
    (1, 1000, 4, 16, 16, 128); within ``ssd_cases.tolerance``;
-9. ``serve`` — starcoder2-3b at full width (30 layers, d_model 3072,
+11. ``serve`` — starcoder2-3b at full width (30 layers, d_model 3072,
    24 query heads over 2 KV heads, head_dim 128, float32 weights from a
    seeded generator) behind ``ServingEngine(batch_size=16, max_seq=128,
    max_new_tokens=2)``: 256 prompts made from a seed, served
@@ -68,14 +87,14 @@ Phases, each printing one JSON line:
    then serves 64 of the prompts in two waves half a batch apart, so
    slots are freed and refilled while others are mid-decode, and holds
    the K7/K8 engine's token ids to the plain engine's there too;
-10. ``llm_query`` — five corpus queries (one per schema, scale 0.15,
+12. ``llm_query`` — five corpus queries (one per schema, scale 0.15,
    ``CostParams()``) through per-schema ``FrontDoor``s sharing one
    runner over ``ModelBackend.from_engine`` on the same starcoder2-3b
    engine, once with K7/K8 and once with the plain attention: rows,
    order, ``llm_calls``, ``cache_hits``, ``pipeline_syncs``,
    ``serving_syncs``, backend calls and the token ids the model emitted
    for every prompt must be equal;
-11. ``serve_ssm`` and ``serve_hybrid`` — the same serving checks with
+13. ``serve_ssm`` and ``serve_hybrid`` — the same serving checks with
    mamba2-370m (48 SSM layers, d_model 1024, 32 heads x 64, state 128,
    chunk 128) and hymba-1.5b (32 layers, d_model 1600, attention of 25
    query over 5 KV heads with window 2048 beside 50 SSM heads x 64,
@@ -84,16 +103,17 @@ Phases, each printing one JSON line:
    einsum and ``ssd_chunked``, no kernel): identical answers and token
    ids (two-wave run included), K9 once per layer per admission, and
    one admission's prefill logits, SSM ``state`` and ``conv`` compared;
-12. ``long_prefill`` — the shapes admissions never reach: mamba2-370m
+14. ``long_prefill`` — the shapes admissions never reach: mamba2-370m
    prefills 2 x 2048 tokens (16 chunks), hymba-1.5b 1 x 4096 tokens
    into a 4104-position cache (a 2048-slot ring; the window cuts) and
    decodes 8 steps past the wrap, both paths, logits (and the SSM
    state) within LONG_TOLERANCE of max|plain|;
-13. ``llm_query_hybrid`` — Q13 and q8 through ``ModelBackend`` on the
+15. ``llm_query_hybrid`` — Q13 and q8 through ``ModelBackend`` on the
    hymba-1.5b engines, held as ``llm_query`` holds its queries;
-14. the ``kernels`` line: per kernel, its launches in the run of the
+16. the ``kernels`` line: per kernel, its launches in the run of the
    path it belongs to (``e2e`` for K1-K4, ``e2e_hash`` for K5 and K6,
-   ``serve`` for K7 and K8, ``serve_ssm`` for K9; every path's counts
+   ``serve`` for K7 and K8, ``serve_ssm`` for K9, the cold
+   ``e2e_sharded`` run for K10; every path's counts
    beside) and, at the largest shape that run gave it, its device time,
    its plain version's, the bound and one PyTorch library call's time
    where one computes the same function
@@ -101,7 +121,8 @@ Phases, each printing one JSON line:
    CUDA-graph replays, so no host work is counted), plus the wrapper's
    eager call time; K7 also with the hybrid's window and K8 with its
    slot mask at ``serve_hybrid``'s shapes (and K7 at ``long_prefill``'s),
-   K9 also at ``serve_hybrid``'s and ``long_prefill``'s shapes.
+   K9 also at ``serve_hybrid``'s and ``long_prefill``'s shapes, K10 also
+   at P = 32 and beside K6 over the same P buckets.
 
 Float32 matrix products run in full float32: TF32 is switched off for
 cuBLAS and cuDNN, as the reference computes in float32.
@@ -358,8 +379,11 @@ def check_kernels(device, sizes=EDGE_SIZES, seed: int = 0,
     from repro_torch.kernels.hash_dedup.hash_dedup import hash_rows_kernel
     from repro_torch.kernels.hash_dedup.ref import (
         group_boundaries_ref, hash_rows_np, hash_rows_ref)
+    from repro_torch.kernels import partition_cases as PC
     from repro_torch.kernels.hash_join.hash_join import (
         radix_rank_kernel, radix_rank_torch)
+    from repro_torch.kernels.partition.partition import shard_rank_kernel
+    from repro_torch.kernels.partition.ref import shard_rank_torch
     from repro_torch.kernels.segmented_reduce.ref import segment_reduce_torch
     from repro_torch.kernels.segmented_reduce.segmented_reduce import (
         segment_reduce_kernel)
@@ -367,7 +391,7 @@ def check_kernels(device, sizes=EDGE_SIZES, seed: int = 0,
     g = torch.Generator(device=device).manual_seed(seed)
     cases = {"prefix_count": 0, "hash_rows": 0, "group_boundaries": 0,
              "running_segment_ids": 0, "segment_reduce": 0,
-             "radix_rank": 0}
+             "radix_rank": 0, "shard_rank": 0}
     errs = dict.fromkeys(cases, 0)
 
     def same(name, a, b, what):
@@ -419,6 +443,14 @@ def check_kernels(device, sizes=EDGE_SIZES, seed: int = 0,
             base = exclusive_bases(d)
             same("radix_rank", radix_rank_kernel(d, base),
                  radix_rank_torch(d, base), f"K6 n={n}")
+        # K10: P in {1, 2, 4, 8, 32}, uniform / one-bucket / half-hot
+        # destinations, fixed-stride or random exclusive offsets
+        for _, p, dkind, bkind in PC.sweep((n,)):
+            d = PC.dest_case(dkind, n, p, g, device)
+            b = PC.base_case(bkind, d, p, g)
+            same("shard_rank", shard_rank_kernel(d, b),
+                 shard_rank_torch(d, b, p),
+                 f"K10 n={n} p={p} {dkind} {bkind}")
         # K5: every op and dtype over spread/hot/sorted ids
         for gs in g_sizes:
             for dt in (torch.int32, torch.float32):
@@ -493,21 +525,22 @@ def _freeze(recs):
     return [tuple((k, fz(v)) for k, v in sorted(r.items())) for r in recs]
 
 
+def _sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def run_query(db, plan, out_cols, impl: str, split: dict | None = None,
               params: dict = SORT_MERGE):
     """Optimise ``plan`` under ``CostParams(**params)`` (by default the
     sort-merge configuration) and execute it at ``impl``. Returns
     (frozen rows, stats, backend calls); fills ``split`` with the
     host-clock seconds of each stage."""
-    import torch
-
     from repro_torch.core import CostParams, optimize
     from repro_torch.engine import Executor
     from repro_torch.semantic import OracleBackend, SemanticRunner
-
-    def sync():
-        if db.device.type == "cuda":
-            torch.cuda.synchronize(db.device)
 
     t0 = time.perf_counter()
     cat = db.catalog()
@@ -517,10 +550,10 @@ def run_query(db, plan, out_cols, impl: str, split: dict | None = None,
     ex = Executor(db, SemanticRunner(backend), kernel_impl=impl)
     t2 = time.perf_counter()
     table, stats = ex.execute(opt.plan)
-    sync()
+    _sync(db.device)
     t3 = time.perf_counter()
     rows = _freeze(db.materialize(table, list(out_cols)))
-    sync()
+    _sync(db.device)
     t4 = time.perf_counter()
     if split is not None:
         split.update(catalog_s=t1 - t0, optimize_s=t2 - t1,
@@ -841,6 +874,230 @@ def run_stream(device, n_base: int = 1 << 20, n_batch: int = 1 << 16,
                              "stream table")
     return {"n_base": n_base, "n_batch": n_batch, "prime_s": prime_s,
             "batches": batches, "launches": dict(_build.LAUNCHES)}
+
+
+# ------------------------------------------------- the partitioned tier
+
+def _execute(ex, db, plan, out_cols, split: dict):
+    """Execute ``plan`` with ``ex`` and materialise ``out_cols``. Returns
+    (frozen rows, stats, collectives by site); fills ``split`` with the
+    host-clock seconds of each stage."""
+    from repro_torch.kernels.sync import HOST_SYNCS
+
+    coll0 = dict(HOST_SYNCS.by_collective)
+    t0 = time.perf_counter()
+    table, stats = ex.execute(plan)
+    _sync(db.device)
+    t1 = time.perf_counter()
+    rows = _freeze(db.materialize(table, list(out_cols)))
+    _sync(db.device)
+    split.update(execute_s=t1 - t0, rel_s=stats.rel_wall_s,
+                 sem_s=stats.sem_wall_s,
+                 materialize_s=time.perf_counter() - t1)
+    by = {k: v - coll0.get(k, 0) for k, v in HOST_SYNCS.by_collective.items()
+          if v != coll0.get(k, 0)}
+    return rows, stats, by
+
+
+def run_e2e_sharded(device, n_events: int = 1 << 24, n_users: int = 1 << 22,
+                    n_cats: int = 1 << 16, n_shards: int = 4,
+                    impl: str = "auto") -> dict:
+    """``e2e_hash``'s tables and query planned under
+    ``CostParams(n_shards=4)`` and run by the mesh executor over
+    ``n_shards`` shards of one card at ``impl``, cold then warm (the
+    same executor: the build sides' layouts are cached), each held to
+    the single-device run at ``impl`` and the host run on the same
+    card. (On the CPU ``auto`` is the host path, which skips the mesh:
+    rehearse there with ``impl="kernel"``.)"""
+    import torch
+
+    from repro_torch.core import CostParams, Q, col, optimize
+    from repro_torch.core.plan import Aggregate, Join
+    from repro_torch.engine import Executor, database_from_numpy
+    from repro_torch.kernels import _build
+    from repro_torch.semantic import OracleBackend, SemanticRunner
+    from repro_torch.sharding import make_data_mesh
+
+    tables, texts, truths = e2e_hash_tables(n_events, n_users, n_cats)
+    t0 = time.perf_counter()
+    db = database_from_numpy(tables, texts, truths, device=device)
+    load_s = time.perf_counter() - t0
+    out = ["events.region", "users.tier", "agg.n", "agg.amin", "agg.amax",
+           "agg.emin", "agg.emax"]
+    mesh = make_data_mesh(n_shards, devices=[device] * n_shards)
+    t0 = time.perf_counter()
+    cat = db.catalog()
+    t1 = time.perf_counter()
+    plan = optimize(e2e_hash_plan(Q, col), cat, strategy="cost",
+                    params=CostParams(n_shards=n_shards)).plan
+    plan_split = {"catalog_s": t1 - t0,
+                  "optimize_s": time.perf_counter() - t1}
+    joins = sum(isinstance(n, Join) for n in plan.walk())
+    aggs = sum(bool(isinstance(n, Aggregate) and n.group_by)
+               for n in plan.walk())
+
+    def executor(impl, m=None):
+        backend = OracleBackend(truths=db.truths)
+        return Executor(db, SemanticRunner(backend), kernel_impl=impl,
+                        mesh=m), backend
+
+    ex, backend = executor(impl, mesh)
+    runs = {}
+    for label in ("cold", "warm"):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        _build.reset_launches()
+        split = {}
+        calls0 = backend.calls
+        t0 = time.perf_counter()
+        rows, stats, by = _execute(ex, db, plan, out, split)
+        wall = time.perf_counter() - t0
+        runs[label] = {
+            "rows": rows, "stats": stats, "calls": backend.calls - calls0,
+            "wall_s": wall, "split": split, "by_collective": by,
+            "launches": dict(_build.LAUNCHES),
+            "shapes": {k: list(v) for k, v in _build.MAX_SHAPES.items()},
+            "peak_device_bytes": (torch.cuda.max_memory_allocated(device)
+                                  if device.type == "cuda" else None)}
+    want = {}
+    for label in ("single", "host"):
+        e, b = executor(impl if label == "single" else "host")
+        split = {}
+        t0 = time.perf_counter()
+        rows, stats, _ = _execute(e, db, plan, out, split)
+        want[label] = {"rows": rows, "stats": stats, "calls": b.calls,
+                       "wall_s": time.perf_counter() - t0, "split": split}
+    for label, run in runs.items():
+        got = (run["rows"], run["stats"], run["calls"])
+        for other, w in want.items():
+            hold_to_host(f"e2e_sharded {label} vs {other}", got,
+                         (w["rows"], w["stats"], w["calls"]))
+        st = run["stats"]
+        if st.join_physical != {"partitioned": joins}:
+            raise AssertionError(f"e2e_sharded {label}: joins served by "
+                                 f"{st.join_physical}")
+        if not 0 < st.collective_ops <= 2 * joins + aggs:
+            raise AssertionError(f"e2e_sharded {label}: "
+                                 f"{st.collective_ops} collectives")
+    if len(runs["cold"]["rows"]) == 0:
+        raise AssertionError("e2e_sharded: empty result")
+
+    def summary(run):
+        st = run["stats"]
+        return {k: v for k, v in run.items() if k not in ("rows", "stats")
+                } | {"stats": {f: getattr(st, f) for f in STAT_FIELDS},
+                     "collective_ops": st.collective_ops,
+                     "pipeline_syncs": st.pipeline_syncs,
+                     "join_physical": st.join_physical}
+
+    return {"rows": len(runs["cold"]["rows"]), "n_events": n_events,
+            "n_users": n_users, "n_cats": n_cats, "n_shards": n_shards,
+            "mesh": [str(d) for d in mesh.devices],
+            "collective_budget": 2 * joins + aggs, "load_s": load_s,
+            "plan_split": plan_split,
+            "cold": summary(runs["cold"]), "warm": summary(runs["warm"]),
+            "single_wall_s": want["single"]["wall_s"],
+            "single_split": want["single"]["split"],
+            "single_pipeline_syncs": want["single"]["stats"].pipeline_syncs,
+            "host_wall_s": want["host"]["wall_s"],
+            "host_split": want["host"]["split"]}
+
+
+def sharded_stream_tables(n_facts: int, n_dims: int, seed: int = 0):
+    """``benchmarks/bench_sharded.py``'s workload as columns: facts
+    ``(fact_id, k1 in [0, 500), k2 in [0, 40), dim_id, v)`` and dims
+    ``(dim_id, weight)``, made from ``seed``."""
+    rng = np.random.default_rng(seed)
+    facts = {"fact_id": np.arange(n_facts),
+             "k1": rng.integers(0, 500, n_facts),
+             "k2": rng.integers(0, 40, n_facts),
+             "dim_id": rng.integers(0, n_dims, n_facts),
+             "v": rng.normal(size=n_facts).astype(np.float32)}
+    dims = {"dim_id": np.arange(n_dims),
+            "weight": rng.normal(size=n_dims).astype(np.float32)}
+    return {"facts": facts, "dims": dims}
+
+
+def sharded_stream_plans(Q):
+    agg = (Q.scan("facts")
+           .group_by(["facts.k1", "facts.k2"],
+                     aggs=[("count", "facts.v", "n"),
+                           ("min", "facts.v", "lo"),
+                           ("max", "facts.v", "hi")])
+           .build())
+    join = (Q.scan("facts")
+            .join(Q.scan("dims"), "facts.dim_id", "dims.dim_id").build())
+    return {"aggregate": (agg, ["facts.k1", "facts.k2", "agg.n", "agg.lo",
+                                "agg.hi"], 1, 0),
+            "join": (join, ["facts.fact_id", "dims.dim_id", "dims.weight"],
+                     2, 1)}
+
+
+def run_sharded_stream(device, n_facts: int = 1 << 24, n_dims: int = 1 << 16,
+                       queries: int = 8, n_shards: int = 4,
+                       impl: str = "auto") -> dict:
+    """The grouped aggregate and the join of ``bench_sharded.py``, each
+    run ``queries`` times by the mesh executor (``n_shards`` shards of
+    one card) and by the single-device executor: every run's output
+    columns identical, the reference's collective budget (aggregate
+    <= 1 cold and 0 warm, join <= 2 cold and exactly 1 warm), per-query
+    walls of both. (Rehearse on the CPU with ``impl="kernel"``.)"""
+    from repro_torch.core import Q
+    from repro_torch.engine import Executor, database_from_numpy
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.util import to_numpy
+    from repro_torch.semantic import OracleBackend, SemanticRunner
+    from repro_torch.sharding import make_data_mesh
+
+    db = database_from_numpy(sharded_stream_tables(n_facts, n_dims),
+                             device=device)
+    mesh = make_data_mesh(n_shards, devices=[device] * n_shards)
+    runner = SemanticRunner(OracleBackend(truths={}))
+    single = Executor(db, runner, kernel_impl=impl)
+    part = Executor(db, runner, kernel_impl=impl, mesh=mesh)
+    out = {"n_facts": n_facts, "n_dims": n_dims, "queries": queries,
+           "n_shards": n_shards, "mesh": [str(d) for d in mesh.devices]}
+    for name, (plan, cols, cold_max, warm) in sharded_stream_plans(
+            Q).items():
+        res = {}
+        for label, ex in (("partitioned", part), ("single", single)):
+            walls, colls, launches, last = [], [], [], None
+            for _ in range(queries):
+                _build.reset_launches()
+                t0 = time.perf_counter()
+                table, stats = ex.execute(plan)
+                _sync(db.device)
+                walls.append(time.perf_counter() - t0)
+                colls.append(stats.collective_ops)
+                launches.append(dict(_build.LAUNCHES))
+                t = table.compact()
+                cur = [to_numpy(t.col(c)) for c in cols]
+                if last is not None and not all(
+                        np.array_equal(a, b, equal_nan=True)
+                        for a, b in zip(cur, last)):
+                    raise AssertionError(f"sharded_stream {name} {label}: "
+                                         f"a rerun's output differs")
+                last = cur
+            res[label] = {"walls_s": walls, "collectives": colls,
+                          "launches": launches[0],
+                          "warm_launches": launches[-1], "out": last}
+        p, s = res["partitioned"], res["single"]
+        if not all(np.array_equal(a, b, equal_nan=True)
+                   for a, b in zip(p.pop("out"), s.pop("out"))):
+            raise AssertionError(f"sharded_stream {name}: mesh output "
+                                 f"differs from the single-device run")
+        if p["collectives"][0] > cold_max or any(
+                c != warm for c in p["collectives"][1:]):
+            raise AssertionError(f"sharded_stream {name}: collectives "
+                                 f"{p['collectives']} (budget {cold_max} "
+                                 f"cold, {warm} warm)")
+        if any(s["collectives"]):
+            raise AssertionError(f"sharded_stream {name}: the single-device "
+                                 f"run exchanged")
+        res["rows_out"] = int(table.num_valid)
+        out[name] = res
+    return out
 
 
 # ------------------------------------------------------- attention kernels
@@ -1593,14 +1850,16 @@ def window_pairs(S: int, window: int) -> int:
 
 def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
                 by_path: dict, decode_lengths, seed: int = 1,
-                llm: dict | None = None) -> list[dict]:
+                llm: dict | None = None, n_shards: int = 4) -> list[dict]:
     """Time each kernel at the largest shape its path's run gave it
     (``launches``/``shapes``: K1-K4 from ``e2e``, K5/K6 from
     ``e2e_hash``, K7/K8 from ``serve``, K9 from ``serve_ssm``; K8's rows
     hold the ``decode_lengths`` of a first decode round of the served
     prompts; ``llm`` adds K7 with the hybrid's window and K8 with its
     slot mask at ``serve_hybrid``'s and ``long_prefill``'s shapes, and
-    K9 at ``long_prefill``'s and ``serve_hybrid``'s):
+    K9 at ``long_prefill``'s and ``serve_hybrid``'s; K10 from
+    ``e2e_sharded`` over ``n_shards`` buckets, with K6 at B = P and K10
+    at P = 32 beside it):
     the kernel, its plain version and the library call each as
     CUDA-graph replays (device time only), and the kernel's wrapper also
     as one eager call between two events (``wrapper_eager_ms``, which
@@ -1628,6 +1887,8 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
     from repro_torch.kernels.hash_join.hash_join import (
         radix_rank_kernel, radix_rank_torch)
     from repro_torch.kernels.hash_join.ops import _radix_order
+    from repro_torch.kernels.partition.partition import shard_rank_kernel
+    from repro_torch.kernels.partition.ref import shard_rank_torch
     from repro_torch.kernels.segmented_reduce.ref import segment_reduce_torch
     from repro_torch.kernels.segmented_reduce.segmented_reduce import (
         segment_reduce_kernel)
@@ -1748,6 +2009,39 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
     if not torch.equal(order.long(), torch.argsort(slot_key, stable=True)):
         raise AssertionError("K6 chained order differs from the stable "
                              "argsort")
+
+    # K10 at the largest source block the sharded e2e gave it: uniform
+    # destinations (the key hash spreads rows evenly), the exchange's
+    # fixed-stride offsets; K6 over the same P buckets, and K10 at P = 32,
+    # beside it
+    if "shard_rank" in shapes:
+        n = shapes["shard_rank"][0]
+
+        def k10_inputs(p):
+            d = torch.randint(0, p, (n,), generator=g, device=device,
+                              dtype=torch.int32)
+            return d, torch.arange(p, dtype=torch.int32, device=device) * n
+
+        dest, base = k10_inputs(n_shards)
+        d32, b32 = k10_inputs(32)
+        if not torch.equal(shard_rank_kernel(d32, b32),
+                           shard_rank_torch(d32, b32, 32)):
+            raise AssertionError("K10 at P = 32 differs from its plain "
+                                 "version")
+        if not torch.equal(radix_rank_kernel(dest, base),
+                           shard_rank_kernel(dest, base)):
+            raise AssertionError("K6 at B = P differs from K10")
+        row("shard_rank", "src/repro_torch/csrc/shard_rank.cu",
+            "src/repro/kernels/partition/partition.py:52",
+            lambda: shard_rank_kernel(dest, base),
+            lambda: shard_rank_torch(dest, base, n_shards),
+            lambda: torch.sort(dest, stable=True),
+            8 * n, n, (n, n_shards), library_call="torch.sort(stable=True)",
+            k6_at_b_eq_p_ms=time_ms(lambda: radix_rank_kernel(dest, base)),
+            at_p32_ms=time_ms(lambda: shard_rank_kernel(d32, b32)),
+            at_p32_plain_ms=time_ms(lambda: shard_rank_torch(d32, b32, 32)),
+            k6_at_p32_ms=time_ms(lambda: radix_rank_kernel(d32, b32)))
+        del dest, base, d32, b32
 
     # K7 at a full admission: the (B, S, H, d) projections as the model
     # passes them; 4d operations per visible (query, key) pair
@@ -1921,6 +2215,11 @@ SORT_MERGE_KERNELS = ("prefix_count", "hash_rows", "group_boundaries",
 HASH_KERNELS = ("prefix_count", "running_segment_ids", "segment_reduce",
                 "radix_rank")
 ATTN_KERNELS = ("flash_attention", "decode_attention")
+SHARDED_KERNELS = ("prefix_count", "hash_rows", "shard_rank",
+                   "segment_reduce")
+SHARED_CARD_NOTE = ("four shards on one card: these times measure the "
+                    "tier's kernels, layout and host merges, not an "
+                    "interconnect")
 
 
 def require_launched(path: str, launches: dict, names) -> None:
@@ -2003,6 +2302,28 @@ def main() -> int:
 
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    sharded = run_e2e_sharded(device)
+    emit({"phase": "e2e_sharded", **sharded,
+          "seconds": time.perf_counter() - t0, "gpu": smi,
+          "note": SHARED_CARD_NOTE})
+    require_launched("e2e_sharded", sharded["cold"]["launches"],
+                     SHARDED_KERNELS)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sstream = run_sharded_stream(device)
+    emit({"phase": "sharded_stream", **sstream,
+          "seconds": time.perf_counter() - t0, "gpu": smi,
+          "note": SHARED_CARD_NOTE})
+    require_launched("sharded_stream (aggregate)",
+                     sstream["aggregate"]["partitioned"]["launches"],
+                     ("hash_rows", "shard_rank", "segment_reduce"))
+    require_launched("sharded_stream (join)",
+                     sstream["join"]["partitioned"]["launches"],
+                     ("hash_rows", "shard_rank"))
+    torch.cuda.empty_cache()
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     serve = run_serve(device)
     engines = serve.pop("engines")
     emit({"phase": "serve", **serve, "seconds": time.perf_counter() - t0,
@@ -2052,6 +2373,8 @@ def main() -> int:
     for k in ("segment_reduce", "radix_rank"):
         launches[k] = e2e_hash["launches"][k]
         shapes[k] = e2e_hash["shapes"][k]
+    launches["shard_rank"] = sharded["cold"]["launches"]["shard_rank"]
+    shapes["shard_rank"] = sharded["cold"]["shapes"]["shard_rank"]
     for k in ATTN_KERNELS:
         launches[k] = serve["kernel"]["launches"][k]
         shapes[k] = serve["kernel"]["shapes"][k]
@@ -2071,6 +2394,12 @@ def main() -> int:
     rows = kernel_rows(device, launches, shapes, errs,
                        {"e2e": e2e["launches"],
                         "e2e_hash": e2e_hash["launches"],
+                        "e2e_sharded": sharded["cold"]["launches"],
+                        "e2e_sharded_warm": sharded["warm"]["launches"],
+                        "sharded_stream_aggregate":
+                            sstream["aggregate"]["partitioned"]["launches"],
+                        "sharded_stream_join":
+                            sstream["join"]["partitioned"]["launches"],
                         "serve": serve["kernel"]["launches"],
                         "llm_query": llm["launches"],
                         "serve_ssm": ssm["kernel"]["launches"],
@@ -2078,7 +2407,8 @@ def main() -> int:
                         "long_prefill_ssm": long["ssm"]["launches"],
                         "long_prefill_hybrid": long["hybrid"]["launches"],
                         "llm_query_hybrid": llm_h["launches"]},
-                       serve["decode_lengths"], llm=llm_shapes)
+                       serve["decode_lengths"], llm=llm_shapes,
+                       n_shards=sharded["n_shards"])
     emit({"kernels": rows})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {

@@ -75,6 +75,7 @@ from ..kernels.hash_dedup.ops import dedup_representatives, group_build_columns
 from ..kernels.hash_dedup.ref import hash_rows_np
 from ..kernels.hash_join.ops import hash_join_match, sorted_probe_match
 from ..kernels.segmented_reduce.ops import (
+    _DEVICE_DTYPES,
     join_match_lists,
     segment_plan_from_group_build,
     segmented_aggregate,
@@ -121,7 +122,8 @@ class ExecStats:
     serving_syncs: int = 0  # LLM-tier fetches (SERVING_SITES), separate
     collective_ops: int = 0  # cross-device exchanges (mesh executors)
     # physical operator -> count of equi joins it served this query
-    # ("hash" | "stream" | "sort_merge" | "host" | "reference")
+    # ("hash" | "stream" | "sort_merge" | "host" | "partitioned" |
+    # "reference")
     join_physical: dict = field(default_factory=dict)
 
     def bump(self, op: str, key: str, v: float) -> None:
@@ -152,12 +154,19 @@ class Executor:
     cache_hits / null_skipped accounting. ``kernel_impl`` threads an
     implementation token ("auto" | "kernel" | "ref" | "host") through
     every kernel-backed operator. A runner whose ``VerdictTable`` has no
-    device yet is placed on the database's device."""
+    device yet is placed on the database's device.
+
+    ``mesh=`` (a ``sharding.DataMesh``) enables the key-partitioned data
+    tier (``sharding/data.py``): grouped aggregates and equi joins over
+    partitionable keys run shard-local after one exchange per side,
+    producing row-for-row identical output; ``partitioned=False`` keeps
+    a mesh-constructed executor on the single-device path."""
 
     def __init__(self, db: Database, runner: SemanticRunner,
                  fresh_cache_per_query: bool = True,
                  vectorized: bool = True,
-                 kernel_impl: str = "auto"):
+                 kernel_impl: str = "auto",
+                 mesh=None, partitioned: Optional[bool] = None):
         self.db = db
         self.device = db.device
         self.runner = runner
@@ -165,9 +174,29 @@ class Executor:
         self.vectorized = vectorized
         resolve_impl(kernel_impl, "host")  # validate the token
         self.kernel_impl = kernel_impl
+        self.mesh = mesh
+        self.partitioned = (partitioned if partitioned is not None
+                            else mesh is not None)
+        if self.partitioned and mesh is None:
+            raise ValueError("partitioned=True requires mesh=")
         vt = runner.cache.verdicts
         if vt.device is None:
             vt.place(self.device)
+        self._pcache = None
+        if mesh is not None:
+            from ..sharding.data import PartitionCache
+
+            self._pcache = PartitionCache(mesh)
+            # partition the runner's verdict table by the same key hash:
+            # the default-constructed table is per-query cache state, so
+            # rebinding it empty is lossless; an explicitly mesh-bound
+            # (or custom) table is left alone
+            if vt.mesh is None:
+                from ..semantic.cache import VerdictTable
+
+                runner.cache.verdicts = VerdictTable(
+                    capacity=vt.capacity,
+                    impl="on" if vt.enabled else "off", mesh=mesh)
         # optional streaming.StreamContext: when set, hash joins whose
         # build side is covered by a live incremental StreamJoinBuild
         # probe it instead of rebuilding the table (join_physical
@@ -396,6 +425,21 @@ class Executor:
         dt = np_dtype(col)
         return dt.kind in "iub" and dt.itemsize <= 4
 
+    def _partitioned_join(self, rt: Table, rk: str, pk_col):
+        """Match lists from the key-partitioned mesh join, or None when
+        the partitioned path does not apply (no mesh, host impl, or a
+        key the partitioner cannot route) — the caller then falls back
+        to single-device physical selection."""
+        if not self.partitioned or self._host_pipeline():
+            return None
+        from ..sharding.data import is_partitionable, sharded_join_match
+
+        if not (is_partitionable(pk_col)
+                and is_partitionable(rt.col(rk))):
+            return None
+        return sharded_join_match(self._pcache, rt, rk, pk_col,
+                                  impl=self.kernel_impl)
+
     def _equi_join(self, left: Table, right: Table, lk: str, rk: str,
                    physical: Optional[str] = None,
                    stats: Optional[ExecStats] = None) -> Table:
@@ -423,7 +467,15 @@ class Executor:
         if self.vectorized:
             pk_col, bk_col = lt.col(lk), rt.col(rk)
             phys = physical or "auto"
-            if not (self._join_key_physical(pk_col)
+            matches = self._partitioned_join(rt, rk, pk_col)
+            if matches is not None:
+                # key-partitioned mesh join: np match lists in the
+                # probe-major contract order; device int32 indices keep
+                # the joined gather on its fused device path
+                phys = "partitioned"
+                out_l = self._tensor(matches[0], torch.int32)
+                out_r = self._tensor(matches[1], torch.int32)
+            elif not (self._join_key_physical(pk_col)
                     and self._join_key_physical(bk_col)):
                 phys = "host"  # string/64-bit keys: shared code space
                 out_l, out_r = join_match_lists(
@@ -462,7 +514,7 @@ class Executor:
             elif phys == "host" and self._join_key_physical(pk_col):
                 out_l, out_r = join_match_lists(pk_col, bk_col, impl="host",
                                                 device=self.device)
-            elif phys != "host":
+            elif phys not in ("host", "partitioned"):
                 raise ExecutionError(f"unknown physical join {phys!r}")
         else:
             phys = "reference"
@@ -547,6 +599,10 @@ class Executor:
             return Table(columns=cols, valid=self._ones(1))
         if not self.vectorized or n == 0:
             return self._aggregate_ref(node, t)
+        if self.partitioned and not self._host_pipeline():
+            out = self._aggregate_partitioned(node, t)
+            if out is not None:
+                return out
         return self._aggregate_vectorized(node, t)
 
     def _aggregate_ref(self, node: Aggregate, t: Table) -> Table:
@@ -613,6 +669,49 @@ class Executor:
                 self.device)
         # np.unique(axis=0) group order ascends by the first group key:
         # the pre-grouped guarantee sort-merge joins price as free
+        return Table(columns=cols, valid=self._ones(g), _num_valid=g,
+                     sorted_by=node.group_by[0])
+
+    def _aggregate_partitioned(self, node: Aggregate, t: Table
+                               ) -> Optional[Table]:
+        """Grouped aggregation over the key-partitioned mesh layout, or
+        None when a group key cannot be partitioned (string / float /
+        64-bit — the single-device path handles those).
+
+        The layout's merged ``SegmentPlan`` is ALREADY in the reference
+        ``np.unique(axis=0)`` group order with rows in original order
+        inside each group, so ``segmented_aggregate`` accumulates in
+        the exact single-device order (bit-identical float64 sums) and
+        no G-sized output permute is needed; device-dtype min/max stay
+        on the device through the shard-local ``sharded_segment_reduce``
+        (K5 per shard). A repeated query over an unchanged table reuses
+        the cached layout and pays zero collectives."""
+        # sharding.data imports the engine: imported here, as the
+        # reference does
+        from ..sharding.data import is_partitionable, sharded_segment_reduce
+
+        key_cols = [t.col(k) for k in node.group_by]
+        if not all(is_partitionable(c) for c in key_cols):
+            return None
+        st = self._pcache.layout(t, tuple(node.group_by),
+                                 site="exchange_aggregate",
+                                 impl=self.kernel_impl)
+        plan, reps_sorted = st.group_plan()
+        reps = self._tensor(reps_sorted.astype(np.int64))
+        cols = {k: torch.index_select(key_cols[i], 0, reps)
+                for i, k in enumerate(node.group_by)}
+        for func, c, name in node.aggs:
+            values = None if func == "count" else t.col(c)
+            if (func in ("min", "max") and is_device(values)
+                    and np_dtype(values) in _DEVICE_DTYPES
+                    and plan.num_groups > 0):
+                out = sharded_segment_reduce(st, values, func,
+                                             impl=self.kernel_impl)
+            else:
+                out = segmented_aggregate(plan, values, func,
+                                          impl=self.kernel_impl)
+            cols[f"agg.{name}"] = as_column(out, self.device)
+        g = plan.num_groups
         return Table(columns=cols, valid=self._ones(g), _num_valid=g,
                      sorted_by=node.group_by[0])
 

@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("compact.cu", "hash_rows.cu", "group_build.cu", "expand.cu",
            "segment_reduce.cu", "radix_rank.cu", "flash_attention.cu",
-           "decode_attention.cu", "ssd.cu")
+           "decode_attention.cu", "ssd.cu", "shard_rank.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -57,13 +57,16 @@ SIGNATURES = {
     # x, dt, A, B, C, y, states, decay, cum, cb scratch, b, s, h, p, n,
     # chunk, x (b, s, h), B (b, s) and C (b, s) strides, stream
     "repro_ssd_chunk": (_P,) * 10 + (_I,) * 6 + (_LL,) * 7 + (_P,),
+    "repro_shard_rank": (_P, _P, _P, _P, _I, _I, _P),
+    "repro_shard_rank_tiles": (_I,),
 }
 
 # kernel name -> launches since the last reset_launches(), and the
 # largest input shape launched in that time
 LAUNCHES = {"prefix_count": 0, "hash_rows": 0, "group_boundaries": 0,
             "running_segment_ids": 0, "segment_reduce": 0, "radix_rank": 0,
-            "flash_attention": 0, "decode_attention": 0, "ssd_chunk": 0}
+            "flash_attention": 0, "decode_attention": 0, "ssd_chunk": 0,
+            "shard_rank": 0}
 MAX_SHAPES: dict[str, tuple] = {}
 
 _LIB: ctypes.CDLL | None = None

@@ -44,7 +44,9 @@ def segment_reduce_torch(values: torch.Tensor, segment_ids: torch.Tensor,
     dtype, identity-filled. Ids outside [0, num_segments) land in an
     overflow slot that is sliced off. NaN is taken out before the
     scatter and put back per segment, so min and max propagate it
-    whatever the scatter does with NaN on the device."""
+    whatever the scatter does with NaN on the device; float min/max
+    reduce order-preserving int keys, so signed zeros come out as the
+    reference's (and the kernel's) do."""
     dt = torch.empty(0, dtype=values.dtype).numpy().dtype
     ident = np.asarray(reduce_identity(op, dt)).item()
     g = num_segments
@@ -56,13 +58,27 @@ def segment_reduce_torch(values: torch.Tensor, segment_ids: torch.Tensor,
         return out.index_add_(0, idx, values)[:g]
     if op not in ("min", "max"):
         raise ValueError(f"unsupported op {op!r}")
-    nan = None
-    if values.is_floating_point():
-        isnan = torch.isnan(values)
-        values = torch.where(isnan, torch.full_like(values, ident), values)
-        nan = torch.zeros(g + 1, dtype=torch.int32, device=values.device)
-        nan.index_add_(0, idx, isnan.to(torch.int32))
-    out.scatter_reduce_(0, idx, values, reduce="a" + op, include_self=True)
-    if nan is not None:
-        out = torch.where(nan > 0, torch.full_like(out, float("nan")), out)
+    if not values.is_floating_point():
+        return out.scatter_reduce_(0, idx, values, reduce="a" + op,
+                                   include_self=True)[:g]
+    if values.dtype != torch.float32:
+        raise TypeError(f"values: expected int32 or float32, got "
+                        f"{values.dtype}")
+    isnan = torch.isnan(values)
+    values = torch.where(isnan, torch.full_like(values, ident), values)
+    nan = torch.zeros(g + 1, dtype=torch.int32, device=values.device)
+    nan.index_add_(0, idx, isnan.to(torch.int32))
+    # reduce order-preserving int32 keys, so -0.0 < +0.0 whatever the
+    # rows' order (min gives -0.0, max +0.0, as jax.ops.segment_* do)
+    keys = _order_key(out.view(torch.int32)).scatter_reduce_(
+        0, idx, _order_key(values.view(torch.int32)), reduce="a" + op,
+        include_self=True)
+    out = _order_key(keys).view(torch.float32)
+    out = torch.where(nan > 0, torch.full_like(out, float("nan")), out)
     return out[:g]
+
+
+def _order_key(bits: torch.Tensor) -> torch.Tensor:
+    """float32 bits -> int32 keys in the floats' order (negative floats
+    get their magnitude bits flipped); its own inverse."""
+    return bits ^ ((bits >> 31) & 0x7FFFFFFF)

@@ -7,6 +7,13 @@ import torch
 IMPLS = ("auto", "kernel", "ref", "host")
 
 
+def pow2_bucket(n: int, floor: int = 1024) -> int:
+    """Next power of two >= max(n, 1), floored at ``floor`` — the
+    bucketing the reference applies to data-dependent sizes (the
+    partitioned tier's block lengths and pair capacities)."""
+    return max(floor, 1 << (max(n, 1) - 1).bit_length())
+
+
 def is_device_array(a) -> bool:
     """True for torch tensors (on any device); numpy arrays and
     host-side column wrappers are not."""

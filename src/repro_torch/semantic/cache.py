@@ -71,25 +71,43 @@ class VerdictTable:
     device (the host dict wins on the CPU). ``device=None`` leaves the
     table unplaced: the first ``Executor`` built over it places it on
     its database's device (``place``).
+
+    ``mesh=`` (a ``sharding.DataMesh``) partitions the table across the
+    mesh by the SAME key-hash routing as the partitioned data tier
+    (Fibonacci top bits of the tag — ``kernels.partition.ref.
+    shard_of_np``): a key's slot is ``owner * (capacity / P) + (tag &
+    (capacity / P - 1))``, and the columns are held shard-wise (shard
+    p's slot range on ``mesh.devices[p]``), so the slots a probe touches
+    live on the shard the key's data rows occupy. Verdict semantics are
+    unchanged (only the collision pattern moves).
     """
 
     def __init__(self, capacity: int = 1 << 15, impl: str = "auto",
-                 device=None):
+                 device=None, mesh=None):
         if capacity & (capacity - 1):
             raise ValueError(f"capacity must be a power of two: {capacity}")
         if impl not in ("auto", "on", "off"):
             raise ValueError(f"impl must be auto|on|off, got {impl!r}")
         self.capacity = capacity
         self.impl = impl
+        self.mesh = mesh
+        self._n_shards = 1 if mesh is None else mesh.n_shards
+        if capacity % self._n_shards:
+            raise ValueError(
+                f"capacity {capacity} must divide evenly across "
+                f"{self._n_shards} shards")
         self.device: Optional[torch.device] = None
         self.enabled = impl == "on"
         self._phi_salts: dict[str, np.uint32] = {}
         self._n_bound = 0
-        if device is not None:
+        if mesh is not None:
+            self.place(mesh.devices[0])
+        elif device is not None:
             self.place(device)
 
     def place(self, device) -> None:
-        """Put the table on ``device``; ``impl="auto"`` enables it there
+        """Put the table on ``device`` (on a mesh: shard-wise on its
+        devices, ``device`` the first); ``impl="auto"`` enables it there
         iff the device is CUDA."""
         self.device = torch.device(device)
         if self.impl == "auto":
@@ -98,12 +116,17 @@ class VerdictTable:
             self._alloc()
 
     def _alloc(self) -> None:
-        self._tags = torch.zeros(self.capacity, dtype=torch.int32,
-                                 device=self.device)
-        self._fps = torch.zeros(self.capacity, dtype=torch.int32,
-                                device=self.device)
-        self._verdicts = torch.full((self.capacity,), int(VERDICT_MISS),
-                                    dtype=torch.int8, device=self.device)
+        """Per shard, its (tags, fps, verdicts) columns of
+        ``capacity / P`` slots on the shard's device."""
+        local = self.capacity // self._n_shards
+        devices = (self.mesh.devices if self.mesh is not None
+                   else (self.device,))
+        self._cols = [
+            (torch.zeros(local, dtype=torch.int32, device=dev),
+             torch.zeros(local, dtype=torch.int32, device=dev),
+             torch.full((local,), int(VERDICT_MISS), dtype=torch.int8,
+                        device=dev))
+            for dev in devices]
 
     def _placed(self) -> None:
         if self.device is None:
@@ -111,8 +134,29 @@ class VerdictTable:
                                "or run it under an Executor")
 
     def _slots(self, tags: np.ndarray) -> np.ndarray:
-        """Slot index per tag: the tag's low bits."""
-        return tags & np.uint32(self.capacity - 1)
+        """Slot index per tag. Single-device: the tag's low bits.
+        Partitioned: owning shard (tag top bits, the data tier's
+        routing) * local capacity + the tag's low bits within it."""
+        if self._n_shards == 1:
+            return tags & np.uint32(self.capacity - 1)
+        from ..kernels.partition.ref import shard_of_np
+
+        local = self.capacity // self._n_shards
+        owner = shard_of_np(tags, self._n_shards).astype(np.uint32)
+        return owner * np.uint32(local) + (tags & np.uint32(local - 1))
+
+    def _by_shard(self, slots: np.ndarray):
+        """(shard, its columns, positions into the batch, local slots
+        as an int64 tensor on the shard's device) for every shard the
+        batch touches."""
+        local = self.capacity // self._n_shards
+        owner = slots // local
+        for p, cols in enumerate(self._cols):
+            idx = np.flatnonzero(owner == p)
+            if len(idx):
+                loc = torch.as_tensor((slots[idx] % local).astype(np.int64),
+                                      device=cols[0].device)
+                yield cols, idx, loc
 
     def clear(self) -> None:
         """Drop every binding (query-scope reset, with the host cache)."""
@@ -130,15 +174,17 @@ class VerdictTable:
         mix = np.uint32((int(salt) * 0x9E3779B1) & 0xFFFFFFFF)
         return tags, np.asarray(fps, dtype=np.uint32) ^ mix
 
-    def _dev(self, a: np.ndarray) -> torch.Tensor:
-        """uint32 host array -> int32-bit tensor on the table's device."""
+    @staticmethod
+    def _dev(a: np.ndarray, device) -> torch.Tensor:
+        """uint32 host array -> int32-bit tensor on ``device``."""
         return torch.as_tensor(np.ascontiguousarray(a).view(np.int32),
-                               device=self.device)
+                               device=device)
 
     def bind(self, phi: str, hashes, fps, verdicts) -> None:
         """Scatter resolved verdicts for φ's representatives: one device
-        pass, first write wins (occupied slots keep their entry).
-        In-batch slot duplicates are dropped host-side first."""
+        pass per shard touched, first write wins (occupied slots keep
+        their entry). In-batch slot duplicates are dropped host-side
+        first."""
         if not self.enabled or len(np.asarray(hashes)) == 0:
             return
         self._placed()
@@ -147,18 +193,20 @@ class VerdictTable:
         first = np.unique(slots_np, return_index=True)[1]
         tags, fps = tags[first], fps[first]
         verdicts = np.asarray(verdicts, dtype=np.int8)[first]
-        slots = torch.as_tensor(slots_np[first].astype(np.int64),
-                                device=self.device)
-        keep = self._verdicts[slots] != int(VERDICT_MISS)
-        new_tags = torch.where(keep, self._tags[slots], self._dev(tags))
-        new_fps = torch.where(keep, self._fps[slots], self._dev(fps))
-        new_v = torch.where(keep, self._verdicts[slots],
-                            torch.as_tensor(verdicts, device=self.device))
-        # the port updates the columns in place (the reference's arrays
-        # are immutable and rebuilt by .at[].set)
-        self._tags[slots] = new_tags
-        self._fps[slots] = new_fps
-        self._verdicts[slots] = new_v
+        for (c_tags, c_fps, c_v), idx, loc in self._by_shard(
+                slots_np[first]):
+            dev = c_v.device
+            keep = c_v[loc] != int(VERDICT_MISS)
+            new_tags = torch.where(keep, c_tags[loc],
+                                   self._dev(tags[idx], dev))
+            new_fps = torch.where(keep, c_fps[loc], self._dev(fps[idx], dev))
+            new_v = torch.where(keep, c_v[loc],
+                                torch.as_tensor(verdicts[idx], device=dev))
+            # the port updates the columns in place (the reference's
+            # arrays are immutable and rebuilt by .at[].set)
+            c_tags[loc] = new_tags
+            c_fps[loc] = new_fps
+            c_v[loc] = new_v
         self._n_bound += len(first)
 
     def probe(self, phi: str, hashes, fps) -> np.ndarray:
@@ -172,13 +220,19 @@ class VerdictTable:
             return np.full(g, VERDICT_MISS, dtype=np.int8)
         self._placed()
         tags, fps = self._salted(phi, hashes, fps)
-        slots = torch.as_tensor(self._slots(tags).astype(np.int64),
-                                device=self.device)
-        v = self._verdicts[slots]
-        hit = ((v != int(VERDICT_MISS))
-               & (self._tags[slots] == self._dev(tags))
-               & (self._fps[slots] == self._dev(fps)))
-        out = torch.where(hit, v, int(VERDICT_MISS)).cpu().numpy()
+        order, parts = [], []
+        for (c_tags, c_fps, c_v), idx, loc in self._by_shard(
+                self._slots(tags)):
+            dev = c_v.device
+            v = c_v[loc]
+            hit = ((v != int(VERDICT_MISS))
+                   & (c_tags[loc] == self._dev(tags[idx], dev))
+                   & (c_fps[loc] == self._dev(fps[idx], dev)))
+            parts.append(torch.where(hit, v, int(VERDICT_MISS))
+                         .to(self.device))
+            order.append(idx)
+        out = np.empty(g, dtype=np.int8)
+        out[np.concatenate(order)] = torch.cat(parts).cpu().numpy()
         HOST_SYNCS.tick(site="verdict_table")
         return out
 

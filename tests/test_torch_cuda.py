@@ -4,8 +4,12 @@ at ``impl="kernel"`` identical to its ``impl="host"`` numpy oracle, and
 every launch counted (K1-K6); K7/K8 within 1e-4 of their plain
 versions (K7 with a sliding window, K8 with the slot mask over a
 wrapped ring too), K9 within ``ssd_cases.tolerance`` of its plain
-version over the ``ssd_cases`` sweep, and the dense, SSM and hybrid
-LMs' kernel paths equal to their plain paths (K7/K8/K9). Imports neither JAX nor the reference, so it runs where only
+version over the ``ssd_cases`` sweep, the dense, SSM and hybrid
+LMs' kernel paths equal to their plain paths (K7/K8/K9), K10 bit-identical
+to its plain version over the ``partition_cases`` sweep, and the
+partitioned data tier on four shards of one card (and on two cards,
+where there are two) equal to its plain path and to the single-device
+executor. Imports neither JAX nor the reference, so it runs where only
 PyTorch is installed:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -24,6 +28,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import attention_cases as AC  # noqa: E402
+from repro_torch.kernels import partition_cases as PC  # noqa: E402
 from repro_torch.kernels import ssd_cases as SC  # noqa: E402
 from repro_torch.kernels.compact import compact as t_compact  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
@@ -53,6 +58,8 @@ from repro_torch.kernels.hash_dedup.ref import (  # noqa: E402
 )
 from repro_torch.kernels.hash_join import hash_join as t_hj  # noqa: E402
 from repro_torch.kernels.hash_join.ops import hash_join_match  # noqa: E402
+from repro_torch.kernels.partition import partition as t_part  # noqa: E402
+from repro_torch.kernels.partition.ref import shard_rank_torch  # noqa: E402
 from repro_torch.kernels.segmented_reduce import (  # noqa: E402
     segmented_reduce as t_sr,
 )
@@ -202,7 +209,7 @@ def test_kernels_match_plain_versions(dev, n):
                                "running_segment_ids": int(marks.numel() > 0),
                                "segment_reduce": 0, "radix_rank": 0,
                                "flash_attention": 0, "decode_attention": 0,
-                               "ssd_chunk": 0}
+                               "ssd_chunk": 0, "shard_rank": 0}
 
 
 @pytest.mark.cuda
@@ -608,3 +615,129 @@ def test_ssm_serving_kernel_path_matches_plain_path(dev, arch):
                         decode_attention=attn * L * st.decode_steps)
         assert launches == want
     assert out["auto"] == out["ref"]
+
+
+# ------------------------------------------------------------------ K10
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SIZES)
+def test_shard_rank_kernel_matches_plain_version(dev, n):
+    gen = torch.Generator(device=dev).manual_seed(5000 + n)
+    _build.reset_launches()
+    cases = PC.sweep((n,))
+    for _, p, dkind, bkind in cases:
+        dest = PC.dest_case(dkind, n, p, gen, dev)
+        base = PC.base_case(bkind, dest, p, gen)
+        got = t_part.shard_rank_kernel(dest, base)
+        assert torch.equal(got, shard_rank_torch(dest, base, p)), \
+            (n, p, dkind, bkind)
+    torch.cuda.synchronize(dev)
+    assert _build.LAUNCHES["shard_rank"] == len(cases)
+    assert _build.LAUNCHES["radix_rank"] == 0  # not K6
+
+
+@pytest.mark.cuda
+def test_shard_rank_wrapper_rejects_wrong_operands(dev):
+    d = torch.zeros(8, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):  # 33 buckets: past one warp
+        t_part.shard_rank_kernel(d, torch.zeros(33, dtype=torch.int32,
+                                                device=dev))
+    with pytest.raises(TypeError):
+        t_part.shard_rank_kernel(d.long(), torch.zeros(4, dtype=torch.int32,
+                                                       device=dev))
+    with pytest.raises(ValueError):
+        t_part.shard_rank_kernel(d[::2], torch.zeros(4, dtype=torch.int32,
+                                                     device=dev))
+    assert t_part.shard_rank_kernel(d[:0], torch.zeros(
+        4, dtype=torch.int32, device=dev)).shape == (0,)
+
+
+def _tier_db(device, n=200000, seed=21):
+    """Facts keyed (k1, k2) with float and int values (NaN, signed zeros
+    and int32 extremes among them) and a dimension on k2."""
+    from repro_torch.engine import database_from_numpy
+
+    rng = np.random.default_rng(seed)
+    v = (rng.normal(size=n) * 50).astype(np.float32)
+    v[::97] = np.nan
+    v[1::89] = -0.0
+    v[2::83] = 0.0
+    w = rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
+    w[::101] = -2**31
+    w[1::103] = INT32_MAX
+    facts = {"fid": np.arange(n), "k1": rng.integers(0, 500, n),
+             "k2": rng.integers(0, 40, n), "v": v, "w": w}
+    dims = {"k2": np.arange(48), "weight": rng.integers(0, 9, 48)}
+    return database_from_numpy({"facts": facts, "dims": dims},
+                               device=device)
+
+
+def _tier_plans():
+    from repro_torch.core import Q
+
+    agg = (Q.scan("facts")
+           .group_by(["facts.k1", "facts.k2"],
+                     [("count", "*", "n"), ("min", "facts.v", "lo"),
+                      ("max", "facts.v", "hi"), ("min", "facts.w", "wlo"),
+                      ("max", "facts.w", "whi"), ("sum", "facts.v", "s")])
+           .build())
+    join = (Q.scan("facts")
+            .join(Q.scan("dims"), "facts.k2", "dims.k2").build())
+    return ((agg, ["facts.k1", "facts.k2", "agg.n", "agg.lo", "agg.hi",
+                   "agg.wlo", "agg.whi", "agg.s"]),
+            (join, ["facts.fid", "dims.weight"]))
+
+
+def _tier_run(db, plan, cols, impl, mesh):
+    from repro_torch.engine import Executor
+    from repro_torch.semantic import OracleBackend, SemanticRunner
+
+    ex = Executor(db, SemanticRunner(OracleBackend(truths={})),
+                  kernel_impl=impl, mesh=mesh)
+    table, stats = ex.execute(plan)
+    rows = db.materialize(table, cols)
+    # NaN as a string, -0.0 apart from +0.0: the comparison is exact
+    return [tuple(sorted(
+        (k, "NaN" if isinstance(x, float) and x != x else
+         (x, str(x)) if isinstance(x, float) else x)
+        for k, x in r.items())) for r in rows], stats
+
+
+def _check_tier(dev, mesh):
+    # a fresh database per run: a base table's first use costs a fetch
+    # (its valid count) that a reused one would not
+    for plan, cols in _tier_plans():
+        _build.reset_launches()
+        got, st = _tier_run(_tier_db(dev), plan, cols, "auto", mesh)
+        launches = dict(_build.LAUNCHES)
+        plain, st_ref = _tier_run(_tier_db(dev), plan, cols, "ref", mesh)
+        single, _ = _tier_run(_tier_db(dev), plan, cols, "auto", None)
+        assert got == plain == single
+        assert st.collective_ops == st_ref.collective_ops >= 1
+        assert st.pipeline_syncs == st_ref.pipeline_syncs
+        assert launches["shard_rank"] > 0 and launches["hash_rows"] > 0
+        if plan.__class__.__name__ == "Aggregate":
+            assert launches["segment_reduce"] > 0
+
+
+@pytest.mark.cuda
+def test_partitioned_tier_on_one_card_matches_plain_path(dev):
+    """Four shards on one card: the partitioned aggregate (K5 per
+    shard: NaN, signed zeros, int32 extremes) and join at ``auto``
+    (K2, K10, K5) equal the ``ref`` path and the single-device run."""
+    from repro_torch.sharding import make_data_mesh
+
+    _check_tier(dev, make_data_mesh(4, devices=[dev] * 4))
+
+
+@pytest.mark.cuda
+def test_partitioned_tier_on_two_cards(dev):
+    """A mesh over two distinct cards: the exchange takes the peer-copy
+    path; the same equalities hold."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    from repro_torch.sharding import make_data_mesh
+
+    mesh = make_data_mesh(2)
+    assert not mesh.shared
+    _check_tier(dev, mesh)

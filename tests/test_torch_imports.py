@@ -36,7 +36,8 @@ def _imported_roots(path: Path) -> set[str]:
 def test_port_files_exist():
     files = _port_files()
     assert len(files) > 20
-    for src in ("scan.cuh", "flash_attention.cu", "decode_attention.cu"):
+    for src in ("scan.cuh", "flash_attention.cu", "decode_attention.cu",
+                "shard_rank.cu"):
         assert (PORT / "csrc" / src).exists(), src
     # the scan below covers the modules of every slice
     for rel in ("streaming/state.py", "streaming/ingest.py",
@@ -46,7 +47,8 @@ def test_port_files_exist():
                 "configs/starcoder2_3b.py", "training/data.py",
                 "serving/scheduler.py", "serving/engine.py",
                 "launch/serve.py", "kernels/flash_attention/ops.py",
-                "kernels/decode_attention/ops.py"):
+                "kernels/decode_attention/ops.py", "sharding/data.py",
+                "kernels/partition/ops.py", "kernels/partition_cases.py"):
         assert PORT / rel in files, rel
 
 
