@@ -13,7 +13,11 @@ Phases, each printing one JSON line:
    boundaries, K4 running segment ids, K6 radix rank and K10 shard rank
    (over ``repro_torch.kernels.partition_cases``: P in {1, 2, 4, 8, 32},
    uniform / one-bucket / half-hot destinations, fixed-stride or random
-   offsets) bit-identical;
+   offsets) bit-identical; K1 and K4 (one-pass look-back scans) also
+   over ``repro_torch.kernels.scan_cases``: sizes around the tile, each
+   input kind repeated 50 times, views not 16-byte aligned, 200 replays
+   of one captured CUDA graph on alternating inputs, and two calls on
+   two streams at once;
    K5 segmented reduction over {sum, min, max} x {int32, float32} and
    G in {1, 16, 4097, 2^20} with NaN, ±inf, -0.0, empty segments and a
    hot segment — bit-identical except float32 sums, which are held to
@@ -116,10 +120,14 @@ Phases, each printing one JSON line:
    ``e2e_sharded`` run for K10; every path's counts
    beside) and, at the largest shape that run gave it, its device time,
    its plain version's, the bound and one PyTorch library call's time
-   where one computes the same function
-   (``scaled_dot_product_attention`` for K7/K8; each timed as
-   CUDA-graph replays, so no host work is counted), plus the wrapper's
-   eager call time; K7 also with the hybrid's window and K8 with its
+   where one computes the same function (``torch.cumsum`` for K1/K4,
+   ``scaled_dot_product_attention`` for K7/K8; each timed as
+   CUDA-graph replays, so no host work is counted, except K3's
+   ``torch.unique_consecutive``, which syncs the host and is timed as
+   one eager call), plus the wrapper's
+   eager call time; the scans (K1, K3, K4) also list their device
+   activity over 20 calls under ``torch.profiler`` (``device_kernels``:
+   each kernel and memset with its count and device time); K7 also with the hybrid's window and K8 with its
    slot mask at ``serve_hybrid``'s shapes (and K7 at ``long_prefill``'s),
    K9 also at ``serve_hybrid``'s and ``long_prefill``'s shapes, K10 also
    at P = 32 and beside K6 over the same P buckets.
@@ -245,6 +253,26 @@ def time_ms(fn, reps: int = 30, inner: int = 20, warmup: int = 3) -> float:
         times.append(start.elapsed_time(end) / inner)
     del graph
     return statistics.median(times)
+
+
+def device_kernels(fn, calls: int = 20) -> list[dict]:
+    """Every device activity of ``calls`` eager ``fn()`` calls under
+    ``torch.profiler`` (kernels and memsets by name), with its count
+    and device time, the longest first: the launches one call makes
+    and the time of each."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [{"name": e.key, "count": e.count,
+             "us_per_call": e.self_device_time_total / calls}
+            for e in prof.key_averages() if e.self_device_time_total > 0]
+    return sorted(rows, key=lambda r: -r["us_per_call"])
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -477,6 +505,48 @@ def check_kernels(device, sizes=EDGE_SIZES, seed: int = 0,
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return cases, errs
+
+
+def check_lookback(device, sizes=None, repeats=None, seed: int = 2):
+    """K1 and K4 over ``scan_cases``: every size and input kind, each
+    call repeated ``repeats`` times against one plain result, the views
+    at ``scan_cases.OFFSETS``, and on a card the graph replays and two
+    streams. Returns the cases compared per kernel."""
+    import torch
+
+    from repro_torch.kernels import scan_cases as SC
+    from repro_torch.kernels.compact.compact import prefix_count_kernel
+    from repro_torch.kernels.compact.ref import prefix_count_torch
+    from repro_torch.kernels.expand.expand import running_segment_ids_kernel
+    from repro_torch.kernels.expand.ref import running_segment_ids_torch
+
+    sizes = SC.SIZES if sizes is None else sizes
+    repeats = SC.REPEATS if repeats is None else repeats
+    g = torch.Generator(device=device).manual_seed(seed)
+    pairs = (("prefix_count", prefix_count_kernel, prefix_count_torch),
+             ("running_segment_ids", running_segment_ids_kernel,
+              running_segment_ids_torch))
+    cases = {"prefix_count": 0, "running_segment_ids": 0}
+    for n in sizes:
+        xs = {kind: SC.make_input(kind, n, g, device) for kind in SC.KINDS}
+        for name, kernel, plain in pairs:
+            for kind, x in xs.items():
+                want = plain(x)
+                for r in range(repeats):
+                    _same(kernel(x), want, f"{name} n={n} {kind} rep {r}")
+                for off in SC.OFFSETS:
+                    _same(kernel(SC.misaligned(x, off)), want,
+                          f"{name} n={n} {kind} offset {off}")
+                cases[name] += repeats + len(SC.OFFSETS)
+            if device.type == "cuda":
+                two = [xs["small"], xs["ones"]]
+                wants = [plain(x) for x in two]
+                cases[name] += SC.graph_replays(kernel, two, wants)
+                cases[name] += SC.two_streams(kernel, two, wants)
+        del xs
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return cases
 
 
 # ---------------------------------------------------------------- the e2e
@@ -1901,7 +1971,7 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
     rows = []
 
     def row(name, source, replaces, kern, plain, library, n_bytes, n_ops,
-            shape, err=None, **extra):
+            shape, err=None, library_eager=False, **extra):
         if err is None:
             outs, wants = kern(), plain()
             if not isinstance(outs, tuple):
@@ -1917,7 +1987,8 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
             "max_abs_err": err, "shape": list(shape),
             "ms": time_ms(kern), "plain_ms": time_ms(plain),
             "bound_ms": b, "bound_by": by,
-            "library_ms": time_ms(library) if library else None,
+            "library_ms": (None if library is None else eager_ms(library)
+                           if library_eager else time_ms(library)),
             "wrapper_eager_ms": eager_ms(kern), **extra,
         })
 
@@ -1929,7 +2000,8 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
         lambda: prefix_count_kernel(flags),
         lambda: prefix_count_torch(flags),
         lambda: torch.cumsum(flags, 0, dtype=torch.int32),
-        8 * n, n, (n,))
+        8 * n, n, (n,), library_call="torch.cumsum(dtype=int32)",
+        device_kernels=device_kernels(lambda: prefix_count_kernel(flags)))
 
     n, c = shapes["hash_rows"]
     keys = torch.randint(-2**31, INT32_MAX, (n, c), generator=g,
@@ -1942,11 +2014,22 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
     n = shapes["group_boundaries"][0]
     sk = torch.sort(torch.randint(0, max(n // 4, 1), (n,), generator=g,
                                   device=device, dtype=torch.int32))[0]
+    # the library yardstick: unique_consecutive's inverse is K3's gid;
+    # it fetches its output size to the host, so it cannot be captured
+    # in a CUDA graph and is timed eagerly, beside wrapper_eager_ms
+    inverse = torch.unique_consecutive(sk, return_inverse=True)[1]
+    if not torch.equal(inverse, group_boundaries_kernel(sk)[1].long()):
+        raise AssertionError("K3's gid differs from unique_consecutive's "
+                             "inverse")
     row("group_boundaries", "src/repro_torch/csrc/group_build.cu",
         "src/repro/kernels/hash_dedup/group_build.py:61",
         lambda: group_boundaries_kernel(sk),
-        lambda: group_boundaries_ref(sk), None,
-        12 * n, 3 * n, (n,))
+        lambda: group_boundaries_ref(sk),
+        lambda: torch.unique_consecutive(sk, return_inverse=True),
+        12 * n, 3 * n, (n,), library_eager=True,
+        library_call="torch.unique_consecutive(return_inverse=True), "
+                     "eager (it syncs the host)",
+        device_kernels=device_kernels(lambda: group_boundaries_kernel(sk)))
 
     n = shapes["running_segment_ids"][0]
     counts = torch.randint(0, 3, (n // 2 + 1,), generator=g, device=device)
@@ -1956,7 +2039,9 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
         lambda: running_segment_ids_kernel(marks),
         lambda: running_segment_ids_torch(marks),
         lambda: torch.cumsum(marks, 0, dtype=torch.int32),
-        8 * n, 2 * n, (n,))
+        8 * n, 2 * n, (n,), library_call="torch.cumsum(dtype=int32)",
+        device_kernels=device_kernels(
+            lambda: running_segment_ids_kernel(marks)))
 
     # K5 at the group-by's (rows, groups): float32 max, the aggregate
     # the path runs; min/max are exact, so held bit for bit here
@@ -2242,6 +2327,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(src))
     from repro_torch.kernels import _build
+    from repro_torch.kernels import scan_cases as SC
 
     device = torch.device("cuda", 0)
     # the reference computes in float32: no TF32 in matrix products
@@ -2260,10 +2346,22 @@ def main() -> int:
 
     t0 = time.perf_counter()
     cases, errs = check_kernels(device)
+    lib_tile = _build.library().repro_lookback_tile()
+    if lib_tile != SC.TILE:
+        raise AssertionError(f"scan_cases.TILE {SC.TILE} differs from the "
+                             f"library's look-back tile {lib_tile}")
+    lookback = check_lookback(device)
+    for k, c in lookback.items():
+        cases[k] += c
     emit({"phase": "kernels", "bit_identical_cases": cases,
           "max_abs_err": errs, "tolerance": 0,
-          "sizes": list(EDGE_SIZES), "seconds": time.perf_counter() - t0,
-          "gpu": smi})
+          "sizes": list(EDGE_SIZES),
+          "lookback": {"tile": lib_tile, "sizes": list(SC.SIZES),
+                       "kinds": list(SC.KINDS), "repeats": SC.REPEATS,
+                       "offsets": list(SC.OFFSETS),
+                       "graph_replays": SC.REPLAYS, "streams": 2,
+                       "cases": lookback},
+          "seconds": time.perf_counter() - t0, "gpu": smi})
     t0 = time.perf_counter()
     attn = check_attention(device)
     errs.update(attn["max_abs_err"])

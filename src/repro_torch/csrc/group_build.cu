@@ -43,3 +43,5 @@ extern "C" int repro_group_boundaries(const void* keys, void* bnd, void* gid,
   return repro::launch_scan(op, n, static_cast<int*>(tile_sums),
                             static_cast<cudaStream_t>(stream));
 }
+
+extern "C" int repro_scan_tiles(int n) { return repro::num_tiles(n); }

@@ -1,8 +1,9 @@
-// Device-wide inclusive int32 scan shared by three kernels of the port:
-// the compaction prefix count (compact.cu), the group-boundary scan
-// (group_build.cu) and the running segment ids (expand.cu).
+// Device-wide three-phase inclusive int32 scan of the group-boundary
+// scan (K3, group_build.cu). K1 (compact.cu) and K4 (expand.cu) use the
+// one-pass look-back scan of scan_lookback.cuh, which shares only
+// warp_inclusive_scan with this file.
 //
-// The TPU kernels these replace walk their grid in order and carry a
+// The TPU kernel K3 replaces walks its grid in order and carries a
 // running total from one tile to the next in SMEM scratch. Hopper blocks
 // run concurrently and in no order, so the carry becomes three phases:
 //
@@ -20,9 +21,8 @@
 //   void store(i, v)   the epilogue, given the inclusive sum v.
 //
 // Bound: memory. The input is read twice (phases 1 and 3), the output
-// written once; a single-pass decoupled look-back scan would read it
-// once and is later work. Sums are int32, as in the reference: callers
-// keep N and every running total below 2^31.
+// written once; scan_lookback.cuh reads it once. Sums are int32, as in
+// the reference: callers keep N and every running total below 2^31.
 #pragma once
 
 #include <cuda_runtime.h>

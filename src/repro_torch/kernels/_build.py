@@ -43,6 +43,8 @@ SIGNATURES = {
     "repro_group_boundaries": (_P, _P, _P, _P, _I, _P),
     "repro_hash_rows": (_P, _P, _LL, _I, _P),
     "repro_scan_tiles": (_I,),
+    "repro_lookback_tile": (),
+    "repro_lookback_tiles": (_I,),
     "repro_segment_reduce": (_P, _P, _P, _I, _I, _I, _I, _P),
     "repro_radix_rank": (_P, _P, _P, _P, _I, _I, _P),
     "repro_radix_rank_tiles": (_I,),
@@ -207,6 +209,14 @@ def scan_scratch(n: int, like: torch.Tensor) -> torch.Tensor:
     """Tile-sum scratch for the three-phase scan over ``n`` elements."""
     tiles = library().repro_scan_tiles(n)
     return torch.empty(tiles, dtype=torch.int32, device=like.device)
+
+
+def lookback_scratch(n: int, like: torch.Tensor) -> torch.Tensor:
+    """Scratch of the one-pass look-back scan over ``n`` elements: the
+    tile counter and one status word per tile, (tiles + 1) int64. The
+    launch zeroes it on its stream; each call owns its own."""
+    tiles = library().repro_lookback_tiles(n)
+    return torch.empty(tiles + 1, dtype=torch.int64, device=like.device)
 
 
 def call(fn_name: str, device: torch.device, *args) -> None:

@@ -3,8 +3,10 @@
 
 Replaces ``src/repro/kernels/compact/compact.py::prefix_count_kernel``.
 The TPU kernel carries the running count across its sequential grid in
-SMEM; on Hopper the carry is a device-wide three-phase scan
-(``csrc/scan.cuh``). Memory-bound: 8 bytes per element.
+SMEM; on Hopper each tile finds its carry by a one-pass decoupled
+look-back over its predecessors' status words
+(``csrc/scan_lookback.cuh``): one memset of the scratch and one launch.
+Memory-bound: 8 bytes per element, each read once and written once.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ def prefix_count_kernel(flags: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(flags)
     if n == 0:
         return out
-    scratch = _build.scan_scratch(n, flags)
+    scratch = _build.lookback_scratch(n, flags)
     _build.call("repro_prefix_count", flags.device, _build.ptr(flags),
                 _build.ptr(out), _build.ptr(scratch), n,
                 _build.stream(flags))

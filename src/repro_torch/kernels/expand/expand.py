@@ -2,8 +2,10 @@
 
 Replaces ``src/repro/kernels/expand/expand.py::running_segment_ids_kernel``.
 The TPU kernel carries the running mark total across its sequential
-grid in SMEM; on Hopper the carry is a device-wide three-phase scan
-(``csrc/scan.cuh``). Memory-bound: 8 bytes per element.
+grid in SMEM; on Hopper each tile finds its carry by a one-pass decoupled
+look-back over its predecessors' status words
+(``csrc/scan_lookback.cuh``): one memset of the scratch and one launch.
+Memory-bound: 8 bytes per element, each read once and written once.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ def running_segment_ids_kernel(marks: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(marks)
     if n == 0:
         return out
-    scratch = _build.scan_scratch(n, marks)
+    scratch = _build.lookback_scratch(n, marks)
     _build.call("repro_running_segment_ids", marks.device, _build.ptr(marks),
                 _build.ptr(out), _build.ptr(scratch), n,
                 _build.stream(marks))

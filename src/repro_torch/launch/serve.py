@@ -14,8 +14,9 @@ serving tier and answer prompts, on the card unless ``--device cpu``.
         --tiny --device cpu --prompts "hello" "world"
 
 Dense, SSM and hybrid configurations are served. There are no trained weights to
-restore yet (``--ckpt`` waits for the training slice) and no mesh
-(``--dp``/``--tp`` wait for the partitioned slice).
+restore yet (``--ckpt`` waits for the training slice) and no
+model-parallel mesh (``--dp``/``--tp`` wait for it; the partitioned data
+tier's mesh shards tables, not a model).
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ def main(argv=None):
         description="Serve a dense, SSM or hybrid LM with random weights "
                     "(seed 0). "
                     "Not ported: --ckpt (training slice), --dp/--tp "
-                    "(partitioned slice).")
+                    "(the model-parallel mesh).")
     ap.add_argument("--arch", default="starcoder2-3b",
                     help="a dense, SSM or hybrid configuration (default "
                          "starcoder2-3b)")

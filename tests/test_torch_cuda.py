@@ -1,8 +1,10 @@
 """The port's CUDA kernels and the ops built on them, on the card: each
 kernel bit-identical to its plain PyTorch version, each host-facing op
 at ``impl="kernel"`` identical to its ``impl="host"`` numpy oracle, and
-every launch counted (K1-K6); K7/K8 within 1e-4 of their plain
-versions (K7 with a sliding window, K8 with the slot mask over a
+every launch counted (K1-K6), K1 and K4 also over the look-back
+sweep of ``scan_cases`` (sizes around the tile, repeated calls,
+misaligned views, CUDA-graph replays, two streams); K7/K8 within 1e-4
+of their plain versions (K7 with a sliding window, K8 with the slot mask over a
 wrapped ring too), K9 within ``ssd_cases.tolerance`` of its plain
 version over the ``ssd_cases`` sweep, the dense, SSM and hybrid
 LMs' kernel paths equal to their plain paths (K7/K8/K9), K10 bit-identical
@@ -29,6 +31,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import attention_cases as AC  # noqa: E402
 from repro_torch.kernels import partition_cases as PC  # noqa: E402
+from repro_torch.kernels import scan_cases as SCAN  # noqa: E402
 from repro_torch.kernels import ssd_cases as SC  # noqa: E402
 from repro_torch.kernels.compact import compact as t_compact  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
@@ -210,6 +213,73 @@ def test_kernels_match_plain_versions(dev, n):
                                "segment_reduce": 0, "radix_rank": 0,
                                "flash_attention": 0, "decode_attention": 0,
                                "ssd_chunk": 0, "shard_rank": 0}
+
+
+# ----------------------------------------------- K1/K4 look-back scan
+
+LOOKBACK = (("prefix_count", t_compact.prefix_count_kernel,
+             prefix_count_torch),
+            ("running_segment_ids", t_expand.running_segment_ids_kernel,
+             running_segment_ids_torch))
+
+
+@pytest.mark.cuda
+def test_lookback_tile_matches_the_library(dev):
+    assert _build.library().repro_lookback_tile() == SCAN.TILE
+    assert _build.library().repro_lookback_tiles(SCAN.TILE + 1) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SCAN.SIZES)
+def test_lookback_scans_match_plain_versions(dev, n):
+    gen = torch.Generator(device=dev).manual_seed(6000 + n)
+    _build.reset_launches()
+    for kind in SCAN.KINDS:
+        x = SCAN.make_input(kind, n, gen, dev)
+        for name, kernel, plain in LOOKBACK:
+            want = plain(x)
+            for r in range(SCAN.REPEATS):
+                assert torch.equal(kernel(x), want), (name, n, kind, r)
+    torch.cuda.synchronize(dev)
+    calls = len(SCAN.KINDS) * SCAN.REPEATS
+    assert _build.LAUNCHES["prefix_count"] == calls
+    assert _build.LAUNCHES["running_segment_ids"] == calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", SCAN.OFFSETS)
+def test_lookback_scans_on_misaligned_views(dev, offset):
+    gen = torch.Generator(device=dev).manual_seed(6100 + offset)
+    for n in SCAN.SIZES:
+        for kind in SCAN.KINDS:
+            x = SCAN.make_input(kind, n, gen, dev)
+            view = SCAN.misaligned(x, offset)
+            assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+            for name, kernel, plain in LOOKBACK:
+                assert torch.equal(kernel(view), plain(x)), (name, n, kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (SCAN.SIZES[3], SCAN.SIZES[4]))
+def test_lookback_scans_under_graph_replays(dev, n):
+    gen = torch.Generator(device=dev).manual_seed(6200 + n)
+    xs = [SCAN.make_input("small", n, gen, dev),
+          SCAN.make_input("ones", n, gen, dev)]
+    for name, kernel, plain in LOOKBACK:
+        assert SCAN.graph_replays(kernel, xs, [plain(x) for x in xs]) \
+            == SCAN.REPLAYS, name
+
+
+@pytest.mark.cuda
+def test_lookback_scans_on_two_streams(dev):
+    gen = torch.Generator(device=dev).manual_seed(6300)
+    n = SCAN.SIZES[4]
+    xs = [SCAN.make_input("small", n, gen, dev),
+          SCAN.make_input("ones", n, gen, dev)]
+    for name, kernel, plain in LOOKBACK:
+        for _ in range(10):
+            assert SCAN.two_streams(kernel, xs, [plain(x) for x in xs]) \
+                == 2, name
 
 
 @pytest.mark.cuda

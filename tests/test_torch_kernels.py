@@ -35,6 +35,7 @@ from repro_torch.kernels.hash_dedup.ref import (  # noqa: E402
     group_boundaries_ref,
     hash_rows_ref,
 )
+from repro_torch.kernels import scan_cases as SCAN  # noqa: E402
 from repro_torch.kernels.util import (  # noqa: E402
     check_int32_domain,
     resolve_impl,
@@ -42,7 +43,9 @@ from repro_torch.kernels.util import (  # noqa: E402
 from test_torch_cuda import k3_cases, marks_from_counts  # noqa: E402
 
 INT32_MAX = 2**31 - 1
-SIZES = (0, 1, 1023, 1024, 1025, 65537, 2**16 + 3)
+# with one short of, one and one past the look-back scan's tile (K1, K4)
+SIZES = (0, 1, 1023, 1024, 1025, SCAN.TILE - 1, SCAN.TILE, SCAN.TILE + 1,
+         65537, 2**16 + 3)
 BLOCK = 1024
 
 
@@ -115,6 +118,28 @@ def test_running_segment_ids_multi_segment_marks():
     marks = np.array([3, 0, 1, 0, 0, 2, 1], dtype=np.int32)
     got = _np(running_segment_ids_torch(torch.from_numpy(marks)))
     np.testing.assert_array_equal(got, [2, 2, 3, 3, 3, 5, 6])
+
+
+@pytest.mark.parametrize("kind", SCAN.KINDS)
+@pytest.mark.parametrize("n", SCAN.SIZES[:4])
+def test_scan_cases_match_pallas_and_numpy(n, kind):
+    """The look-back sweep's input kinds at the sizes around its tile
+    (2^24 + 17 runs on the card only) through the reference's K1 and K4
+    Pallas kernels in interpret mode, the port's plain versions and
+    numpy, so that what the card's sweep compares with is tied to the
+    reference."""
+    x = SCAN.make_input(kind, n, torch.Generator().manual_seed(n), "cpu")
+    assert x.dtype == torch.int32 and x.shape == (n,)
+    a = x.numpy()
+    want = np.cumsum(a).astype(np.int32)
+    got = _np(prefix_count_torch(x))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(_interpret(prefix_count_kernel, a, n=n),
+                                  got)
+    got = _np(running_segment_ids_torch(x))
+    np.testing.assert_array_equal(got, want - 1)
+    np.testing.assert_array_equal(
+        _interpret(running_segment_ids_kernel, a, n=n), got)
 
 
 # ------------------------------------------------------------------ K2
