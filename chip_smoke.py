@@ -60,8 +60,9 @@ Phases, each printing one JSON line:
    an interconnect;
 9. ``attention`` — K7 (flash attention) and K8 (flash-decode) against
    their plain versions on unit-normal inputs: K7 at S in {1, 63, 64,
-   65, 128, 1000}, GQA group in {1, 2, 12}, head_dim in {64, 80, 128},
-   causal and not, through the model's transposed (B, S, H, d) views,
+   65, 128, 1000}, GQA group in {1, 2, 12}, head_dim in {36, 64, 80,
+   128} (36 and 80 zero-padded to K7's tiles), causal and not, through
+   the model's transposed (B, S, H, d) views,
    and causal with a sliding window of {1, 17, 64} at S = 1000; K8 at T
    in {1, 131, 1000} with rows of lengths {1, 2, T-1, T} in one batch,
    through the model's permuted (B, T, K, d) cache, and with the
@@ -125,12 +126,18 @@ Phases, each printing one JSON line:
    CUDA-graph replays, so no host work is counted, except K3's
    ``torch.unique_consecutive``, which syncs the host and is timed as
    one eager call), plus the wrapper's
-   eager call time; the scans (K1, K3, K4) also list their device
-   activity over 20 calls under ``torch.profiler`` (``device_kernels``:
-   each kernel and memset with its count and device time); K7 also with the hybrid's window and K8 with its
-   slot mask at ``serve_hybrid``'s shapes (and K7 at ``long_prefill``'s),
-   K9 also at ``serve_hybrid``'s and ``long_prefill``'s shapes, K10 also
-   at P = 32 and beside K6 over the same P buckets.
+   eager call time; the scans (K1, K3, K4) and K7 and K9 also list
+   their device activity over 20 calls under ``torch.profiler``
+   (``device_kernels``: each kernel and memset with its count and device
+   time per launch, beside the launches the wrappers counted; K7 and K9
+   must show one kernel per call); K7 and K9, which run
+   on the tensor cores as three TF32 products, carry their bound at
+   that rate (a third of 495 TFLOP/s) beside the float32 CUDA-core one;
+   K7 also with the hybrid's window and K8 with its slot mask at
+   ``serve_hybrid``'s shapes (and K7 at ``long_prefill``'s), K9 also at
+   ``serve_hybrid``'s and ``long_prefill``'s shapes, with its head
+   groups (``head_groups``) and blocks, K10
+   also at P = 32 and beside K6 over the same P buckets.
 
 Float32 matrix products run in full float32: TF32 is switched off for
 cuBLAS and cuDNN, as the reference computes in float32.
@@ -159,6 +166,9 @@ ROOT = Path(__file__).resolve().parent
 # work against
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+# float32-accurate products on the tensor cores as three TF32 products
+# (K7, K9): a third of the dense TF32 rate, 495 TFLOP/s
+PEAK_TF32X3_OPS_PER_S = 495e12 / 3
 SORT_MERGE = dict(w_hash_build=1e9, w_host_join=1e9)
 DEFAULT = {}  # CostParams(): every base-table join is planned hash
 G_SIZES = (1, 16, 4097, 1 << 20)
@@ -255,30 +265,69 @@ def time_ms(fn, reps: int = 30, inner: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_kernels(fn, calls: int = 20) -> list[dict]:
+PAD_SPINS = 8  # device_kernels' throwaway spins (~50 us each)
+
+
+def device_kernels(fn, calls: int = 20) -> dict:
     """Every device activity of ``calls`` eager ``fn()`` calls under
-    ``torch.profiler`` (kernels and memsets by name), with its count
-    and device time, the longest first: the launches one call makes
-    and the time of each."""
+    ``torch.profiler`` (kernels and memsets by name), with its listed
+    count and its device time per listed launch, the longest first,
+    beside the launches the wrappers counted (``_build.LAUNCHES``) in
+    the same calls. The window opens with ``PAD_SPINS`` short spin
+    kernels, left out of the listing: late in this script the profiler
+    leaves out the first device records of each window, however long
+    the host waits before them and however many calls follow."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import _build
+
     fn()
     torch.cuda.synchronize()
+    before = sum(_build.LAUNCHES.values())
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PAD_SPINS):
+            torch.cuda._sleep(100_000)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+    counted = sum(_build.LAUNCHES.values()) - before
     rows = [{"name": e.key, "count": e.count,
-             "us_per_call": e.self_device_time_total / calls}
-            for e in prof.key_averages() if e.self_device_time_total > 0]
-    return sorted(rows, key=lambda r: -r["us_per_call"])
+             "us_per_launch": e.self_device_time_total / e.count}
+            for e in prof.key_averages() if e.self_device_time_total > 0
+            and "spin_kernel" not in e.key]
+    return {"calls": calls, "launches_counted": counted,
+            "activities": sorted(rows, key=lambda r: -r["us_per_launch"])}
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def one_data_kernel(label: str, fn, name: str, calls: int = 20) -> dict:
+    """``device_kernels(fn)``, which must show one launch per call: the
+    wrappers counted ``calls`` launches, and the profiler lists one
+    device activity, the kernel ``name``, ``calls`` times."""
+    listing = device_kernels(fn, calls)
+    acts = listing["activities"]
+    if listing["launches_counted"] != calls or len(acts) != 1 or \
+            name not in acts[0]["name"] or acts[0]["count"] != calls:
+        raise AssertionError(f"{label}: expected one {name} per call, "
+                             f"got {listing}")
+    return listing
+
+
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = PEAK_OPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tc_bounds(n_bytes: float, n_ops: float) -> dict:
+    """A tensor-core kernel's bound (K7, K9: operations at the
+    three-TF32-product rate) and, beside it, the bound at the float32
+    CUDA-core rate that the earlier design was held to."""
+    b, by = bound_ms(n_bytes, n_ops, PEAK_TF32X3_OPS_PER_S)
+    b32, by32 = bound_ms(n_bytes, n_ops)
+    return {"bound_ms": b, "bound_by": by, "bound_f32_cores_ms": b32,
+            "bound_f32_cores_by": by32}
 
 
 # ------------------------------------------------------------ kernel checks
@@ -1964,29 +2013,31 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
         segment_reduce_kernel)
     from repro_torch.kernels import ssd_cases as SC
     from repro_torch.kernels.ssd.ref import ssd_chunk_ref
-    from repro_torch.kernels.ssd.ssd import ssd_chunk_kernel
+    from repro_torch.kernels.ssd.ssd import head_groups, ssd_chunk_kernel
 
     g = torch.Generator(device=device).manual_seed(seed)
     llm = llm or {}
     rows = []
 
     def row(name, source, replaces, kern, plain, library, n_bytes, n_ops,
-            shape, err=None, library_eager=False, **extra):
+            shape, err=None, library_eager=False, tensor_cores=False,
+            **extra):
         if err is None:
             outs, wants = kern(), plain()
             if not isinstance(outs, tuple):
                 outs, wants = (outs,), (wants,)
             err = max([max_err.get(name, 0)] + [
                 _same(a, b, name) for a, b in zip(outs, wants)])
-        b, by = bound_ms(n_bytes, n_ops)
+        bounds = (tc_bounds(n_bytes, n_ops) if tensor_cores else
+                  dict(zip(("bound_ms", "bound_by"),
+                           bound_ms(n_bytes, n_ops))))
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches.get(name, 0),
             "launches_by_path": {p: c.get(name, 0)
                                  for p, c in by_path.items()},
             "max_abs_err": err, "shape": list(shape),
-            "ms": time_ms(kern), "plain_ms": time_ms(plain),
-            "bound_ms": b, "bound_by": by,
+            "ms": time_ms(kern), "plain_ms": time_ms(plain), **bounds,
             "library_ms": (None if library is None else eager_ms(library)
                            if library_eager else time_ms(library)),
             "wrapper_eager_ms": eager_ms(kern), **extra,
@@ -2155,15 +2206,14 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
         dq = (torch.arange(S, device=device)[:, None]
               - torch.arange(S, device=device)[None, :])
         mask = (dq >= 0) & (dq < window)
-        b_ms, b_by = bound_ms(4 * (2 * B * H * S * d + 2 * B * K * S * d),
-                              4 * d * B * H * window_pairs(S, window))
         out = {"shape": list(shape), "window": window, "max_abs_err": err,
                "ms": time_ms(lambda: flash_attention_kernel(
                    q, k, v, causal=True, window=window)),
                "plain_ms": time_ms(lambda: attention_ref(
                    q, k, v, causal=True, window=window)),
                "library_ms": time_ms(sdpa_call(q, k, v, attn_mask=mask)),
-               "bound_ms": b_ms, "bound_by": b_by}
+               **tc_bounds(4 * (2 * B * H * S * d + 2 * B * K * S * d),
+                           4 * d * B * H * window_pairs(S, window))}
         del q, k, v
         return out
 
@@ -2179,8 +2229,11 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
         err=max([err7, max_err.get("flash_attention", 0.0),
                  max_err.get("flash_attention_window", 0.0)]
                 + [x["max_abs_err"] for x in k7_extra.values()]),
-        causal=True, tolerance=TOLERANCE,
+        causal=True, tolerance=TOLERANCE, tensor_cores=True,
         library_call="scaled_dot_product_attention(is_causal, gqa)",
+        device_kernels=one_data_kernel(
+            "K7", lambda: flash_attention_kernel(q, k, v, causal=True),
+            "flash_fwd_kernel"),
         **k7_extra)
 
     # K8 over a (B, T, K, d) cache with the first decode round's lengths
@@ -2267,16 +2320,24 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
             err = max(err, e)
         return (x, dt, A, B, C, chunk), err
 
+    def k9_blocks(args):
+        """K9's head groups (``head_groups``) and blocks at ``args``."""
+        x, _, _, B, _, chunk = args
+        b, s, h, p = x.shape
+        groups = head_groups(b, s // chunk, h, chunk, p, B.shape[-1],
+                             device)
+        return {"groups": groups, "blocks": b * (s // chunk) * groups}
+
     extra9 = {}
     for label, shape in llm.get("k9", {}).items():
         args, err = k9_case(shape)
-        b_ms, b_by = bound_ms(*ssd_work(*shape))
         extra9[f"at_{label}"] = {
             "shape": list(shape), "max_abs_err": err,
             "ms": time_ms(lambda: ssd_chunk_kernel(*args[:5],
                                                    chunk=args[5])),
             "plain_ms": time_ms(lambda: ssd_chunk_ref(*args)),
-            "bound_ms": b_ms, "bound_by": b_by}
+            **tc_bounds(*ssd_work(*shape)),
+            **k9_blocks(args)}
         del args
     if "ssd_chunk" in shapes:
         shape = shapes["ssd_chunk"]
@@ -2288,7 +2349,12 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
             err=max([err9, max_err.get("ssd_chunk", 0.0)]
                     + [x["max_abs_err"] for x in extra9.values()]),
             tolerance="ssd_cases.tolerance: 1e-5 + 2^-23 max|cum|, of "
-                      "max(1, max|plain|)", library_call=None, **extra9)
+                      "max(1, max|plain|)", library_call=None,
+            tensor_cores=True, **k9_blocks(args),
+            device_kernels=one_data_kernel(
+                "K9", lambda: ssd_chunk_kernel(*args[:5], chunk=args[5]),
+                "ssd_chunk_kernel"),
+            **extra9)
     return rows
 
 

@@ -56,9 +56,11 @@ SIGNATURES = {
     # k and v (b, kv, t), o (b, h) strides, scale, stream
     "repro_decode_attention": (_P,) * 6 + (_I, _P) + (_I,) * 5
     + (_LL,) * 10 + (_F, _P),
-    # x, dt, A, B, C, y, states, decay, cum, cb scratch, b, s, h, p, n,
-    # chunk, x (b, s, h), B (b, s) and C (b, s) strides, stream
-    "repro_ssd_chunk": (_P,) * 10 + (_I,) * 6 + (_LL,) * 7 + (_P,),
+    # x, dt, A, B, C, y, states, decay, cum, b, s, h, p, n, chunk, head
+    # groups, x (b, s, h), B (b, s) and C (b, s) strides, stream
+    "repro_ssd_chunk": (_P,) * 9 + (_I,) * 7 + (_LL,) * 7 + (_P,),
+    # b, chunks, h, chunk, p, n -> head groups
+    "repro_ssd_groups": (_I,) * 6,
     "repro_shard_rank": (_P, _P, _P, _P, _I, _I, _P),
     "repro_shard_rank_tiles": (_I,),
 }

@@ -7,7 +7,9 @@ from __future__ import annotations
 SEQ_LENS = (1, 63, 64, 65, 128, 1000)
 # both: query heads per KV head (MHA, a small group, starcoder2-3b's 12)
 GROUPS = (1, 2, 12)
-HEAD_DIMS = (64, 80, 128)
+# the models' 64 and 128, and 36 and 80, which K7 zero-pads to its
+# 16-column tiles
+HEAD_DIMS = (36, 64, 80, 128)
 # K8: cache lengths T (131 = the serve phase's max_seq + max_new + 1)
 CACHE_LENS = (1, 131, 1000)
 # float32 sums over <= 1000 keys, taken in another order than the

@@ -3,14 +3,20 @@
 
 Replaces ``src/repro/kernels/flash_attention/flash_attention.py::
 flash_attention_kernel``, whose sequential key-block grid axis carries
-the online-softmax state in VMEM. On Hopper one block owns a tile of 64
-queries of one (row, head) and loops over 32-key tiles staged in shared
-memory, with m, l and the output accumulators in registers; whole
-future tiles are skipped under ``causal`` and whole tiles before the
-first query's window under ``window``, ragged ends are masked, the KV
-head is ``h // group`` and every operand is addressed through its
-strides. CUDA-core float32 FMAs (no TF32). Bound: operations, 4d per
-visible (query, key) pair.
+the online-softmax state in VMEM. On Hopper one block of four warps
+owns a tile of 64 queries of one (row, head) and loops over 32-key
+tiles in a two-stage shared-memory ring (two blocks per SM at d = 128),
+filled by the TMA unit from tensor maps where every base and stride is
+16-byte aligned (the model's views), by ``cp.async`` otherwise, in the
+TMA unit's 128-byte swizzle. Q·Kᵀ and P·V run on the tensor cores in
+error-compensated TF32: each float32 operand is split into two TF32
+parts and a product is three ``mma.sync`` products
+(``csrc/mma_tf32x3.cuh``), within a few float32 ulps where one TF32
+product would be off by ~5e-4 relative. Scores, m, l and the output
+stay in registers; whole future tiles are skipped under ``causal``, and
+whole tiles before the first query's window under ``window``, ragged
+ends are masked, the KV head is ``h // group`` and every operand is
+addressed through its strides. Bound: bytes at the model's widths.
 """
 from __future__ import annotations
 

@@ -4,11 +4,18 @@
 Replaces ``src/repro/kernels/ssd/ssd.py::ssd_chunk_kernel``, whose grid
 takes one (row, chunk) cell per sequential step with every head inside,
 sized for the 128x128 MXU. On Hopper that is too few cells to fill 132
-SMs, so the work is split in two launches: C·Bᵀ once per (row, chunk)
-in 32x32 tiles (shared by every head, kept in a global scratch), then
-one block per (row, chunk, head) for the prefix sum of dt·A, y_diag
-and the chunk state. Bound: operations at the model's widths (see the
-source note). The plain version is ``ref.py::ssd_chunk_ref``.
+SMs, so one launch takes one block per (row, chunk, group of heads)
+(``head_groups``): C·Bᵀ once per block into shared memory while one
+warp takes the in-chunk prefix sums of dt·A (sequential, no FMA: cum
+and the decays bit for bit as the plain version sums them), then per
+head y_diag on four warps and the chunk state on the other four, x
+staged by ``cp.async``. Every product runs on the tensor cores in
+error-compensated TF32: each float32 operand is split into two TF32
+parts and a product is three ``mma.sync`` products
+(``csrc/mma_tf32x3.cuh``), within a few float32 ulps where one TF32
+product would be off by ~5e-4 relative. Bound: bytes at the model's
+widths (see the source note). The plain version is
+``ref.py::ssd_chunk_ref``.
 """
 from __future__ import annotations
 
@@ -20,6 +27,29 @@ MAX_CHUNK = 128
 MAX_HEAD_DIM = 128
 
 
+_GROUPS: dict[tuple, int] = {}
+
+
+def head_groups(b: int, nc: int, h: int, chunk: int, p: int, n: int,
+                device: torch.device) -> int:
+    """Groups the h heads are split into, one block per (row, chunk,
+    group): the most that still run in one wave on the card (each block
+    computes C·Bᵀ once for its heads, so fewer groups repeat it less; a
+    second wave would leave SMs idle behind it), within shared memory
+    (``repro_ssd_groups`` in ``csrc/ssd.cu``). Worked out once per shape
+    and card."""
+    key = (b, nc, h, chunk, p, n, device.index)
+    if key not in _GROUPS:
+        with torch.cuda.device(device):
+            groups = _build.library().repro_ssd_groups(b, nc, h, chunk, p,
+                                                       n)
+        if groups < 1:
+            raise ValueError(f"K9 cannot hold one head at chunk {chunk}, "
+                             f"head_dim {p}, state {n} in shared memory")
+        _GROUPS[key] = groups
+    return _GROUPS[key]
+
+
 def ssd_chunk_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                      B: torch.Tensor, C: torch.Tensor, *, chunk: int):
     """x: (b, s, h, p), dt: (b, s, h) post-softplus, A: (h,), B/C:
@@ -27,8 +57,9 @@ def ssd_chunk_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     p <= 128. x, B and C are read through their strides (unit stride on
     the last axis: the model passes slices of its conv output); dt and A
     must be contiguous. Returns (y_diag (b,s,h,p), states (b,nc,h,p,n),
-    chunk_decay (b,nc,h), cum (b,s,h)). Raises for a tensor off the
-    card: there is no fallback."""
+    chunk_decay (b,nc,h), cum (b,s,h)), in one block per row, chunk and
+    head group (``head_groups``). Raises for a tensor off the card:
+    there is no fallback."""
     _build.check_cuda(x, "x", torch.float32, 4, contiguous=False)
     _build.check_cuda(dt, "dt", torch.float32, 3)
     _build.check_cuda(A, "A", torch.float32, 1)
@@ -57,12 +88,11 @@ def ssd_chunk_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     cum = torch.empty((b, s, h), dtype=torch.float32, device=dev)
     if b * s * h == 0:
         return y, st, dec, cum
-    cb = torch.empty((b, nc, chunk, chunk), dtype=torch.float32,
-                     device=dev)  # C·Bᵀ scratch, lower triangle only
+    groups = head_groups(b, nc, h, chunk, p, n, dev)
     _build.call("repro_ssd_chunk", dev, _build.ptr(x), _build.ptr(dt),
                 _build.ptr(A), _build.ptr(B), _build.ptr(C), _build.ptr(y),
-                _build.ptr(st), _build.ptr(dec), _build.ptr(cum),
-                _build.ptr(cb), b, s, h, p, n, chunk, *x.stride()[:3],
-                *B.stride()[:2], *C.stride()[:2], _build.stream(x))
+                _build.ptr(st), _build.ptr(dec), _build.ptr(cum), b, s, h,
+                p, n, chunk, groups, *x.stride()[:3], *B.stride()[:2],
+                *C.stride()[:2], _build.stream(x))
     _build.count_launch("ssd_chunk", (b, s, h, p, n, chunk))
     return y, st, dec, cum

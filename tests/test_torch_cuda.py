@@ -570,6 +570,31 @@ def test_flash_attention_window_matches_plain_version(dev, window, group,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", (36, 37))
+def test_flash_attention_unaligned_views_match_plain_version(dev, d):
+    """Rows that do not start on 16 bytes (views at a storage offset of
+    one float; d = 37 is not a multiple of 4 either) take K7's cp.async
+    copies instead of the TMA unit's bulk copies."""
+    g = torch.Generator(device=dev).manual_seed(d)
+    B, K, S, group = 2, 2, 130, 3
+    H = group * K
+
+    def view(heads):
+        flat = torch.randn(B * S * heads * d + 1, generator=g, device=dev)
+        return flat[1:].view(B, S, heads, d).transpose(1, 2)
+
+    q, k, v = view(H), view(K), view(K)
+    assert q.data_ptr() % 16 != 0
+    for causal, window in ((True, 0), (False, 0), (True, 17)):
+        _build.reset_launches()
+        got = t_fa.flash_attention_kernel(q, k, v, causal=causal,
+                                          window=window)
+        assert _build.LAUNCHES["flash_attention"] == 1
+        want = attention_ref(q, k, v, causal=causal, window=window)
+        assert float((got - want).abs().max()) <= AC.TOLERANCE
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d", AC.HEAD_DIMS)
 @pytest.mark.parametrize("group", AC.GROUPS)
 @pytest.mark.parametrize("W", AC.RING_WINDOWS)
@@ -627,6 +652,42 @@ def test_ssd_kernel_matches_sequential_oracle(dev):
     tol = SC.tolerance(SC.cum_max(dt, A, chunk))
     assert y.shape == (b, s, h, p) and state.shape == (b, h, p, n)
     assert float((y - want).abs().max()) <= tol * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_kernel_head_groups_and_wide_state(dev):
+    """K9 at a chunk that is not a multiple of 16, a state wider than one
+    128-column slab whose B and C rows do not start on 16 bytes (n =
+    150: 4-byte copies, C.B^T summed over two slabs, B staged again for
+    each head's states): the wrapper (one launch, its own head groups)
+    and the C entry point at every head-group count, within the
+    tolerance of the plain version; a count above h is refused."""
+    b, s, h, p, n, chunk = 2, 96, 5, 24, 150, 48
+    g = torch.Generator(device=dev).manual_seed(5)
+    x, dt, A, B, C = SC.case_inputs(b, s, h, p, n, chunk, g, dev)
+    want = ssd_chunk_ref(x, dt, A, B, C, chunk)
+    tol = SC.tolerance(SC.cum_max(dt, A, chunk))
+
+    def entry(groups):
+        outs = [torch.empty(w.shape, device=dev) for w in want]
+        _build.call("repro_ssd_chunk", dev, *map(_build.ptr, (
+            x, dt, A, B, C, *outs)), b, s, h, p, n, chunk, groups,
+            *x.stride()[:3], *B.stride()[:2], *C.stride()[:2],
+            _build.stream(x))
+        return outs
+
+    _build.reset_launches()
+    runs = [t_ssd.ssd_chunk_kernel(x, dt, A, B, C, chunk=chunk)]
+    assert _build.LAUNCHES["ssd_chunk"] == 1
+    runs += [entry(groups) for groups in range(1, h + 1)]
+    with pytest.raises(RuntimeError):
+        entry(h + 1)
+    for groups, got in enumerate(runs):
+        for a, w in zip(got, want):
+            assert bool(torch.isfinite(a).all())
+            err = float((a - w).abs().max())
+            assert err <= tol * max(1.0, float(w.abs().max())), (groups,
+                                                                 err)
 
 
 @pytest.mark.cuda
