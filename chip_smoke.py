@@ -17,7 +17,10 @@ Phases, each printing one JSON line:
    over ``repro_torch.kernels.scan_cases``: sizes around the tile, each
    input kind repeated 50 times, views not 16-byte aligned, 200 replays
    of one captured CUDA graph on alternating inputs, and two calls on
-   two streams at once;
+   two streams at once; K6 (a one-pass look-back rank) also over
+   ``repro_torch.kernels.radix_cases``: sizes around its tile, five
+   digit kinds, B in {1, 4, 7, 256, 1024}, each case repeated 20 times
+   (at B <= 32 also equal to K10), graph replays and two streams;
    K5 segmented reduction over {sum, min, max} x {int32, float32} and
    G in {1, 16, 4097, 2^20} with NaN, ±inf, -0.0, empty segments and a
    hot segment — bit-identical except float32 sums, which are held to
@@ -68,9 +71,13 @@ Phases, each printing one JSON line:
    through the model's permuted (B, T, K, d) cache, and with the
    reference's slot mask over wrapped rings of 16 and 64 slots (entries
    above pos, entries too old for the window, empty slots); within 1e-4
-   (float32 sums over <= 1000 keys in another order). The sweep and its
-   tolerance are ``repro_torch.kernels.attention_cases``, which the
-   card tests share;
+   (float32 sums over <= 1000 keys in another order); then K8 at the
+   edges of its split over the cache (``check_decode_split``): lengths
+   around its chunk over 131- and 4104-position caches, a full
+   2048-slot ring, rings with dead chunks between live ones, each call
+   equal bit for bit to a second one, and 200 graph replays per mask
+   on alternating inputs. The sweep and its tolerance are
+   ``repro_torch.kernels.attention_cases``, which the card tests share;
 10. ``ssd`` — K9 (the SSD intra-chunk step) against its plain version,
    all four outputs, over ``repro_torch.kernels.ssd_cases``: chunk in
    {64, 128}, s in {1, chunk-1, chunk, chunk+1, 4 chunk+3} (padded as
@@ -126,15 +133,17 @@ Phases, each printing one JSON line:
    CUDA-graph replays, so no host work is counted, except K3's
    ``torch.unique_consecutive``, which syncs the host and is timed as
    one eager call), plus the wrapper's
-   eager call time; the scans (K1, K3, K4) and K7 and K9 also list
+   eager call time; the scans (K1, K3, K4), K6, K7, K8 and K9 also list
    their device activity over 20 calls under ``torch.profiler``
    (``device_kernels``: each kernel and memset with its count and device
-   time per launch, beside the launches the wrappers counted; K7 and K9
-   must show one kernel per call); K7 and K9, which run
+   time per launch, beside the launches the wrappers counted; K6, K7, K8
+   and K9 must show one data kernel per call, K6 and K8 at most one
+   memset beside it); K7 and K9, which run
    on the tensor cores as three TF32 products, carry their bound at
    that rate (a third of 495 TFLOP/s) beside the float32 CUDA-core one;
    K7 also with the hybrid's window and K8 with its slot mask at
-   ``serve_hybrid``'s shapes (and K7 at ``long_prefill``'s), K9 also at
+   ``serve_hybrid``'s shapes (and both at ``long_prefill``'s: K8 over
+   its 2048-slot ring with every slot live), K9 also at
    ``serve_hybrid``'s and ``long_prefill``'s shapes, with its head
    groups (``head_groups``) and blocks, K10
    also at P = 32 and beside K6 over the same P buckets.
@@ -300,16 +309,22 @@ def device_kernels(fn, calls: int = 20) -> dict:
             "activities": sorted(rows, key=lambda r: -r["us_per_launch"])}
 
 
-def one_data_kernel(label: str, fn, name: str, calls: int = 20) -> dict:
+def one_data_kernel(label: str, fn, name: str, calls: int = 20,
+                    memset: bool = False) -> dict:
     """``device_kernels(fn)``, which must show one launch per call: the
     wrappers counted ``calls`` launches, and the profiler lists one
-    device activity, the kernel ``name``, ``calls`` times."""
+    data kernel, ``name``, ``calls`` times, and (with ``memset``) at most
+    one memset per call beside it."""
     listing = device_kernels(fn, calls)
     acts = listing["activities"]
-    if listing["launches_counted"] != calls or len(acts) != 1 or \
-            name not in acts[0]["name"] or acts[0]["count"] != calls:
-        raise AssertionError(f"{label}: expected one {name} per call, "
-                             f"got {listing}")
+    data = [a for a in acts if "Memset" not in a["name"]]
+    sets = [a for a in acts if "Memset" in a["name"]]
+    if listing["launches_counted"] != calls or len(data) != 1 or \
+            name not in data[0]["name"] or data[0]["count"] != calls or \
+            len(sets) > int(memset) or any(a["count"] > calls for a in sets):
+        raise AssertionError(f"{label}: expected one {name} per call"
+                             f"{' and at most one memset' if memset else ''}"
+                             f", got {listing}")
     return listing
 
 
@@ -433,14 +448,6 @@ def k6_digit_cases(n: int, gen, device, buckets: int = 256):
                           dtype=torch.int32), skew]
 
 
-def exclusive_bases(digits, buckets: int = 256):
-    import torch
-
-    hist = torch.zeros(buckets, dtype=torch.int64, device=digits.device)
-    hist.index_add_(0, digits.long(), torch.ones_like(digits, dtype=torch.int64))
-    return (torch.cumsum(hist, 0) - hist).to(torch.int32)
-
-
 def check_kernels(device, sizes=EDGE_SIZES, seed: int = 0,
                   g_sizes=G_SIZES):
     """Every kernel against its plain version on ``device``. Returns
@@ -457,6 +464,7 @@ def check_kernels(device, sizes=EDGE_SIZES, seed: int = 0,
     from repro_torch.kernels.hash_dedup.ref import (
         group_boundaries_ref, hash_rows_np, hash_rows_ref)
     from repro_torch.kernels import partition_cases as PC
+    from repro_torch.kernels import radix_cases as RC
     from repro_torch.kernels.hash_join.hash_join import (
         radix_rank_kernel, radix_rank_torch)
     from repro_torch.kernels.partition.partition import shard_rank_kernel
@@ -517,7 +525,7 @@ def check_kernels(device, sizes=EDGE_SIZES, seed: int = 0,
             same("group_boundaries", gk, gr, f"K3 gid n={n}")
         # K6: all-equal, uniform and skewed digits
         for d in k6_digit_cases(n, g, device):
-            base = exclusive_bases(d)
+            base = RC.exclusive_bases(d, 256)
             same("radix_rank", radix_rank_kernel(d, base),
                  radix_rank_torch(d, base), f"K6 n={n}")
         # K10: P in {1, 2, 4, 8, 32}, uniform / one-bucket / half-hot
@@ -593,6 +601,54 @@ def check_lookback(device, sizes=None, repeats=None, seed: int = 2):
                 cases[name] += SC.graph_replays(kernel, two, wants)
                 cases[name] += SC.two_streams(kernel, two, wants)
         del xs
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return cases
+
+
+def check_radix(device, sizes=None, repeats=None, seed: int = 3):
+    """K6 over ``radix_cases``: every size, digit kind and bucket count,
+    each call repeated ``repeats`` times against one plain result, at
+    B <= 32 also against K10, and on a card the graph replays and two
+    streams. Returns the cases compared."""
+    import torch
+
+    from repro_torch.kernels import radix_cases as RC
+    from repro_torch.kernels import scan_cases as SC
+    from repro_torch.kernels.hash_join.hash_join import (
+        radix_rank_kernel, radix_rank_torch)
+    from repro_torch.kernels.partition.partition import (
+        MAX_SHARDS, shard_rank_kernel)
+
+    sizes = RC.SIZES if sizes is None else sizes
+    repeats = RC.REPEATS if repeats is None else repeats
+    g = torch.Generator(device=device).manual_seed(seed)
+    cases = 0
+    for n in sizes:
+        for buckets in RC.BUCKETS:
+            for kind in RC.KINDS:
+                d = RC.make_digits(kind, n, buckets, g, device)
+                base = RC.exclusive_bases(d, buckets)
+                want = radix_rank_torch(d, base)
+                for r in range(repeats):
+                    _same(radix_rank_kernel(d, base), want,
+                          f"K6 n={n} B={buckets} {kind} rep {r}")
+                cases += repeats
+                if buckets <= MAX_SHARDS:
+                    _same(radix_rank_kernel(d, base),
+                          shard_rank_kernel(d, base),
+                          f"K6 against K10 n={n} B={buckets} {kind}")
+                    cases += 1
+        if device.type == "cuda":
+            for buckets in (4, 256):
+                ds = [RC.make_digits(kind, n, buckets, g, device)
+                      for kind in ("uniform", "skewed")]
+                bases = [RC.exclusive_bases(d, buckets) for d in ds]
+                xs = [RC.packed(d, b) for d, b in zip(ds, bases)]
+                wants = [radix_rank_torch(d, b) for d, b in zip(ds, bases)]
+                kernel = RC.unpacking(radix_rank_kernel, n)
+                cases += SC.graph_replays(kernel, xs, wants, RC.REPLAYS)
+                cases += SC.two_streams(kernel, xs, wants)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return cases
@@ -1322,6 +1378,93 @@ def check_attention(device, seq=None, groups=None, dims=None,
             "tolerance": AC.TOLERANCE}
 
 
+def check_decode_split(device, groups=None, dims=(36, 64, 128),
+                       seed: int = 4) -> dict:
+    """K8 at the edges of its split over the cache (``attention_cases``):
+    lengths at the chunk edges over 131- and 4104-position caches, a
+    full 2048-slot ring, rings with dead chunks between live ones, each
+    within the tolerance of the plain version and equal bit for bit on a
+    second call; on a card, ``REPLAYS`` graph replays per mask on
+    alternating inputs. Returns the cases and the worst max|diff|."""
+    import torch
+
+    from repro_torch.kernels import attention_cases as AC
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_ref)
+
+    groups = groups or AC.GROUPS
+    impl = "kernel" if device.type == "cuda" else "ref"
+    g = torch.Generator(device=device).manual_seed(seed)
+    out = {"cases": 0, "max_abs_err": 0.0, "graph_replays": 0}
+
+    def operands(B, H, K, T, d):
+        q = torch.randn(B, H, d, generator=g, device=device)
+        kc, vc = (torch.randn(B, T, K, d, generator=g, device=device)
+                  .permute(0, 2, 1, 3) for _ in range(2))
+        return q, kc, vc
+
+    def hold(run, want, what):
+        got = run()
+        err = float((got - want).abs().max())
+        if not err <= AC.TOLERANCE or not torch.equal(run(), got):
+            raise AssertionError(f"K8 {what}: max|diff| {err} > "
+                                 f"{AC.TOLERANCE}, or a second call "
+                                 f"differs")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["cases"] += 1
+
+    sp_full, pos_full = AC.full_ring()
+    rows, gpos, W = AC.gapped_ring()
+    for d in dims:
+        for grp in groups:
+            K = 2
+            for T in (131, AC.LONG_CACHE):
+                lengths = torch.tensor(AC.chunk_lengths(T),
+                                       dtype=torch.int32, device=device)
+                q, kc, vc = operands(lengths.shape[0], grp * K, K, T, d)
+                hold(lambda: decode_attention(q, kc, vc, lengths, impl=impl),
+                     decode_attention_ref(q, kc, vc, lengths),
+                     f"lengths {lengths.tolist()} group={grp} d={d}")
+            for sp, pos, w in (([sp_full], [pos_full], AC.FULL_RING),
+                               (rows, gpos, W)):
+                spt = torch.tensor(sp, dtype=torch.int32, device=device)
+                post = torch.tensor(pos, dtype=torch.int32, device=device)
+                q, kc, vc = operands(len(sp), grp * K, K, len(sp[0]), d)
+                hold(lambda: decode_attention(q, kc, vc, slot_pos=spt,
+                                              pos=post, window=w, impl=impl),
+                     decode_attention_ref(q, kc, vc, slot_pos=spt, pos=post,
+                                          window=w),
+                     f"ring of {len(sp[0])} group={grp} d={d}")
+    if device.type == "cuda":
+        from repro_torch.kernels.decode_attention.decode_attention import (
+            decode_attention_kernel)
+
+        lens = [torch.randint(1, 132, (16,), generator=g, device=device,
+                              dtype=torch.int32) for _ in range(2)]
+        xs = [(*operands(16, 24, 2, 131, 128), n) for n in lens]
+        out["graph_replays"] += AC.graph_replays(
+            decode_attention_kernel, xs,
+            [decode_attention_ref(*x) for x in xs])
+        spt = torch.tensor([sp_full], dtype=torch.int32, device=device)
+        post = torch.tensor([pos_full], dtype=torch.int32, device=device)
+        dead = torch.where(torch.arange(AC.FULL_RING, device=device) % 96
+                           < 32, spt, -1)
+        xs = [(*operands(1, 25, 5, AC.FULL_RING, 64), s, post)
+              for s in (spt, dead)]
+
+        def ring(q, k, v, s, p):
+            return decode_attention_kernel(q, k, v, slot_pos=s, pos=p,
+                                           window=AC.FULL_RING)
+
+        out["graph_replays"] += AC.graph_replays(
+            ring, xs, [decode_attention_ref(q, k, v, slot_pos=s, pos=p,
+                                            window=AC.FULL_RING)
+                       for q, k, v, s, p in xs])
+        torch.cuda.synchronize(device)
+    return out
+
+
 # ------------------------------------------------------------ SSD kernel
 
 def check_ssd(device, cases=None, oracle=None, seed: int = 0) -> dict:
@@ -1780,7 +1923,6 @@ def run_long_prefill(device, ssm_eng, hybrid_eng, ssm_shape=(2, 2048),
         (lg, cache), sec = timed(lambda: prefill(
             cfg, params, {"tokens": toks[:, :S]}, max_seq=hybrid_max_seq,
             attn_impl=impl, ssd_impl=impl))
-        shapes = dict(_build.MAX_SHAPES)
         logits = [lg]
         t_dec = 0.0
         for i in range(steps):
@@ -1789,8 +1931,8 @@ def run_long_prefill(device, ssm_eng, hybrid_eng, ssm_shape=(2, 2048),
                 cfg, params, cache, toks[:, S + i], pos, attn_impl=impl))
             logits.append(ld)
             t_dec += sec_d
-        res[impl] = (logits, sec, t_dec, dict(_build.LAUNCHES), shapes,
-                     cache["slot_pos"])
+        res[impl] = (logits, sec, t_dec, dict(_build.LAUNCHES),
+                     dict(_build.MAX_SHAPES), cache["slot_pos"])
     ka, kb = res["auto"], res["ref"]
     W = ka[5].shape[2]
     hyb = {"arch": cfg.name, "batch": B, "seq": S,
@@ -1986,6 +2128,8 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
     ``by_path`` holds every path's launch counts."""
     import torch
 
+    from repro_torch.kernels import attention_cases as AC
+    from repro_torch.kernels import radix_cases as RC
     from repro_torch.kernels.attention_cases import TOLERANCE
     from repro_torch.kernels.compact.compact import prefix_count_kernel
     from repro_torch.kernels.compact.ref import prefix_count_torch
@@ -2130,13 +2274,16 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
     slot_key = torch.randint(0, 1 << hbits, (n,), generator=g,
                              device=device, dtype=torch.int32)
     digit = slot_key & 255
-    base = exclusive_bases(digit)
+    base = RC.exclusive_bases(digit, 256)
     row("radix_rank", "src/repro_torch/csrc/radix_rank.cu",
         "src/repro/kernels/hash_join/hash_join.py:57",
         lambda: radix_rank_kernel(digit, base),
         lambda: radix_rank_torch(digit, base),
         lambda: torch.sort(digit, stable=True),
         8 * n, n, (n,), library_call="torch.sort(stable=True)",
+        device_kernels=one_data_kernel(
+            "K6", lambda: radix_rank_kernel(digit, base),
+            "radix_rank_kernel", memset=True),
         order_key_bits=hbits,
         order_ms=time_ms(lambda: _radix_order(slot_key, key_bits=hbits)),
         order_argsort_ms=time_ms(
@@ -2289,7 +2436,48 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
             "library_ms": time_ms(sdpa_call(
                 qh[:, :, None], kh, vh,
                 attn_mask=ok_h[:, None, None, :])),
-            "wrapper_eager_ms": eager_ms(k8s)}
+            "wrapper_eager_ms": eager_ms(k8s),
+            "device_kernels": one_data_kernel(
+                "K8 slot mask", k8s, "decode_kernel", memset=True)}
+        del qh, kh, vh
+    if "k8_long" in llm:
+        # long_prefill's decode: the 2048-slot ring wrapped, every slot
+        # live
+        (Bl, Hl, Kl, Tl, dl), window = llm["k8_long"]
+        sp_l, pos_l = AC.full_ring(Tl)
+        spl = torch.tensor([sp_l] * Bl, dtype=torch.int32, device=device)
+        pl_ = torch.full((Bl,), pos_l, dtype=torch.int32, device=device)
+        ql = torch.randn(Bl, Hl, dl, generator=g, device=device)
+        kl, vl = (torch.randn(Bl, Tl, Kl, dl, generator=g, device=device)
+                  .permute(0, 2, 1, 3) for _ in range(2))
+
+        def k8l():
+            return decode_attention_kernel(ql, kl, vl, slot_pos=spl,
+                                           pos=pl_, window=window)
+
+        def k8lp():
+            return decode_attention_ref(ql, kl, vl, slot_pos=spl, pos=pl_,
+                                        window=window)
+
+        errl = float((k8l() - k8lp()).abs().max())
+        if not errl <= TOLERANCE:
+            raise AssertionError(f"K8 at long_prefill's ring: {errl}")
+        ok_l = (spl >= 0) & (spl <= pl_[:, None]) & \
+            (pl_[:, None] - spl < window)
+        live_l = int(ok_l.sum())
+        b_ms, b_by = bound_ms(
+            4 * (2 * Bl * Hl * dl + 2 * Kl * dl * live_l + Bl * Tl + Bl),
+            4 * dl * Hl * live_l)
+        k8_extra["slot_mask_long_prefill"] = {
+            "shape": [Bl, Hl, Kl, Tl, dl], "window": window,
+            "live": live_l, "max_abs_err": errl, "ms": time_ms(k8l),
+            "plain_ms": time_ms(k8lp), "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(sdpa_call(
+                ql[:, :, None], kl, vl, attn_mask=ok_l[:, None, None, :])),
+            "wrapper_eager_ms": eager_ms(k8l),
+            "device_kernels": one_data_kernel(
+                "K8 long_prefill ring", k8l, "decode_kernel", memset=True)}
+        del ql, kl, vl
     row("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention/decode_attention.py:78",
         lambda: decode_attention_kernel(qd, kc, vc, lengths),
@@ -2302,6 +2490,10 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
                 + [x["max_abs_err"] for x in k8_extra.values()]),
         lengths=lengths.tolist(), tolerance=TOLERANCE,
         library_call="scaled_dot_product_attention(attn_mask, gqa)",
+        chunk=AC.DECODE_CHUNK,
+        device_kernels=one_data_kernel(
+            "K8", lambda: decode_attention_kernel(qd, kc, vc, lengths),
+            "decode_kernel", memset=True),
         **k8_extra)
 
     # K9 at a full admission of the SSM model, then at the other shapes
@@ -2393,6 +2585,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(src))
     from repro_torch.kernels import _build
+    from repro_torch.kernels import attention_cases as AC
+    from repro_torch.kernels import radix_cases as RC
     from repro_torch.kernels import scan_cases as SC
 
     device = torch.device("cuda", 0)
@@ -2419,6 +2613,13 @@ def main() -> int:
     lookback = check_lookback(device)
     for k, c in lookback.items():
         cases[k] += c
+    lib = _build.library()
+    if lib.repro_radix_rank_tiles(RC.TILE) != 1 or \
+            lib.repro_radix_rank_tiles(RC.TILE + 1) != 2:
+        raise AssertionError(f"radix_cases.TILE {RC.TILE} is not the "
+                             f"library's K6 tile")
+    radix = check_radix(device)
+    cases["radix_rank"] += radix
     emit({"phase": "kernels", "bit_identical_cases": cases,
           "max_abs_err": errs, "tolerance": 0,
           "sizes": list(EDGE_SIZES),
@@ -2427,12 +2628,23 @@ def main() -> int:
                        "offsets": list(SC.OFFSETS),
                        "graph_replays": SC.REPLAYS, "streams": 2,
                        "cases": lookback},
+          "radix": {"tile": RC.TILE, "sizes": list(RC.SIZES),
+                    "kinds": list(RC.KINDS), "buckets": list(RC.BUCKETS),
+                    "repeats": RC.REPEATS, "graph_replays": RC.REPLAYS,
+                    "streams": 2, "cases": radix},
           "seconds": time.perf_counter() - t0, "gpu": smi})
     t0 = time.perf_counter()
+    if lib.repro_decode_chunk() != AC.DECODE_CHUNK:
+        raise AssertionError(f"attention_cases.DECODE_CHUNK "
+                             f"{AC.DECODE_CHUNK} differs from the "
+                             f"library's {lib.repro_decode_chunk()}")
     attn = check_attention(device)
     errs.update(attn["max_abs_err"])
-    emit({"phase": "attention", **attn, "seconds": time.perf_counter() - t0,
-          "gpu": smi})
+    split = check_decode_split(device)
+    errs["decode_attention_split"] = split["max_abs_err"]
+    emit({"phase": "attention", **attn, "decode_split": split,
+          "decode_chunk": AC.DECODE_CHUNK,
+          "seconds": time.perf_counter() - t0, "gpu": smi})
     t0 = time.perf_counter()
     ssd = check_ssd(device)
     errs["ssd_chunk"] = ssd["max_abs_err"]
@@ -2552,6 +2764,7 @@ def main() -> int:
                "long_prefill": (lshapes["flash_attention"], window)},
         "k8": (hshapes["decode_attention"], hyb["decode_lengths"], window),
         "k8_prefill_len": hyb["max_seq"],
+        "k8_long": (lshapes["decode_attention"], window),
         "k9": {"serve_hybrid": hshapes["ssd_chunk"],
                "long_prefill_ssm": long["ssm"]["shapes"]["ssd_chunk"],
                "long_prefill_hybrid": lshapes["ssd_chunk"]}}

@@ -1,5 +1,5 @@
 // Asynchronous copies from device memory into shared memory, shared by K7
-// (flash_attention.cu) and K9 (ssd.cu):
+// (flash_attention.cu), K8 (decode_attention.cu) and K9 (ssd.cu):
 //
 //   * cp.async (sm_80+): each thread copies 4 or 16 bytes; a thread's
 //     copies are grouped by cp_async_commit and waited for by
@@ -38,15 +38,18 @@ __device__ __forceinline__ void wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// copy ``cols`` floats of each of ``rows`` rows (source row stride
-// ``src_ld``, destination row stride ``dst_ld``, both in floats) with
-// the threads [tid, tid + nthreads, ...); 16-byte copies when ``vec``
-// (cols, src_ld, dst_ld and both bases multiples of 4 floats / 16 bytes).
-// One division per thread: the (row, column) walk is stepped, not divided
-__device__ __forceinline__ void copy_rows(float* dst, int dst_ld,
-                                          const float* src, long long src_ld,
-                                          int rows, int cols, bool vec,
-                                          int tid, int nthreads) {
+// copy ``cols`` floats of each of ``rows`` rows: destination row r (row
+// stride ``dst_ld`` floats) from source row ``row_of(r)`` (row stride
+// ``src_ld`` floats), with the threads [tid, tid + nthreads, ...);
+// 16-byte copies when ``vec`` (cols, src_ld, dst_ld and both bases
+// multiples of 4 floats / 16 bytes). One division per thread: the
+// (row, column) walk is stepped, not divided
+template <class RowOf>
+__device__ __forceinline__ void copy_rows_of(float* dst, int dst_ld,
+                                             const float* src,
+                                             long long src_ld, RowOf row_of,
+                                             int rows, int cols, bool vec,
+                                             int tid, int nthreads) {
   const int w = vec ? cols >> 2 : cols;  // copies per row
   const int sh = vec ? 2 : 0;
   if (w <= 0) return;
@@ -56,10 +59,11 @@ __device__ __forceinline__ void copy_rows(float* dst, int dst_ld,
   const int dc = nthreads - dr * w;
   for (; r < rows;) {
     const int col = c << sh;
+    const float* from = src + row_of(r) * src_ld + col;
     if (vec)
-      cp16(dst + r * dst_ld + col, src + r * src_ld + col);
+      cp16(dst + r * dst_ld + col, from);
     else
-      cp4(dst + r * dst_ld + col, src + r * src_ld + col);
+      cp4(dst + r * dst_ld + col, from);
     r += dr;
     c += dc;
     if (c >= w) {
@@ -67,6 +71,19 @@ __device__ __forceinline__ void copy_rows(float* dst, int dst_ld,
       ++r;
     }
   }
+}
+
+struct SameRow {
+  __device__ __forceinline__ long long operator()(int r) const { return r; }
+};
+
+// copy_rows_of with destination row r from source row r
+__device__ __forceinline__ void copy_rows(float* dst, int dst_ld,
+                                          const float* src, long long src_ld,
+                                          int rows, int cols, bool vec,
+                                          int tid, int nthreads) {
+  copy_rows_of(dst, dst_ld, src, src_ld, SameRow{}, rows, cols, vec, tid,
+               nthreads);
 }
 
 // ------------------------------------------------------------- mbarrier

@@ -1,7 +1,9 @@
 // One-pass device-wide inclusive int32 scan by decoupled look-back
 // (Merrill and Garland, "Single-pass Parallel Prefix Scan with Decoupled
 // Look-back", 2016), shared by the compaction prefix count (compact.cu)
-// and the running segment ids (expand.cu).
+// and the running segment ids (expand.cu). Its memory-order primitives
+// also serve K6's per-bucket look-back (radix_rank.cu) and K8's arrival
+// counter (decode_attention.cu).
 //
 // The TPU kernels these replace walk their grid in order and carry a
 // running total from one tile to the next in SMEM. Hopper blocks run
@@ -96,6 +98,36 @@ __device__ __forceinline__ void store_release(unsigned long long* p,
                                               unsigned long long v) {
   asm volatile("st.release.gpu.global.u64 [%0], %1;"
                :: "l"(p), "l"(v) : "memory");
+}
+
+// Relaxed device-scope access to a status word that carries its whole
+// payload (flag and value in one 64-bit word): nothing else is
+// published with it, so a load needs no acquire (which invalidates the
+// SM's L1 after each load) and a store no release fence. K6's look-back
+// makes one such access per bucket and thread, 256 per block.
+__device__ __forceinline__ unsigned long long load_relaxed(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_relaxed(unsigned long long* p,
+                                              unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+}
+
+// atomic p += v at device scope, returning the old value: a release of
+// the caller's earlier writes and an acquire of what the writers of the
+// earlier values released (K8's arrival counter)
+__device__ __forceinline__ unsigned fetch_add_acq_rel(unsigned* p,
+                                                      unsigned v) {
+  unsigned old;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], %2;"
+               : "=r"(old) : "l"(p), "r"(v) : "memory");
+  return old;
 }
 
 __device__ __forceinline__ unsigned long long pack(unsigned long long flag,

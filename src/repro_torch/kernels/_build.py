@@ -53,9 +53,12 @@ SIGNATURES = {
     "repro_flash_attention": (_P,) * 4 + (_I,) * 6 + (_LL,) * 12
     + (_F, _I, _I, _P),
     # q, k, v, lengths, slot_pos, pos, window, o, B, H, K, T, d, q (b, h),
-    # k and v (b, kv, t), o (b, h) strides, scale, stream
+    # k and v (b, kv, t), o (b, h) strides, scale, scratch, stream
     "repro_decode_attention": (_P,) * 6 + (_I, _P) + (_I,) * 5
-    + (_LL,) * 10 + (_F, _P),
+    + (_LL,) * 10 + (_F, _P, _P),
+    "repro_decode_chunk": (),
+    # B, H, K, T, d -> scratch bytes
+    "repro_decode_scratch_bytes": (_I,) * 5,
     # x, dt, A, B, C, y, states, decay, cum, b, s, h, p, n, chunk, head
     # groups, x (b, s, h), B (b, s) and C (b, s) strides, stream
     "repro_ssd_chunk": (_P,) * 9 + (_I,) * 7 + (_LL,) * 7 + (_P,),
@@ -64,6 +67,9 @@ SIGNATURES = {
     "repro_shard_rank": (_P, _P, _P, _P, _I, _I, _P),
     "repro_shard_rank_tiles": (_I,),
 }
+
+# C entry points that return other than a C int
+RESTYPES = {"repro_decode_scratch_bytes": _LL}
 
 # kernel name -> launches since the last reset_launches(), and the
 # largest input shape launched in that time
@@ -165,7 +171,7 @@ def library() -> ctypes.CDLL:
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
+            fn.restype = RESTYPES.get(name, ctypes.c_int)
         lib.repro_error_string.argtypes = [ctypes.c_int]
         lib.repro_error_string.restype = ctypes.c_char_p
         _LIB = lib

@@ -4,12 +4,16 @@ kernel (``csrc/decode_attention.cu``).
 Replaces ``src/repro/kernels/decode_attention/decode_attention.py::
 decode_attention_kernel``, whose sequential cache-block grid axis
 carries the online softmax of a KV head's query group in VMEM. On
-Hopper one block owns a (row, KV head), one warp per query head of the
-group, and streams the row's cache through shared memory in
-32-position tiles, so the group shares every K/V read. Two masks: the
-first ``lengths[b]`` positions (the dense LM), or the reference's slot
-mask ``0 <= slot_pos <= pos`` within ``window`` (the hybrid's ring
-cache). Float32 throughout. Bound: memory, the cache read.
+Hopper the cache is split (flash-decoding): one block per (row, KV
+head, chunk of ``repro_decode_chunk()`` positions) copies only the
+chunk's live K/V rows into shared memory, computes the group's scores
+and P.V in float32 on CUDA cores and writes its partial softmax state
+to a scratch; the last chunk of a (row, KV head) to arrive combines the
+partials in chunk order and writes the output, all in one launch after
+one memset of the arrival counters. Two masks: the first
+``lengths[b]`` positions (the dense LM), or the reference's slot mask
+``0 <= slot_pos <= pos`` within ``window`` (the hybrid's ring cache).
+Bound: bytes, the live cache rows.
 """
 from __future__ import annotations
 
@@ -20,7 +24,8 @@ import torch
 from .. import _build
 
 MAX_HEAD_DIM = 128
-MAX_GROUP = 32  # one warp per query head of a KV head's group
+MAX_GROUP = 32  # query heads per KV head
+MAX_ROW_HEADS = 65535  # rows x KV heads: the launch grid's second axis
 
 
 def decode_attention_kernel(q: torch.Tensor, k: torch.Tensor,
@@ -36,7 +41,7 @@ def decode_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     ``window`` >= 0 — slot t is live iff 0 <= slot_pos[b,t] <= pos[b]
     and, for window > 0, pos[b] - slot_pos[b,t] < window. Returns
     (B, H, d). Raises for a tensor off the card: there is no
-    fallback."""
+    fallback. One memset and one kernel launch on the current stream."""
     _build.check_cuda(q, "q", torch.float32, 3, contiguous=False)
     for t, name in ((k, "k"), (v, "v")):
         _build.check_cuda(t, name, torch.float32, 4, contiguous=False)
@@ -75,11 +80,16 @@ def decode_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     out = torch.empty((B, H, d), dtype=q.dtype, device=q.device)
     if B == 0:
         return out
+    if B * K > MAX_ROW_HEADS:
+        raise ValueError(f"{B} rows x {K} KV heads exceed {MAX_ROW_HEADS}")
+    lib = _build.library()
+    scratch = torch.empty(lib.repro_decode_scratch_bytes(B, H, K, T, d),
+                          dtype=torch.uint8, device=q.device)
     _build.call("repro_decode_attention", q.device, _build.ptr(q),
                 _build.ptr(k), _build.ptr(v), _build.opt_ptr(lengths),
                 _build.opt_ptr(slot_pos), _build.opt_ptr(pos), int(window),
                 _build.ptr(out), B, H, K, T, d, *q.stride()[:2],
                 *k.stride()[:3], *v.stride()[:3], *out.stride()[:2],
-                1.0 / math.sqrt(d), _build.stream(q))
+                1.0 / math.sqrt(d), _build.ptr(scratch), _build.stream(q))
     _build.count_launch("decode_attention", (B, H, K, T, d))
     return out

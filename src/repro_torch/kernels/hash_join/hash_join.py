@@ -4,10 +4,13 @@ as a CUDA kernel (``csrc/radix_rank.cu``).
 Replaces ``src/repro/kernels/hash_join/hash_join.py::radix_rank_kernel``,
 which carries (256,) per-bucket running counts across its sequential
 grid in VMEM and ranks inside a tile with a (rows x 256) one-hot
-cumsum. On Hopper: per-tile bucket histograms, a per-bucket scan of the
-(bucket, tile) count matrix in tile order, then a stable in-tile rank
-from ``__match_any_sync`` peer masks and per-warp digit counts.
-Memory-bound: 8N bytes per pass plus the count matrix.
+cumsum. On Hopper, one pass: each block takes the next tile from an
+atomic counter, ranks it warp by warp from registers
+(``__match_any_sync`` groups, per-warp counter rows of B buckets, no
+block barrier in the walk), publishes its per-bucket counts as 64-bit
+flag-and-value status words and finds each bucket's exclusive prefix
+by a decoupled look-back over the earlier tiles' words. One memset and
+one launch; bound: bytes, 8N plus B status words per tile.
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ import torch
 from .. import _build
 
 NBUCKETS = 256  # one 8-bit digit per pass
-MAX_BUCKETS = 1024  # the rank phase keeps 9 ints per bucket in shared memory
+MAX_BUCKETS = 1024  # eight warps' counter rows of B ints in shared memory
 
 
 def radix_rank_torch(digits: torch.Tensor, base: torch.Tensor
@@ -43,8 +46,8 @@ def radix_rank_kernel(digits: torch.Tensor, base: torch.Tensor
     offsets -> (N,) int32 stable scatter destinations: row i lands at
     ``base[digits[i]] + #{j < i : digits[j] == digits[i]}``. B is
     ``NBUCKETS`` for the hash join; any B up to ``MAX_BUCKETS`` works.
-    Launches the CUDA kernel for CUDA tensors; CPU tensors take the
-    plain version."""
+    Launches the CUDA kernel (one memset, one launch) for CUDA tensors;
+    CPU tensors take the plain version."""
     if digits.device.type != "cuda":
         return radix_rank_torch(digits, base)
     _build.check_cuda(digits, "digits", torch.int32, 1)
@@ -57,10 +60,10 @@ def radix_rank_kernel(digits: torch.Tensor, base: torch.Tensor
     if n == 0:
         return dest
     tiles = _build.library().repro_radix_rank_tiles(n)
-    counts = torch.empty(tiles * buckets, dtype=torch.int32,
-                         device=digits.device)
+    scratch = torch.empty(1 + tiles * buckets, dtype=torch.int64,
+                          device=digits.device)
     _build.call("repro_radix_rank", digits.device, _build.ptr(digits),
-                _build.ptr(base), _build.ptr(dest), _build.ptr(counts), n,
+                _build.ptr(base), _build.ptr(dest), _build.ptr(scratch), n,
                 buckets, _build.stream(digits))
     _build.count_launch("radix_rank", digits.shape)
     return dest

@@ -3,9 +3,13 @@ kernel bit-identical to its plain PyTorch version, each host-facing op
 at ``impl="kernel"`` identical to its ``impl="host"`` numpy oracle, and
 every launch counted (K1-K6), K1 and K4 also over the look-back
 sweep of ``scan_cases`` (sizes around the tile, repeated calls,
-misaligned views, CUDA-graph replays, two streams); K7/K8 within 1e-4
+misaligned views, CUDA-graph replays, two streams), K6 over
+``radix_cases`` (the same, for its per-bucket look-back, B in {1, 4, 7,
+256, 1024}); K7/K8 within 1e-4
 of their plain versions (K7 with a sliding window, K8 with the slot mask over a
-wrapped ring too), K9 within ``ssd_cases.tolerance`` of its plain
+wrapped ring too, and at its chunk edges: lengths around the chunk, a
+4104-position cache, a full 2048-slot ring, rings with dead chunks
+between live ones, CUDA-graph replays), K9 within ``ssd_cases.tolerance`` of its plain
 version over the ``ssd_cases`` sweep, the dense, SSM and hybrid
 LMs' kernel paths equal to their plain paths (K7/K8/K9), K10 bit-identical
 to its plain version over the ``partition_cases`` sweep, and the
@@ -31,6 +35,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import attention_cases as AC  # noqa: E402
 from repro_torch.kernels import partition_cases as PC  # noqa: E402
+from repro_torch.kernels import radix_cases as RADIX  # noqa: E402
 from repro_torch.kernels import scan_cases as SCAN  # noqa: E402
 from repro_torch.kernels import ssd_cases as SC  # noqa: E402
 from repro_torch.kernels.compact import compact as t_compact  # noqa: E402
@@ -392,6 +397,67 @@ def test_radix_rank_kernel_matches_plain_version(dev, n):
     assert _build.LAUNCHES["radix_rank"] == calls
 
 
+# ------------------------------------------------- K6 look-back rank
+
+@pytest.mark.cuda
+def test_radix_tile_matches_the_library(dev):
+    lib = _build.library()
+    assert lib.repro_radix_rank_tiles(RADIX.TILE) == 1
+    assert lib.repro_radix_rank_tiles(RADIX.TILE + 1) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", RADIX.SIZES)
+def test_radix_rank_cases_match_plain_version(dev, n):
+    """Every digit kind and bucket count of ``radix_cases``, each call
+    repeated; at B <= 32 also equal to K10 (the same function)."""
+    gen = torch.Generator(device=dev).manual_seed(7000 + n)
+    _build.reset_launches()
+    calls = 0
+    for buckets in RADIX.BUCKETS:
+        for kind in RADIX.KINDS:
+            d = RADIX.make_digits(kind, n, buckets, gen, dev)
+            base = RADIX.exclusive_bases(d, buckets)
+            want = t_hj.radix_rank_torch(d, base)
+            for r in range(RADIX.REPEATS):
+                assert torch.equal(t_hj.radix_rank_kernel(d, base), want), \
+                    (buckets, kind, r)
+            calls += RADIX.REPEATS
+            if buckets <= t_part.MAX_SHARDS:
+                assert torch.equal(t_part.shard_rank_kernel(d, base), want)
+    torch.cuda.synchronize(dev)
+    assert _build.LAUNCHES["radix_rank"] == calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("buckets", (4, 256, 1024))
+def test_radix_rank_under_graph_replays(dev, buckets):
+    n = RADIX.SIZES[4]
+    gen = torch.Generator(device=dev).manual_seed(7100 + buckets)
+    ds = [RADIX.make_digits(kind, n, buckets, gen, dev)
+          for kind in ("uniform", "skewed")]
+    bases = [RADIX.exclusive_bases(d, buckets) for d in ds]
+    xs = [RADIX.packed(d, b) for d, b in zip(ds, bases)]
+    wants = [t_hj.radix_rank_torch(d, b) for d, b in zip(ds, bases)]
+    kernel = RADIX.unpacking(t_hj.radix_rank_kernel, n)
+    assert SCAN.graph_replays(kernel, xs, wants, RADIX.REPLAYS) \
+        == RADIX.REPLAYS
+
+
+@pytest.mark.cuda
+def test_radix_rank_on_two_streams(dev):
+    n = RADIX.SIZES[4]
+    gen = torch.Generator(device=dev).manual_seed(7200)
+    ds = [RADIX.make_digits(kind, n, 256, gen, dev)
+          for kind in ("uniform", "descending")]
+    bases = [RADIX.exclusive_bases(d, 256) for d in ds]
+    xs = [RADIX.packed(d, b) for d, b in zip(ds, bases)]
+    wants = [t_hj.radix_rank_torch(d, b) for d, b in zip(ds, bases)]
+    kernel = RADIX.unpacking(t_hj.radix_rank_kernel, n)
+    for _ in range(10):
+        assert SCAN.two_streams(kernel, xs, wants) == 2
+
+
 @pytest.mark.cuda
 def test_new_wrappers_reject_wrong_operands(dev):
     with pytest.raises(TypeError):
@@ -621,6 +687,142 @@ def test_decode_attention_ring_matches_plain_version(dev, W, group, d):
                                          window=W)
     want0 = decode_attention_ref(q, k, v, slot_pos=empty, pos=pos, window=W)
     assert float((got0 - want0).abs().max()) <= AC.TOLERANCE
+
+
+# ------------------------------------------------- K8 split over the cache
+
+@pytest.mark.cuda
+def test_decode_chunk_matches_the_library(dev):
+    assert _build.library().repro_decode_chunk() == AC.DECODE_CHUNK
+
+
+def _decode_operands(g, B, H, K, T, d, dev):
+    """q (B, H, d) and the model's (B, T, K, d) cache as permuted
+    (B, K, T, d) views."""
+    q = torch.randn(B, H, d, generator=g, device=dev)
+    k, v = (torch.randn(B, T, K, d, generator=g, device=dev)
+            .permute(0, 2, 1, 3) for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", (36, 64, 128))
+@pytest.mark.parametrize("group", AC.GROUPS)
+@pytest.mark.parametrize("T", (131, AC.LONG_CACHE))
+def test_decode_attention_chunk_edges(dev, T, group, d):
+    """Lengths of C - 1, C, C + 1, 2C + 1 and T in one batch; the output
+    equal bit for bit from call to call."""
+    g = torch.Generator(device=dev).manual_seed(T + group * 3 + d)
+    lengths = torch.tensor(AC.chunk_lengths(T), dtype=torch.int32,
+                           device=dev)
+    K = 2
+    q, k, v = _decode_operands(g, lengths.shape[0], group * K, K, T, d, dev)
+    _build.reset_launches()
+    got = t_dec.decode_attention_kernel(q, k, v, lengths)
+    assert _build.LAUNCHES["decode_attention"] == 1
+    err = float((got - decode_attention_ref(q, k, v, lengths)).abs().max())
+    assert err <= AC.TOLERANCE, err
+    for _ in range(5):
+        assert torch.equal(t_dec.decode_attention_kernel(q, k, v, lengths),
+                           got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,K,d", [(25, 5, 64), (24, 2, 128), (2, 2, 80)])
+def test_decode_attention_full_ring(dev, H, K, d):
+    """long_prefill's 2048-slot ring with every slot live (64 chunks,
+    hymba-1.5b's heads among the widths)."""
+    g = torch.Generator(device=dev).manual_seed(H + d)
+    sp, pos = AC.full_ring()
+    spt = torch.tensor([sp], dtype=torch.int32, device=dev)
+    post = torch.tensor([pos], dtype=torch.int32, device=dev)
+    q, k, v = _decode_operands(g, 1, H, K, AC.FULL_RING, d, dev)
+    got = t_dec.decode_attention_kernel(q, k, v, slot_pos=spt, pos=post,
+                                        window=AC.FULL_RING)
+    want = decode_attention_ref(q, k, v, slot_pos=spt, pos=post,
+                                window=AC.FULL_RING)
+    assert float((got - want).abs().max()) <= AC.TOLERANCE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", AC.HEAD_DIMS)
+@pytest.mark.parametrize("group", AC.GROUPS)
+def test_decode_attention_gapped_ring(dev, group, d):
+    """Rings whose live chunks have dead chunks between them, and a row
+    with one live slot."""
+    g = torch.Generator(device=dev).manual_seed(group * 5 + d)
+    rows, pos, W = AC.gapped_ring()
+    sp = torch.tensor(rows, dtype=torch.int32, device=dev)
+    pt = torch.tensor(pos, dtype=torch.int32, device=dev)
+    K = 2
+    q, k, v = _decode_operands(g, len(rows), group * K, K, W, d, dev)
+    got = t_dec.decode_attention_kernel(q, k, v, slot_pos=sp, pos=pt,
+                                        window=W)
+    want = decode_attention_ref(q, k, v, slot_pos=sp, pos=pt, window=W)
+    assert float((got - want).abs().max()) <= AC.TOLERANCE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", (30, 64))
+def test_decode_attention_unaligned_views(dev, d):
+    """A cache whose rows do not start on 16 bytes (a storage offset of
+    one float; d = 30 is not a multiple of 4 either) takes the 4-byte
+    copies."""
+    g = torch.Generator(device=dev).manual_seed(d)
+    B, K, T, group = 3, 2, 200, 3
+    H = group * K
+
+    def cache():
+        flat = torch.randn(B * T * K * d + 1, generator=g, device=dev)
+        return flat[1:].view(B, T, K, d).permute(0, 2, 1, 3)
+
+    q = torch.randn(B, H, d, generator=g, device=dev)
+    k, v = cache(), cache()
+    assert k.data_ptr() % 16 != 0
+    lengths = torch.tensor([1, 100, 200], dtype=torch.int32, device=dev)
+    got = t_dec.decode_attention_kernel(q, k, v, lengths)
+    want = decode_attention_ref(q, k, v, lengths)
+    assert float((got - want).abs().max()) <= AC.TOLERANCE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", ("lengths", "slots"))
+def test_decode_attention_under_graph_replays(dev, mask):
+    """200 replays of one captured call on alternating inputs: the
+    arrival counters are reset by every replay, and each output equals
+    an eager call's bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(len(mask))
+    if mask == "lengths":
+        B, H, K, T, d = 16, 24, 2, 131, 128
+        xs = []
+        for _ in range(2):
+            q, k, v = _decode_operands(g, B, H, K, T, d, dev)
+            lengths = torch.randint(1, T + 1, (B,), generator=g, device=dev,
+                                    dtype=torch.int32)
+            xs.append((q, k, v, lengths))
+        wants = [decode_attention_ref(*x) for x in xs]
+        kernel = t_dec.decode_attention_kernel
+    else:
+        B, H, K, T, d = 1, 25, 5, AC.FULL_RING, 64
+        sp, pos = AC.full_ring()
+        gap_rows, _, _ = AC.gapped_ring()
+        spt = torch.tensor([sp], dtype=torch.int32, device=dev)
+        gapped = torch.full_like(spt, -1)
+        gapped[0, :len(gap_rows[0])] = torch.tensor(
+            [x - gap_rows[0][-1] + pos if x >= 0 else -1
+             for x in gap_rows[0]], dtype=torch.int32, device=dev)
+        post = torch.tensor([pos], dtype=torch.int32, device=dev)
+        xs = []
+        for s in (spt, gapped):
+            q, k, v = _decode_operands(g, B, H, K, T, d, dev)
+            xs.append((q, k, v, s, post))
+        wants = [decode_attention_ref(q, k, v, slot_pos=s, pos=p, window=T)
+                 for q, k, v, s, p in xs]
+
+        def kernel(q, k, v, s, p):
+            return t_dec.decode_attention_kernel(q, k, v, slot_pos=s,
+                                                 pos=p, window=T)
+    assert AC.graph_replays(kernel, xs, wants) == AC.REPLAYS
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
-"""Import hygiene of the port: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package (``repro``), and the
-whole package imports on a machine without triton, nvcc or CUDA."""
+"""Import hygiene of the port: no module of ``src/repro_torch`` and
+neither ``chip_smoke.py`` nor ``chip_sweep.py`` imports JAX or the JAX
+package (``repro``), and the whole package imports on a machine without
+triton, nvcc or CUDA."""
 import ast
 import os
 import subprocess
@@ -17,7 +18,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "chip_sweep.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:
