@@ -13,11 +13,20 @@ Phases, each printing one JSON line:
    boundaries, K4 running segment ids, K6 radix rank and K10 shard rank
    (over ``repro_torch.kernels.partition_cases``: P in {1, 2, 4, 8, 32},
    uniform / one-bucket / half-hot destinations, fixed-stride or random
-   offsets) bit-identical; K1 and K4 (one-pass look-back scans) also
-   over ``repro_torch.kernels.scan_cases``: sizes around the tile, each
-   input kind repeated 50 times, views not 16-byte aligned, 200 replays
-   of one captured CUDA graph on alternating inputs, and two calls on
-   two streams at once; K6 (a one-pass look-back rank) also over
+   offsets) bit-identical; K1, K4 and K3 (one-pass look-back scans)
+   also over ``repro_torch.kernels.scan_cases``: sizes around the tile,
+   each input kind (K3: sorted keys whose runs cross stripes, warp runs
+   and tile edges, a key change at every tile edge, all equal,
+   INT32_MIN/INT32_MAX runs, strictly increasing) repeated 50 times,
+   views not 16-byte aligned, 200 replays of one captured CUDA graph on
+   alternating inputs, and two calls on two streams at once; K5 (one
+   memset and one launch) also over
+   ``repro_torch.kernels.reduce_cases``: sizes around its batch, G in
+   {1, 120, 256} and its shared limit and one either side, every op and
+   dtype over NaN payloads, denormals and int32 extremes, ids outside
+   [0, G), views not 16-byte aligned, 200 graph replays and two streams,
+   bit for bit (float sums within their bound); K6 (a one-pass
+   look-back rank) also over
    ``repro_torch.kernels.radix_cases``: sizes around its tile, five
    digit kinds, B in {1, 4, 7, 256, 1024}, each case repeated 20 times
    (at B <= 32 also equal to K10), graph replays and two streams;
@@ -133,12 +142,15 @@ Phases, each printing one JSON line:
    CUDA-graph replays, so no host work is counted, except K3's
    ``torch.unique_consecutive``, which syncs the host and is timed as
    one eager call), plus the wrapper's
-   eager call time; the scans (K1, K3, K4), K6, K7, K8 and K9 also list
-   their device activity over 20 calls under ``torch.profiler``
+   eager call time; the scans (K1, K3, K4), K5, K6, K7, K8 and K9 also
+   list their device activity over 20 calls under ``torch.profiler``
    (``device_kernels``: each kernel and memset with its count and device
-   time per launch, beside the launches the wrappers counted; K6, K7, K8
-   and K9 must show one data kernel per call, K6 and K8 at most one
-   memset beside it); K7 and K9, which run
+   time per launch, beside the launches the wrappers counted; K3, K5,
+   K6, K7, K8 and K9 must show one data kernel per call, K3, K5, K6 and
+   K8 at most one memset beside it); K5 also at the radix histograms'
+   shape (``radix_histogram``: int32 ones into 256 buckets, with
+   ``index_add_`` as its library call and ``torch.bincount`` beside it,
+   eager, since it syncs the host); K7 and K9, which run
    on the tensor cores as three TF32 products, carry their bound at
    that rate (a third of 495 TFLOP/s) beside the float32 CUDA-core one;
    K7 also with the hybrid's window and K8 with its slot mask at
@@ -565,10 +577,11 @@ def check_kernels(device, sizes=EDGE_SIZES, seed: int = 0,
 
 
 def check_lookback(device, sizes=None, repeats=None, seed: int = 2):
-    """K1 and K4 over ``scan_cases``: every size and input kind, each
-    call repeated ``repeats`` times against one plain result, the views
-    at ``scan_cases.OFFSETS``, and on a card the graph replays and two
-    streams. Returns the cases compared per kernel."""
+    """K1, K4 and K3 over ``scan_cases``: every size and input kind (K3:
+    every key kind), each call repeated ``repeats`` times against one
+    plain result, the views at ``scan_cases.OFFSETS``, and on a card the
+    graph replays and two streams. Returns the cases compared per
+    kernel."""
     import torch
 
     from repro_torch.kernels import scan_cases as SC
@@ -576,17 +589,26 @@ def check_lookback(device, sizes=None, repeats=None, seed: int = 2):
     from repro_torch.kernels.compact.ref import prefix_count_torch
     from repro_torch.kernels.expand.expand import running_segment_ids_kernel
     from repro_torch.kernels.expand.ref import running_segment_ids_torch
+    from repro_torch.kernels.hash_dedup.group_build import (
+        group_boundaries_kernel)
+    from repro_torch.kernels.hash_dedup.ref import group_boundaries_ref
 
     sizes = SC.SIZES if sizes is None else sizes
     repeats = SC.REPEATS if repeats is None else repeats
     g = torch.Generator(device=device).manual_seed(seed)
-    pairs = (("prefix_count", prefix_count_kernel, prefix_count_torch),
+    k3 = SC.boundaries(group_boundaries_kernel)
+    k3_plain = SC.boundaries(group_boundaries_ref)
+    pairs = (("prefix_count", prefix_count_kernel, prefix_count_torch,
+              SC.KINDS, SC.make_input, ("small", "ones")),
              ("running_segment_ids", running_segment_ids_kernel,
-              running_segment_ids_torch))
-    cases = {"prefix_count": 0, "running_segment_ids": 0}
+              running_segment_ids_torch, SC.KINDS, SC.make_input,
+              ("small", "ones")),
+             ("group_boundaries", k3, k3_plain, SC.KEY_KINDS, SC.make_keys,
+              ("random", "increasing")))
+    cases = {p[0]: 0 for p in pairs}
     for n in sizes:
-        xs = {kind: SC.make_input(kind, n, g, device) for kind in SC.KINDS}
-        for name, kernel, plain in pairs:
+        for name, kernel, plain, kinds, make, graphed in pairs:
+            xs = {kind: make(kind, n, g, device) for kind in kinds}
             for kind, x in xs.items():
                 want = plain(x)
                 for r in range(repeats):
@@ -596,11 +618,68 @@ def check_lookback(device, sizes=None, repeats=None, seed: int = 2):
                           f"{name} n={n} {kind} offset {off}")
                 cases[name] += repeats + len(SC.OFFSETS)
             if device.type == "cuda":
-                two = [xs["small"], xs["ones"]]
+                two = [xs[kind] for kind in graphed]
                 wants = [plain(x) for x in two]
                 cases[name] += SC.graph_replays(kernel, two, wants)
                 cases[name] += SC.two_streams(kernel, two, wants)
-        del xs
+            del xs
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return cases
+
+
+def check_reduce(device, sizes=None, segments=None, seed: int = 4):
+    """K5 over ``reduce_cases``: every size, segment count, op, dtype and
+    id kind against the plain version, the views at
+    ``reduce_cases.OFFSETS``, and on a card the graph replays (int32
+    sum, float32 min and max) and two streams. Returns the cases
+    compared."""
+    import torch
+
+    from repro_torch.kernels import reduce_cases as RD
+    from repro_torch.kernels import scan_cases as SC
+    from repro_torch.kernels.segmented_reduce.ref import segment_reduce_torch
+    from repro_torch.kernels.segmented_reduce.segmented_reduce import (
+        segment_reduce_kernel)
+
+    sizes = RD.SIZES if sizes is None else sizes
+    segments = RD.SEGMENTS if segments is None else segments
+    g = torch.Generator(device=device).manual_seed(seed)
+    cases = 0
+    for n in sizes:
+        for gs in segments:
+            ids = {k: RD.make_ids(k, n, gs, g, device) for k in RD.ID_KINDS}
+            for dt in RD.DTYPES:
+                for op in RD.OPS:
+                    fsum = op == "sum" and dt == torch.float32
+                    v = RD.make_values(dt, n, g, device, finite=fsum)
+                    for kind, s in ids.items():
+                        want = segment_reduce_torch(v, s, gs, op)
+                        views = [(v, s)] + [
+                            (RD.misaligned(v, o), RD.misaligned(s, o))
+                            for o in RD.OFFSETS if kind == "uniform"]
+                        for vv, ss in views:
+                            got = segment_reduce_kernel(vv, ss, gs, op)
+                            if not RD.held(got, want, v, s, gs, op):
+                                raise AssertionError(
+                                    f"K5 {op} {dt} n={n} g={gs} {kind} "
+                                    f"offset {vv.storage_offset()}: "
+                                    f"differs from its plain version")
+                            cases += 1
+            if device.type == "cuda" and gs in (120, 256):
+                for dt, op in ((torch.int32, "sum"), (torch.float32, "min"),
+                               (torch.float32, "max")):
+                    two = [RD.packed(RD.make_values(dt, n, g, device),
+                                     ids[k]) for k in ("uniform", "hot")]
+                    wants = [segment_reduce_torch(
+                        x[:n].view(dt), x[n:], gs, op).view(torch.int32)
+                        for x in two]
+                    kernel = RD.unpacking(segment_reduce_kernel, n, dt, gs,
+                                          op)
+                    cases += SC.graph_replays(kernel, two, wants,
+                                              RD.REPLAYS)
+                    cases += SC.two_streams(kernel, two, wants)
+            del ids
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return cases
@@ -2224,7 +2303,9 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
         12 * n, 3 * n, (n,), library_eager=True,
         library_call="torch.unique_consecutive(return_inverse=True), "
                      "eager (it syncs the host)",
-        device_kernels=device_kernels(lambda: group_boundaries_kernel(sk)))
+        device_kernels=one_data_kernel(
+            "K3", lambda: group_boundaries_kernel(sk),
+            "lookback_scan_kernel", memset=True))
 
     n = shapes["running_segment_ids"][0]
     counts = torch.randint(0, 3, (n // 2 + 1,), generator=g, device=device)
@@ -2239,18 +2320,56 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
             lambda: running_segment_ids_kernel(marks)))
 
     # K5 at the group-by's (rows, groups): float32 max, the aggregate
-    # the path runs; min/max are exact, so held bit for bit here
+    # the path runs; min/max are exact, so held bit for bit here; and at
+    # the radix histograms' (rows, 256): int32 sums of ones over 8-bit
+    # digits (kernels/hash_join/ops.py::_radix_order), index_add_ the
+    # library call there, and bincount (the same histogram of ones; it
+    # fetches the largest digit to the host, so it is timed eagerly,
+    # beside wrapper_eager_ms)
     n, gs = shapes["segment_reduce"]
     vals = torch.randn(n, generator=g, device=device) * 100
     seg = torch.randint(0, gs, (n,), generator=g, device=device,
                         dtype=torch.int32)
     seg64 = seg.long()
     kern5 = segment_reduce_kernel(vals, seg, gs, "max")
-    if not torch.equal(minmax_bits(kern5),
-                       minmax_bits(segment_reduce_torch(vals, seg, gs,
-                                                        "max"))):
+    if not torch.equal(kern5.view(torch.int32),
+                       segment_reduce_torch(vals, seg, gs, "max")
+                       .view(torch.int32)):
         raise AssertionError("K5 at the e2e_hash shape differs from its "
                              "plain version")
+    nh = shapes["radix_rank"][0]
+    digit = torch.randint(0, 256, (nh,), generator=g, device=device,
+                          dtype=torch.int32)
+    digit64 = digit.long()
+    ones = torch.ones_like(digit)
+    hist = segment_reduce_kernel(ones, digit, 256, "sum")
+    if not torch.equal(hist, segment_reduce_torch(ones, digit, 256, "sum")):
+        raise AssertionError("K5 at the radix histogram's shape differs "
+                             "from its plain version")
+    if not torch.equal(hist.long(), torch.bincount(digit, minlength=256)):
+        raise AssertionError("K5 at the radix histogram's shape differs "
+                             "from torch.bincount")
+    hb, hby = bound_ms(8 * nh + 4 * 256, nh)
+    histogram = {
+        "shape": [nh, 256], "op": "sum", "dtype": "int32",
+        "max_abs_err": 0,
+        "ms": time_ms(lambda: segment_reduce_kernel(ones, digit, 256,
+                                                    "sum")),
+        "plain_ms": time_ms(lambda: segment_reduce_torch(ones, digit, 256,
+                                                         "sum")),
+        "bound_ms": hb, "bound_by": hby,
+        "library_ms": time_ms(lambda: torch.zeros(
+            256, dtype=torch.int32, device=device).index_add_(
+                0, digit64, ones)),
+        "library_call": "index_add_",
+        "bincount_eager_ms": eager_ms(
+            lambda: torch.bincount(digit, minlength=256)),
+        "wrapper_eager_ms": eager_ms(lambda: segment_reduce_kernel(
+            ones, digit, 256, "sum")),
+        "device_kernels": one_data_kernel(
+            "K5 histogram",
+            lambda: segment_reduce_kernel(ones, digit, 256, "sum"),
+            "segment_reduce_kernel", memset=True)}
     row("segment_reduce", "src/repro_torch/csrc/segment_reduce.cu",
         "src/repro/kernels/segmented_reduce/segmented_reduce.py:71",
         lambda: segment_reduce_kernel(vals, seg, gs, "max"),
@@ -2265,7 +2384,12 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
         f32_sum_max_abs_err=max_err.get("segment_reduce_f32_sum", 0.0),
         f32_sum_max_err_over_bound=max_err.get(
             "segment_reduce_f32_sum_over_bound", 0.0),
-        f32_sum_tolerance="count * 2^-23 * sum|v| per segment")
+        f32_sum_tolerance="count * 2^-23 * sum|v| per segment",
+        device_kernels=one_data_kernel(
+            "K5", lambda: segment_reduce_kernel(vals, seg, gs, "max"),
+            "segment_reduce_kernel", memset=True),
+        radix_histogram=histogram)
+    del vals, seg, seg64, digit, digit64, ones
 
     # K6 at the largest radix pass: 8-bit digits of a slot key; the
     # chained order of a whole build side is timed beside it
@@ -2587,6 +2711,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import attention_cases as AC
     from repro_torch.kernels import radix_cases as RC
+    from repro_torch.kernels import reduce_cases as RD
     from repro_torch.kernels import scan_cases as SC
 
     device = torch.device("cuda", 0)
@@ -2620,11 +2745,20 @@ def main() -> int:
                              f"library's K6 tile")
     radix = check_radix(device)
     cases["radix_rank"] += radix
+    if (lib.repro_segment_reduce_batch(),
+            lib.repro_segment_reduce_shared_max()) != (RD.BATCH,
+                                                       RD.SHARED_MAX):
+        raise AssertionError("reduce_cases.BATCH/SHARED_MAX differ from "
+                             "the library's K5 batch and shared limit")
+    reduce = check_reduce(device)
+    cases["segment_reduce"] += reduce
     emit({"phase": "kernels", "bit_identical_cases": cases,
           "max_abs_err": errs, "tolerance": 0,
           "sizes": list(EDGE_SIZES),
           "lookback": {"tile": lib_tile, "sizes": list(SC.SIZES),
-                       "kinds": list(SC.KINDS), "repeats": SC.REPEATS,
+                       "kinds": list(SC.KINDS),
+                       "key_kinds": list(SC.KEY_KINDS),
+                       "repeats": SC.REPEATS,
                        "offsets": list(SC.OFFSETS),
                        "graph_replays": SC.REPLAYS, "streams": 2,
                        "cases": lookback},
@@ -2632,6 +2766,12 @@ def main() -> int:
                     "kinds": list(RC.KINDS), "buckets": list(RC.BUCKETS),
                     "repeats": RC.REPEATS, "graph_replays": RC.REPLAYS,
                     "streams": 2, "cases": radix},
+          "reduce": {"batch": RD.BATCH, "sizes": list(RD.SIZES),
+                     "segments": list(RD.SEGMENTS),
+                     "id_kinds": list(RD.ID_KINDS),
+                     "offsets": list(RD.OFFSETS),
+                     "graph_replays": RD.REPLAYS, "streams": 2,
+                     "cases": reduce},
           "seconds": time.perf_counter() - t0, "gpu": smi})
     t0 = time.perf_counter()
     if lib.repro_decode_chunk() != AC.DECODE_CHUNK:

@@ -7,19 +7,16 @@
 // carries the running mark total across a sequential grid in SMEM.
 // Bound: memory, 8 bytes per element (one int32 read, one written).
 //
-// The first port was an instance of scan.cuh's three-phase scan and
-// lost to torch.cumsum (1.25x on the H100): it read the input twice (12
-// bytes per element against the bound's 8), scanned the tile sums in a
-// single block while the other SMs idled, and took three launches. K4
-// is now the one-pass decoupled look-back scan of scan_lookback.cuh
-// (prologue: the mark, +k where k segments start; epilogue: minus one):
-// one memset of the tile status words and one launch, each element read
-// once and written once.
+// K4 is the one-pass decoupled look-back scan of scan_lookback.cuh
+// (no prologue: the terms are the marks, +k where k segments start;
+// epilogue: minus one): one memset of the tile status words and one
+// launch, each element read once and written once.
 #include "scan_lookback.cuh"
 
 namespace {
 
 struct SegmentIdOp {
+  static constexpr bool kPrologue = false;  // the elements are the terms
   const int* __restrict__ in;
   int* __restrict__ out;
   __device__ __forceinline__ int emit(int v) const { return v - 1; }

@@ -1,9 +1,10 @@
 // One-pass device-wide inclusive int32 scan by decoupled look-back
 // (Merrill and Garland, "Single-pass Parallel Prefix Scan with Decoupled
-// Look-back", 2016), shared by the compaction prefix count (compact.cu)
-// and the running segment ids (expand.cu). Its memory-order primitives
-// also serve K6's per-bucket look-back (radix_rank.cu) and K8's arrival
-// counter (decode_attention.cu).
+// Look-back", 2016), shared by the compaction prefix count (compact.cu),
+// the group boundaries (group_build.cu) and the running segment ids
+// (expand.cu). Its memory-order primitives also serve K6's per-bucket
+// look-back (radix_rank.cu), K8's arrival counter (decode_attention.cu)
+// and K5's (segment_reduce.cu).
 //
 // The TPU kernels these replace walk their grid in order and carry a
 // running total from one tile to the next in SMEM. Hopper blocks run
@@ -14,7 +15,8 @@
 //      look-back below cannot wait on a tile that is not resident;
 //   2. the block loads its tile once (16-byte loads, warp-striped: lane
 //      l of warp w holds 4 consecutive elements of each 128-element
-//      stripe of the warp's run), scans it in registers with warp
+//      stripe of the warp's run), turns the elements into terms where
+//      the Op has a prologue, scans the terms in registers with warp
 //      shuffles, and publishes the tile's aggregate (flag A);
 //   3. one warp reads the 32 nearest predecessors' status words, waits
 //      while any is still empty (flag X), sums the aggregates back to
@@ -34,14 +36,19 @@
 // streams never share a word.
 //
 // An Op supplies the operands and the epilogue:
-//   const int* in   the terms (read once);
+//   const int* in   the elements (read once);
 //   int* out        the output (written once);
-//   int  emit(v)    the value stored for the inclusive sum v.
+//   int  emit(v)    the value stored for the inclusive sum v;
+//   kPrologue       false where the elements are the terms (K1, K4);
+//                   true where prologue<kVec>(v, first, n) turns this
+//                   thread's loaded elements into terms in place after
+//                   the tile's loads and stores a side output through
+//                   the pointer `side` (K3: boundary flags from sorted
+//                   keys, the predecessors from the registers of this
+//                   and the neighbouring lanes).
 //
-// Bound: memory, 8 bytes per element (one int32 read, one written). The
-// three-phase scan of scan.cuh moved 12 (it reads the input twice),
-// walked the tile sums in one block while the other SMs idled, and took
-// three launches.
+// Bound: memory, 8 bytes per element (one int32 read, one written; K3
+// 12, with its side output).
 //
 // Tile: 256 threads x 32 items = 8192 elements, eight 16-byte loads in
 // flight per thread (32 KB a block; 48 registers, five blocks an SM).
@@ -203,6 +210,7 @@ lookback_scan_kernel(Op op, int n, unsigned long long* __restrict__ scratch) {
       for (int k = 0; k < 4; ++k) v[4 * r + k] = i + k < n ? op.in[i + k] : 0;
     }
   }
+  if constexpr (Op::kPrologue) op.template prologue<kVec>(v, first, n);
 
   // inclusive scan of the warp's run, one 128-element stripe per round
   int carry = 0;
@@ -258,7 +266,7 @@ lookback_scan_kernel(Op op, int n, unsigned long long* __restrict__ scratch) {
 inline int num_tiles(int n) { return (n + kTile - 1) / kTile; }
 
 // Zeroes the scratch ((num_tiles(n) + 1) words) and launches the scan
-// on `stream`: the 16-byte instance when both pointers are 16-byte
+// on `stream`: the 16-byte instance when every pointer is 16-byte
 // aligned, else the scalar one. Returns the first CUDA error code.
 template <class Op>
 int launch_lookback(Op op, int n, void* scratch, cudaStream_t stream) {
@@ -267,8 +275,10 @@ int launch_lookback(Op op, int n, void* scratch, cudaStream_t stream) {
       scratch, 0, (tiles + 1) * sizeof(unsigned long long), stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   auto* words = static_cast<unsigned long long*>(scratch);
-  const bool aligned = ((reinterpret_cast<uintptr_t>(op.in) |
-                         reinterpret_cast<uintptr_t>(op.out)) & 15) == 0;
+  uintptr_t bits = reinterpret_cast<uintptr_t>(op.in) |
+                  reinterpret_cast<uintptr_t>(op.out);
+  if constexpr (Op::kPrologue) bits |= reinterpret_cast<uintptr_t>(op.side);
+  const bool aligned = (bits & 15) == 0;
   if (aligned) {
     lookback_scan_kernel<Op, true><<<tiles, kThreads, 0, stream>>>(op, n,
                                                                   words);

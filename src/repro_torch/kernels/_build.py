@@ -42,10 +42,11 @@ SIGNATURES = {
     "repro_running_segment_ids": (_P, _P, _P, _I, _P),
     "repro_group_boundaries": (_P, _P, _P, _P, _I, _P),
     "repro_hash_rows": (_P, _P, _LL, _I, _P),
-    "repro_scan_tiles": (_I,),
     "repro_lookback_tile": (),
     "repro_lookback_tiles": (_I,),
     "repro_segment_reduce": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "repro_segment_reduce_batch": (),
+    "repro_segment_reduce_shared_max": (),
     "repro_radix_rank": (_P, _P, _P, _P, _I, _I, _P),
     "repro_radix_rank_tiles": (_I,),
     # q, k, v, o, B, H, K, Sq, Sk, d, the (b, h, s) strides of q, k, v
@@ -211,12 +212,6 @@ def opt_ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
 
 def stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
-def scan_scratch(n: int, like: torch.Tensor) -> torch.Tensor:
-    """Tile-sum scratch for the three-phase scan over ``n`` elements."""
-    tiles = library().repro_scan_tiles(n)
-    return torch.empty(tiles, dtype=torch.int32, device=like.device)
 
 
 def lookback_scratch(n: int, like: torch.Tensor) -> torch.Tensor:

@@ -4,11 +4,13 @@
 Replaces
 ``src/repro/kernels/hash_dedup/group_build.py::group_boundaries_kernel``.
 The TPU kernel carries the previous tile's last key and the running
-boundary count across its sequential grid in SMEM. Here every element
-reads its predecessor key from device memory, so the boundary flag
-needs no carry, and the group id is a device-wide three-phase scan
-(``csrc/scan.cuh``). The port drops the reference's pow2 padding, so
-every row is live and the TPU kernel's ``valid`` operand is gone.
+boundary count across its sequential grid in SMEM. Here the group id is
+the one-pass decoupled look-back scan of ``csrc/scan_lookback.cuh``,
+whose prologue turns each tile's keys into boundary flags (each key's
+predecessor from the registers of its own and the neighbouring lanes),
+so every key is read once: one memset of the tile status words and one
+launch per call. The port drops the reference's pow2 padding, so every
+row is live and the TPU kernel's ``valid`` operand is gone.
 Memory-bound: 12 bytes per element.
 """
 from __future__ import annotations
@@ -32,7 +34,7 @@ def group_boundaries_kernel(sort_keys: torch.Tensor):
     gid = torch.empty_like(sort_keys)
     if n == 0:
         return bnd, gid
-    scratch = _build.scan_scratch(n, sort_keys)
+    scratch = _build.lookback_scratch(n, sort_keys)
     _build.call("repro_group_boundaries", sort_keys.device,
                 _build.ptr(sort_keys), _build.ptr(bnd), _build.ptr(gid),
                 _build.ptr(scratch), n, _build.stream(sort_keys))

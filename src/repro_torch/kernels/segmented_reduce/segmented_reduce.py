@@ -4,12 +4,15 @@
 Replaces ``src/repro/kernels/segmented_reduce/segmented_reduce.py::
 segment_reduce_kernel``, which compares every row with every segment of
 a tile (O(N*G) dense work). On Hopper each row is combined into its
-segment once with an atomic: int32 atomics for int32 values and for
-float32 min/max (through an order-preserving float-to-int key, with NaN
-keyed beyond ±inf so it propagates), float atomicAdd for float32 sums
-(run-to-run order varies; tolerance ``count * 2^-23 * sum|v|``). Small
-segment counts pre-reduce in shared memory per block. Memory-bound:
-8N + 4G bytes.
+segment once with an atomic, in one memset and one launch: every
+accumulator is a 32-bit word whose identity is the zero word (int32 and
+float32 sums as they are; min/max as biased order-preserving int32 keys,
+NaN keyed beyond ±inf so it propagates), so the memset fills the output,
+and the last block to arrive on a counter decodes min/max words in
+place. Float32 sums use float atomicAdd (run-to-run order varies;
+tolerance ``count * 2^-23 * sum|v|``). Each thread issues a batch of
+16-byte id and value loads before it reads any; small segment counts
+pre-reduce in shared memory per block. Memory-bound: 8N + 4G bytes.
 """
 from __future__ import annotations
 
@@ -44,13 +47,15 @@ def segment_reduce_kernel(values: torch.Tensor, segment_ids: torch.Tensor,
                          f"match values {tuple(values.shape)}")
     if not 0 <= num_segments < 2**31:
         raise ValueError(f"num_segments out of range: {num_segments}")
-    out = torch.empty(num_segments, dtype=values.dtype,
-                      device=values.device)
     if num_segments == 0:
-        return out
+        return torch.empty(0, dtype=values.dtype, device=values.device)
+    n = values.shape[0]
+    # the output, then the kernel's arrival counter
+    buf = torch.empty(num_segments + 1, dtype=values.dtype,
+                      device=values.device)
     _build.call("repro_segment_reduce", values.device, _build.ptr(values),
-                _build.ptr(segment_ids), _build.ptr(out), values.shape[0],
-                num_segments, OPS.index(op),
-                int(values.dtype == torch.float32), _build.stream(values))
-    _build.count_launch("segment_reduce", (values.shape[0], num_segments))
-    return out
+                _build.ptr(segment_ids), _build.ptr(buf), n, num_segments,
+                OPS.index(op), int(values.dtype == torch.float32),
+                _build.stream(values))
+    _build.count_launch("segment_reduce", (n, num_segments))
+    return buf[:num_segments]

@@ -1,9 +1,12 @@
 """The port's CUDA kernels and the ops built on them, on the card: each
 kernel bit-identical to its plain PyTorch version, each host-facing op
 at ``impl="kernel"`` identical to its ``impl="host"`` numpy oracle, and
-every launch counted (K1-K6), K1 and K4 also over the look-back
+every launch counted (K1-K6), K1, K3 and K4 also over the look-back
 sweep of ``scan_cases`` (sizes around the tile, repeated calls,
-misaligned views, CUDA-graph replays, two streams), K6 over
+misaligned views, CUDA-graph replays, two streams; K3 over its sorted
+key kinds), K5 over ``reduce_cases`` (sizes around its batch, segment
+counts around its shared limit, every op and dtype, misaligned views,
+graph replays, two streams), K6 over
 ``radix_cases`` (the same, for its per-bucket look-back, B in {1, 4, 7,
 256, 1024}); K7/K8 within 1e-4
 of their plain versions (K7 with a sliding window, K8 with the slot mask over a
@@ -36,6 +39,7 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import attention_cases as AC  # noqa: E402
 from repro_torch.kernels import partition_cases as PC  # noqa: E402
 from repro_torch.kernels import radix_cases as RADIX  # noqa: E402
+from repro_torch.kernels import reduce_cases as RD  # noqa: E402
 from repro_torch.kernels import scan_cases as SCAN  # noqa: E402
 from repro_torch.kernels import ssd_cases as SC  # noqa: E402
 from repro_torch.kernels.compact import compact as t_compact  # noqa: E402
@@ -287,6 +291,51 @@ def test_lookback_scans_on_two_streams(dev):
                 == 2, name
 
 
+# ------------------------------------------------ K3 look-back scan
+
+K3 = SCAN.boundaries(t_gb.group_boundaries_kernel)
+K3_PLAIN = SCAN.boundaries(group_boundaries_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SCAN.SIZES)
+def test_group_boundaries_lookback_cases(dev, n):
+    gen = torch.Generator(device=dev).manual_seed(6400 + n)
+    _build.reset_launches()
+    for kind in SCAN.KEY_KINDS:
+        x = SCAN.make_keys(kind, n, gen, dev)
+        want = K3_PLAIN(x)
+        for r in range(SCAN.REPEATS):
+            assert torch.equal(K3(x), want), (n, kind, r)
+    torch.cuda.synchronize(dev)
+    assert _build.LAUNCHES["group_boundaries"] == \
+        len(SCAN.KEY_KINDS) * SCAN.REPEATS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", SCAN.OFFSETS)
+def test_group_boundaries_on_misaligned_views(dev, offset):
+    gen = torch.Generator(device=dev).manual_seed(6500 + offset)
+    for n in SCAN.SIZES:
+        for kind in SCAN.KEY_KINDS:
+            x = SCAN.make_keys(kind, n, gen, dev)
+            view = SCAN.misaligned(x, offset)
+            assert view.data_ptr() % 16 != 0
+            assert torch.equal(K3(view), K3_PLAIN(x)), (n, kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (SCAN.SIZES[3], SCAN.SIZES[4]))
+def test_group_boundaries_under_graph_replays_and_two_streams(dev, n):
+    gen = torch.Generator(device=dev).manual_seed(6600 + n)
+    xs = [SCAN.make_keys(kind, n, gen, dev)
+          for kind in ("random", "increasing")]
+    wants = [K3_PLAIN(x) for x in xs]
+    assert SCAN.graph_replays(K3, xs, wants) == SCAN.REPLAYS
+    for _ in range(10):
+        assert SCAN.two_streams(K3, xs, wants) == 2
+
+
 @pytest.mark.cuda
 def test_wrappers_reject_wrong_operands(dev):
     with pytest.raises(TypeError):
@@ -378,6 +427,75 @@ def test_segment_reduce_kernel_matches_plain_version(dev, dtype, g):
                                                   minmax_bits(want))
     torch.cuda.synchronize(dev)
     assert _build.LAUNCHES["segment_reduce"] == calls
+
+
+# ------------------------------------- K5 in one memset and one launch
+
+@pytest.mark.cuda
+def test_reduce_cases_match_the_library(dev):
+    lib = _build.library()
+    assert lib.repro_segment_reduce_batch() == RD.BATCH
+    assert lib.repro_segment_reduce_shared_max() == RD.SHARED_MAX
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", RD.SEGMENTS)
+@pytest.mark.parametrize("n", RD.SIZES)
+def test_segment_reduce_cases_match_plain_version(dev, n, g):
+    gen = torch.Generator(device=dev).manual_seed(8000 + n + g)
+    _build.reset_launches()
+    calls = 0
+    for kind in RD.ID_KINDS:
+        ids = RD.make_ids(kind, n, g, gen, dev)
+        for dt in RD.DTYPES:
+            for op in RD.OPS:
+                v = RD.make_values(dt, n, gen, dev,
+                                   finite=op == "sum" and dt == torch.float32)
+                got = t_sr.segment_reduce_kernel(v, ids, g, op)
+                calls += 1
+                assert RD.held(got, segment_reduce_torch(v, ids, g, op), v,
+                               ids, g, op), (kind, dt, op)
+    torch.cuda.synchronize(dev)
+    assert _build.LAUNCHES["segment_reduce"] == calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", RD.OFFSETS)
+def test_segment_reduce_on_misaligned_views(dev, offset):
+    gen = torch.Generator(device=dev).manual_seed(8100 + offset)
+    for n in RD.SIZES[:3]:
+        for g in (1, 120, RD.SHARED_MAX + 1):
+            ids = RD.make_ids("uniform", n, g, gen, dev)
+            for dt in RD.DTYPES:
+                for op in RD.OPS:
+                    v = RD.make_values(
+                        dt, n, gen, dev,
+                        finite=op == "sum" and dt == torch.float32)
+                    vv, iv = RD.misaligned(v, offset), RD.misaligned(ids,
+                                                                     offset)
+                    assert vv.data_ptr() % 16 != 0
+                    got = t_sr.segment_reduce_kernel(vv, iv, g, op)
+                    assert RD.held(got, segment_reduce_torch(v, ids, g, op),
+                                   v, ids, g, op), (n, g, dt, op)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", (120, 256))
+@pytest.mark.parametrize("dt,op", ((torch.int32, "sum"),
+                                   (torch.float32, "min"),
+                                   (torch.float32, "max")))
+def test_segment_reduce_under_graph_replays_and_two_streams(dev, g, dt, op):
+    n = RD.SIZES[3]
+    gen = torch.Generator(device=dev).manual_seed(8200 + g)
+    xs = [RD.packed(RD.make_values(dt, n, gen, dev),
+                    RD.make_ids(kind, n, g, gen, dev))
+          for kind in ("uniform", "hot")]
+    wants = [segment_reduce_torch(x[:n].view(dt), x[n:], g, op)
+             .view(torch.int32) for x in xs]
+    kernel = RD.unpacking(t_sr.segment_reduce_kernel, n, dt, g, op)
+    assert SCAN.graph_replays(kernel, xs, wants, RD.REPLAYS) == RD.REPLAYS
+    for _ in range(10):
+        assert SCAN.two_streams(kernel, xs, wants) == 2
 
 
 @pytest.mark.cuda
