@@ -131,7 +131,22 @@ Phases, each printing one JSON line:
    state) within LONG_TOLERANCE of max|plain|;
 15. ``llm_query_hybrid`` — Q13 and q8 through ``ModelBackend`` on the
    hymba-1.5b engines, held as ``llm_query`` holds its queries;
-16. the ``kernels`` line: per kernel, its launches in the run of the
+16. ``serve_moe`` — the same serving checks with olmoe-1b-7b at full
+   width (16 layers, d_model 2048, 16 query over 16 KV heads x 128, 64
+   experts of d_ff 1024 with top-8 routing at capacity factor 1.25;
+   6,919,096,320 float32 parameters), 128 prompts, K7/K8 against the
+   plain attention over one parameter tree: identical answers and token
+   ids, K7 once per layer per admission, K8 once per layer per round;
+   prints the predictions (a round's weight bytes and their bound, an
+   admission's operations at the float32 peak and at the measured GEMM
+   rate) beside the measured admission and round, and
+   ``router_topk_diff``: the (token, layer) pairs whose top-8 expert
+   set differs between the two paths' prefill of one admission, and
+   the smallest top-8 / top-9 router probability gap (recorded, not
+   gated);
+17. ``llm_query_moe`` — Q13 and q8 through ``ModelBackend`` on the
+   olmoe-1b-7b engines, held as ``llm_query`` holds its queries;
+18. the ``kernels`` line: per kernel, its launches in the run of the
    path it belongs to (``e2e`` for K1-K4, ``e2e_hash`` for K5 and K6,
    ``serve`` for K7 and K8, ``serve_ssm`` for K9, the cold
    ``e2e_sharded`` run for K10; every path's counts
@@ -155,7 +170,8 @@ Phases, each printing one JSON line:
    that rate (a third of 495 TFLOP/s) beside the float32 CUDA-core one;
    K7 also with the hybrid's window and K8 with its slot mask at
    ``serve_hybrid``'s shapes (and both at ``long_prefill``'s: K8 over
-   its 2048-slot ring with every slot live), K9 also at
+   its 2048-slot ring with every slot live), K7 and K8 also at
+   ``serve_moe``'s multi-head shapes (group 1), K9 also at
    ``serve_hybrid``'s and ``long_prefill``'s shapes, with its head
    groups (``head_groups``) and blocks, K10
    also at P = 32 and beside K6 over the same P buckets.
@@ -170,6 +186,7 @@ the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import statistics
@@ -203,6 +220,12 @@ SERVE = dict(batch_size=16, max_seq=128, max_new_tokens=2)
 SSM_ARCH = "mamba2-370m"
 HYBRID_ARCH = "hymba-1.5b"
 SSM_PROMPTS = 128
+MOE_ARCH = "olmoe-1b-7b"
+MOE_PROMPTS = SSM_PROMPTS
+# the float32 GEMM rate the dense model's prefill GEMMs reach on an H100
+# (``serve``'s ``prefill_gemm_tflop_per_s``), beside the data sheet's
+# peak, for the MoE predictions
+MEASURED_GEMM_FLOP_PER_S = 44e12
 # the kernels of the LLM tier, each path's launches of them
 LLM_KERNELS = ("flash_attention", "decode_attention", "ssd_chunk")
 # long_prefill: kernel path against plain path at full width, relative
@@ -1765,11 +1788,13 @@ def run_serve(device, arch: str = SERVE_ARCH, n_prompts: int = 256,
            "kv_heads": cfg.num_kv_heads,
            "head_dim": cfg.resolved_head_dim, "attn_window":
            cfg.attn_window, "ssm_heads": cfg.ssm_num_heads * (
-               cfg.family != "dense"), "ssm_state": cfg.ssm_state,
+               cfg.family in ("ssm", "hybrid")), "ssm_state": cfg.ssm_state,
            "ssm_chunk": cfg.ssm_chunk, "prompts": n_prompts,
            **serve, "init_s": init_s,
            "allow_tf32": [torch.backends.cuda.matmul.allow_tf32,
                           torch.backends.cudnn.allow_tf32]}
+    if cfg.num_experts:
+        out["moe"] = moe_predictions(cfg, serve)
     answers = {}
     for label, eng in (("kernel", kern), ("plain", plain)):
         if cuda:
@@ -1821,13 +1846,17 @@ def run_serve(device, arch: str = SERVE_ARCH, n_prompts: int = 256,
     toks = torch.from_numpy(np.stack([kern.encode_row(p)[0] for p in
                                       prompts[:serve["batch_size"]]])
                             ).to(device)
-    lg = {}
+    lg, routes = {}, {}
     for eng in (kern, plain):
-        lg[eng.attn_impl] = prefill(cfg, params, {"tokens": toks},
-                                    max_seq=kern.cache_len,
-                                    attn_impl=eng.attn_impl,
-                                    ssd_impl=eng.ssd_impl)
+        with record_routes(routes.setdefault(eng.attn_impl, [])):
+            lg[eng.attn_impl] = prefill(cfg, params, {"tokens": toks},
+                                        max_seq=kern.cache_len,
+                                        attn_impl=eng.attn_impl,
+                                        ssd_impl=eng.ssd_impl)
     (la, ca), (lb, cb) = lg[kern.attn_impl], lg[plain.attn_impl]
+    if cfg.num_experts:
+        out["router_topk_diff"] = router_topk_diff(
+            routes[kern.attn_impl], routes[plain.attn_impl])
     if not all(bool(torch.isfinite(x).all())
                for x in (la, *(v for n, v in ca.items()
                                if n != "slot_pos"))):
@@ -1848,6 +1877,14 @@ def run_serve(device, arch: str = SERVE_ARCH, n_prompts: int = 256,
     out["answers_identical"] = True
     if cuda:
         out["breakdown"] = serve_breakdown(kern, toks, out["kernel"])
+    if cfg.num_experts:
+        k = out["kernel"]
+        out["moe"]["measured"] = {
+            "admission_eager_ms": k["prefill_s"] / k["admissions"] * 1e3,
+            "round_eager_ms": k["decode_s"] / k["decode_rounds"] * 1e3,
+            **{n: out.get("breakdown", {}).get(n) for n in (
+                "prefill_graph_ms", "decode_round_graph_ms",
+                "prefill_gemm_ms", "prefill_moe_gemm_ms")}}
     # slots freed and refilled mid-decode: waves half a batch apart
     b = serve["batch_size"]
     stag = {eng.attn_impl: staggered_serve(eng, prompts[:4 * b], b // 2)
@@ -1869,6 +1906,86 @@ def run_serve(device, arch: str = SERVE_ARCH, n_prompts: int = 256,
     out["answer_sample"] = answers["kernel"][:4]
     out["engines"] = (kern, plain)
     return out
+
+
+def moe_predictions(cfg, serve) -> dict:
+    """What a MoE model's serving should cost, from its shapes: the
+    weights a decode round must read (each expert's, since a round's
+    capacity of at least one row an expert computes every expert; the
+    router, attention and LM head beside them) over the card's memory
+    rate, and a full admission's operations (the experts' products over
+    their capacity slots, the router, the attention projections) at the
+    data sheet's float32 rate and at the GEMM rate ``serve`` measured."""
+    from repro_torch.models.layers import moe_capacity
+
+    B, S = serve["batch_size"], serve["max_seq"]
+    L, D, E = cfg.num_layers, cfg.d_model, cfg.num_experts
+    Fe = cfg.moe_d_ff or cfg.d_ff
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    mats = 3 if cfg.gated_mlp else 2
+    cap_admit, cap_round = moe_capacity(cfg, B * S), moe_capacity(cfg, B)
+    expert_bytes = 4 * L * mats * E * D * Fe
+    attn_w = L * (D * (H + 2 * K) * hd + H * hd * D)
+    round_bytes = (expert_bytes + 4 * attn_w + 4 * L * D * E
+                   + 4 * D * cfg.vocab_size)
+    expert_flop = 2 * L * mats * E * cap_admit * D * Fe
+    attn_flop = 2 * B * S * attn_w
+    admit_flop = expert_flop + attn_flop + 2 * B * S * L * D * E
+    return {"experts": E, "experts_per_tok": cfg.experts_per_tok,
+            "moe_d_ff": Fe, "capacity_factor": cfg.moe_capacity_factor,
+            "capacity_admission": cap_admit, "capacity_round": cap_round,
+            "predicted": {
+                "round_expert_bytes": expert_bytes,
+                "round_weight_bytes": round_bytes,
+                "round_bound_ms": round_bytes / PEAK_BYTES_PER_S * 1e3,
+                "admission_expert_flop": expert_flop,
+                "admission_attn_proj_flop": attn_flop,
+                "admission_flop": admit_flop,
+                "admission_ms_at_f32_peak":
+                    admit_flop / PEAK_OPS_PER_S * 1e3,
+                "admission_ms_at_measured_gemm_rate":
+                    admit_flop / MEASURED_GEMM_FLOP_PER_S * 1e3}}
+
+
+@contextlib.contextmanager
+def record_routes(calls: list):
+    """Within the block, every ``moe_route`` call of the model records
+    its tokens' top-k expert sets (sorted) and the gap between their
+    k-th and (k+1)-th router probabilities into ``calls``, one entry a
+    layer."""
+    import torch
+
+    from repro_torch.models import layers
+
+    route = layers.moe_route
+
+    def recorded(x, router, cap, k):
+        probs = torch.softmax(x.float() @ router, dim=-1)
+        top = torch.topk(probs, min(k + 1, probs.shape[-1]), dim=-1)
+        calls.append((top.indices[:, :k].sort(dim=-1).values,
+                      top.values[:, k - 1] - top.values[:, -1]))
+        return route(x, router, cap, k)
+
+    layers.moe_route = recorded
+    try:
+        yield
+    finally:
+        layers.moe_route = route
+
+
+def router_topk_diff(kern: list, plain: list) -> dict:
+    """The (token, layer) pairs whose top-k expert set differs between
+    the kernel path's and the plain path's prefill of one admission, and
+    the smallest top-k / top-(k+1) probability gap either path saw
+    (recorded, not gated: the gate is on the answers and token ids)."""
+    if len(kern) != len(plain) or not kern:
+        raise AssertionError("router_topk_diff: the paths routed "
+                             f"{len(kern)} and {len(plain)} layers")
+    differ = sum(int((a[0] != b[0]).any(dim=-1).sum())
+                 for a, b in zip(kern, plain))
+    gap = min(float(c[1].min()) for c in kern + plain)
+    return {"differ": differ, "tokens_x_layers": len(kern)
+            * kern[0][0].shape[0], "min_topk_gap": gap}
 
 
 GEMM_LEAVES = ("wq", "wk", "wv", "wo", "w_in", "w_out", "w_gate")
@@ -1903,8 +2020,14 @@ def serve_breakdown(eng, toks, run: dict) -> dict:
                         reps=5, inner=5, warmup=1)
     g = torch.Generator(device=toks.device).manual_seed(3)
     gemm_ms, gemm_flops = 0.0, 0
-    for part in params["blocks"].values():
+    moe = {}
+    for pname, part in params["blocks"].items():
         if not isinstance(part, dict):
+            continue
+        if pname == "moe":
+            moe = moe_gemms(cfg, part, B * S, g)
+            gemm_ms += moe["ms"]
+            gemm_flops += moe["flop"]
             continue
         for name, w in part.items():
             if name not in GEMM_LEAVES:
@@ -1919,13 +2042,42 @@ def serve_breakdown(eng, toks, run: dict) -> dict:
     del cache
     eager_prefill = run["prefill_s"] / run["admissions"] * 1e3
     eager_round = run["decode_s"] / run["decode_rounds"] * 1e3
+    extra = ({"prefill_moe_gemm_ms": moe["ms"],
+              "prefill_moe_gemm_tflop_per_s": moe["flop"] / moe["ms"] / 1e9}
+             if moe else {})
     return {"rows": B, "seq": S,
             "prefill_eager_ms": eager_prefill, "prefill_graph_ms": prefill_ms,
             "prefill_gemm_ms": gemm_ms,
-            "prefill_gemm_tflop_per_s": gemm_flops / gemm_ms / 1e9,
+            "prefill_gemm_tflop_per_s": gemm_flops / gemm_ms / 1e9, **extra,
             "decode_round_eager_ms": eager_round,
             "decode_round_graph_ms": decode_ms,
             "decode_host_share": 1.0 - decode_ms / eager_round}
+
+
+def moe_gemms(cfg, p, n_tokens: int, g) -> dict:
+    """Device time (graph replays, times the layers) and operations of a
+    prefill's MoE products over ``n_tokens`` rows: the router, then each
+    expert's products over its capacity slots as ``torch.bmm``."""
+    import torch
+
+    from repro_torch.models.layers import moe_capacity
+
+    E, D = cfg.num_experts, cfg.d_model
+    Fe, L = p["w_in"].shape[-1], cfg.num_layers
+    cap = moe_capacity(cfg, n_tokens)
+    dev = p["w_in"].device
+    x = torch.randn(n_tokens, D, generator=g, device=dev)
+    xg = torch.randn(E, cap, D, generator=g, device=dev)
+    h = torch.randn(E, cap, Fe, generator=g, device=dev)
+    router = p["router"][0]
+    ms = L * time_ms(lambda: x @ router, reps=10, inner=5)
+    flop = L * 2 * n_tokens * D * E
+    for name in ("w_in", "w_gate", "w_out"):
+        if name in p:
+            w, a = p[name][0], (h if name == "w_out" else xg)
+            ms += L * time_ms(lambda: torch.bmm(a, w), reps=10, inner=5)
+            flop += L * 2 * E * cap * D * Fe
+    return {"ms": ms, "flop": flop}
 
 
 def run_long_prefill(device, ssm_eng, hybrid_eng, ssm_shape=(2, 2048),
@@ -2196,8 +2348,9 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
     ``e2e_hash``, K7/K8 from ``serve``, K9 from ``serve_ssm``; K8's rows
     hold the ``decode_lengths`` of a first decode round of the served
     prompts; ``llm`` adds K7 with the hybrid's window and K8 with its
-    slot mask at ``serve_hybrid``'s and ``long_prefill``'s shapes, and
-    K9 at ``long_prefill``'s and ``serve_hybrid``'s; K10 from
+    slot mask at ``serve_hybrid``'s and ``long_prefill``'s shapes, K7
+    and K8 at ``serve_moe``'s multi-head shapes (group 1), and K9 at
+    ``long_prefill``'s and ``serve_hybrid``'s; K10 from
     ``e2e_sharded`` over ``n_shards`` buckets, with K6 at B = P and K10
     at P = 32 beside it):
     the kernel, its plain version and the library call each as
@@ -2461,35 +2614,48 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
         raise AssertionError(f"K7 at the serve shape: {err7} > {TOLERANCE}")
     pairs = B * H * S * (S + 1) // 2
 
-    def k7_window(shape, window):
-        """K7 with the hybrid's window at ``shape`` (B, H, K, S, S, d):
-        kernel, plain and SDPA (with the window as a boolean mask) as
-        graph replays, the bound over the visible pairs."""
+    def k7_at(shape, window=0, path=None):
+        """K7 at ``shape`` (B, H, K, S, S, d), causal, within ``window``
+        when it is > 0: kernel, plain and SDPA (the window as a boolean
+        mask) as graph replays, the bound over the visible pairs; with
+        ``path``, that path's launches and the device listing."""
         B, H, K, S, _, d = shape
         q, k, v = (torch.randn(B, S, n, d, generator=g, device=device)
                    .transpose(1, 2) for n in (H, K, K))
-        err = float((flash_attention_kernel(q, k, v, causal=True,
-                                            window=window)
-                     - attention_ref(q, k, v, causal=True, window=window))
-                    .abs().max())
+
+        def kern():
+            return flash_attention_kernel(q, k, v, causal=True,
+                                          window=window)
+
+        err = float((kern() - attention_ref(q, k, v, causal=True,
+                                            window=window)).abs().max())
         if not err <= TOLERANCE:
             raise AssertionError(f"K7 window {window} at {shape}: {err}")
-        dq = (torch.arange(S, device=device)[:, None]
-              - torch.arange(S, device=device)[None, :])
-        mask = (dq >= 0) & (dq < window)
+        if window:
+            dq = (torch.arange(S, device=device)[:, None]
+                  - torch.arange(S, device=device)[None, :])
+            library = sdpa_call(q, k, v, attn_mask=(dq >= 0) & (dq < window))
+        else:
+            library = sdpa_call(q, k, v, is_causal=True)
         out = {"shape": list(shape), "window": window, "max_abs_err": err,
-               "ms": time_ms(lambda: flash_attention_kernel(
-                   q, k, v, causal=True, window=window)),
+               "ms": time_ms(kern),
                "plain_ms": time_ms(lambda: attention_ref(
                    q, k, v, causal=True, window=window)),
-               "library_ms": time_ms(sdpa_call(q, k, v, attn_mask=mask)),
+               "library_ms": time_ms(library),
                **tc_bounds(4 * (2 * B * H * S * d + 2 * B * K * S * d),
                            4 * d * B * H * window_pairs(S, window))}
+        if path:
+            out.update(launches=by_path[path].get("flash_attention", 0),
+                       wrapper_eager_ms=eager_ms(kern),
+                       device_kernels=one_data_kernel(
+                           f"K7 at {path}", kern, "flash_fwd_kernel"))
         del q, k, v
         return out
 
-    k7_extra = {f"window_{label}": k7_window(shape, w)
+    k7_extra = {f"window_{label}": k7_at(shape, w)
                 for label, (shape, w) in llm.get("k7", {}).items()}
+    if "k7_moe" in llm:  # multi-head (group 1): olmoe's admissions
+        k7_extra["at_serve_moe"] = k7_at(llm["k7_moe"], path="serve_moe")
     row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:97",
         lambda: flash_attention_kernel(q, k, v, causal=True),
@@ -2602,6 +2768,42 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
             "device_kernels": one_data_kernel(
                 "K8 long_prefill ring", k8l, "decode_kernel", memset=True)}
         del ql, kl, vl
+    if "k8_moe" in llm:
+        # multi-head (group 1): olmoe's first decode round, lengths
+        shape, lens = llm["k8_moe"]
+        Bm, Hm, Km, Tm, dm = shape
+        lm = torch.tensor(list(lens)[:Bm], dtype=torch.int32, device=device)
+        qm = torch.randn(Bm, Hm, dm, generator=g, device=device)
+        km, vm = (torch.randn(Bm, Tm, Km, dm, generator=g, device=device)
+                  .permute(0, 2, 1, 3) for _ in range(2))
+
+        def k8m():
+            return decode_attention_kernel(qm, km, vm, lm)
+
+        errm = float((k8m() - decode_attention_ref(qm, km, vm, lm))
+                     .abs().max())
+        if not errm <= TOLERANCE:
+            raise AssertionError(f"K8 at the serve_moe shape: {errm}")
+        live_m = int(lm.clamp(max=Tm).sum())
+        b_ms, b_by = bound_ms(
+            4 * (2 * Bm * Hm * dm + 2 * Km * dm * live_m + Bm),
+            4 * dm * Hm * live_m)
+        mask_m = (torch.arange(Tm, device=device)[None, :]
+                  < lm[:, None])[:, None, None, :]
+        k8_extra["at_serve_moe"] = {
+            "shape": list(shape), "live": live_m,
+            "lengths": lm.tolist(), "max_abs_err": errm,
+            "launches": by_path["serve_moe"].get("decode_attention", 0),
+            "ms": time_ms(k8m),
+            "plain_ms": time_ms(lambda: decode_attention_ref(qm, km, vm,
+                                                             lm)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(sdpa_call(qm[:, :, None], km, vm,
+                                            attn_mask=mask_m)),
+            "wrapper_eager_ms": eager_ms(k8m),
+            "device_kernels": one_data_kernel(
+                "K8 at serve_moe", k8m, "decode_kernel", memset=True)}
+        del qm, km, vm
     row("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention/decode_attention.py:78",
         lambda: decode_attention_kernel(qd, kc, vc, lengths),
@@ -2882,6 +3084,22 @@ def main() -> int:
     emit({"phase": "llm_query_hybrid", **llm_h,
           "seconds": time.perf_counter() - t0, "gpu": smi})
     require_launched("llm_query_hybrid", llm_h["launches"], LLM_KERNELS)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    moe = run_serve(device, arch=MOE_ARCH, n_prompts=MOE_PROMPTS)
+    moe_engines = moe.pop("engines")
+    emit({"phase": "serve_moe", **moe, "seconds": time.perf_counter() - t0,
+          "gpu": smi})
+    require_launched("serve_moe", moe["kernel"]["launches"], ATTN_KERNELS)
+    t0 = time.perf_counter()
+    llm_m = run_llm_query(device, moe_engines, qids=HYBRID_QIDS)
+    emit({"phase": "llm_query_moe", **llm_m,
+          "seconds": time.perf_counter() - t0, "gpu": smi})
+    require_launched("llm_query_moe", llm_m["launches"], ATTN_KERNELS)
+    del moe_engines
+    gc.collect()
     torch.cuda.empty_cache()
 
     launches = dict(e2e["launches"])
@@ -2905,6 +3123,9 @@ def main() -> int:
         "k8": (hshapes["decode_attention"], hyb["decode_lengths"], window),
         "k8_prefill_len": hyb["max_seq"],
         "k8_long": (lshapes["decode_attention"], window),
+        "k7_moe": moe["kernel"]["shapes"]["flash_attention"],
+        "k8_moe": (moe["kernel"]["shapes"]["decode_attention"],
+                   moe["decode_lengths"]),
         "k9": {"serve_hybrid": hshapes["ssd_chunk"],
                "long_prefill_ssm": long["ssm"]["shapes"]["ssd_chunk"],
                "long_prefill_hybrid": lshapes["ssd_chunk"]}}
@@ -2923,7 +3144,9 @@ def main() -> int:
                         "serve_hybrid": hyb["kernel"]["launches"],
                         "long_prefill_ssm": long["ssm"]["launches"],
                         "long_prefill_hybrid": long["hybrid"]["launches"],
-                        "llm_query_hybrid": llm_h["launches"]},
+                        "llm_query_hybrid": llm_h["launches"],
+                        "serve_moe": moe["kernel"]["launches"],
+                        "llm_query_moe": llm_m["launches"]},
                        serve["decode_lengths"], llm=llm_shapes,
                        n_shards=sharded["n_shards"])
     emit({"kernels": rows})

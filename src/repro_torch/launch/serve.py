@@ -1,11 +1,13 @@
-"""Serving driver: stand up an LM (dense, SSM or hybrid) behind the
-serving tier and answer prompts, on the card unless ``--device cpu``.
+"""Serving entry point: stand up an LM (dense, MoE, SSM or hybrid)
+behind the serving tier and answer prompts, on the card unless ``--device cpu``.
 
-    # full-width starcoder2-3b, random weights (seed 0), on the card
+    # full-width olmoe-1b-7b (the default), random weights (seed 0), on
+    # the card
     PYTHONPATH=src python -m repro_torch.launch.serve \\
-        --arch starcoder2-3b --prompts "is product 3 electronics?"
+        --prompts "is product 3 electronics?"
 
-    # the SSM and hybrid families: mamba2-370m, hymba-1.5b
+    # the dense, SSM and hybrid families: starcoder2-3b, mamba2-370m,
+    # hymba-1.5b, ...
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch hymba-1.5b --prompts "is product 3 electronics?"
 
@@ -13,10 +15,10 @@ serving tier and answer prompts, on the card unless ``--device cpu``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \\
         --tiny --device cpu --prompts "hello" "world"
 
-Dense, SSM and hybrid configurations are served. There are no trained weights to
-restore yet (``--ckpt`` waits for the training slice) and no
-model-parallel mesh (``--dp``/``--tp`` wait for it; the partitioned data
-tier's mesh shards tables, not a model).
+Dense, MoE, SSM and hybrid configurations are served. There are no
+trained weights to restore yet (``--ckpt`` waits for the training
+slice) and no model-parallel mesh (``--dp``/``--tp`` wait for it; the
+partitioned data tier's mesh shards tables, not a model).
 """
 from __future__ import annotations
 
@@ -33,13 +35,13 @@ from ..training.data import HashTokenizer
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        description="Serve a dense, SSM or hybrid LM with random weights "
-                    "(seed 0). "
+        description="Serve a dense, MoE, SSM or hybrid LM with random "
+                    "weights (seed 0). "
                     "Not ported: --ckpt (training slice), --dp/--tp "
                     "(the model-parallel mesh).")
-    ap.add_argument("--arch", default="starcoder2-3b",
-                    help="a dense, SSM or hybrid configuration (default "
-                         "starcoder2-3b)")
+    ap.add_argument("--arch", default="olmoe-1b-7b",
+                    help="a dense, MoE, SSM or hybrid configuration "
+                         "(default olmoe-1b-7b)")
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--batch", type=int, default=16)

@@ -1,6 +1,6 @@
-"""The dense LM of the serving tier: config, parameters, layers,
-forward/prefill/decode (the dense subset of the reference's
-``repro.models``)."""
+"""The LM of the serving tier: config, parameters, layers,
+forward/prefill/decode (the dense, MoE, SSM and hybrid subset of the
+reference's ``repro.models``)."""
 from .config import ModelConfig
 from .lm import (
     build_cache_spec,
@@ -9,6 +9,7 @@ from .lm import (
     init_cache,
     prefill,
 )
+from .layers import moe_block, moe_reference
 from .params import (
     build_params,
     check_supported,
@@ -20,6 +21,7 @@ from .params import (
 __all__ = [
     "ModelConfig",
     "build_cache_spec", "decode_step", "forward", "init_cache", "prefill",
+    "moe_block", "moe_reference",
     "build_params", "check_supported", "count_params", "init_params",
     "params_from_numpy",
 ]

@@ -1,10 +1,13 @@
 """Building blocks of the decoder-only LM, the subset of the reference's
-``src/repro/models/layers.py`` that the dense, SSM (Mamba-2) and hybrid
-families run: ``rms_norm``, ``rope`` (halves concatenated, not
+``src/repro/models/layers.py`` that the dense, MoE, SSM (Mamba-2) and
+hybrid families run: ``rms_norm``, ``rope`` (halves concatenated, not
 interleaved), ``mlp``, ``_qkv``, ``_mask_bias``, ``gqa_attention``, the
 prefill / decode attention blocks (with the hybrid's sliding window),
-and the SSM block: ``causal_conv1d``, ``ssd_chunked``,
-``ssd_reference``, ``ssm_block`` and ``ssm_decode``.
+the mixture of experts on one device (``moe_block`` with its routing
+and capacity dispatch ``moe_route``, and the dense oracle
+``moe_reference``), and
+the SSM block: ``causal_conv1d``, ``ssd_chunked``, ``ssd_reference``,
+``ssm_block`` and ``ssm_decode``.
 
 Attention has two paths, chosen by ``attn_impl`` through
 ``kernels/util.py::resolve_impl`` ("auto": the kernel on a CUDA tensor,
@@ -203,6 +206,103 @@ def attention_decode(cfg: ModelConfig, p, x, k_cache, v_cache, slot_pos,
         bias = torch.where(ok, zero, torch.full_like(zero, -1e30))[:, None]
         out = gqa_attention(q, k_cache, v_cache, bias)
     return out.reshape(B, 1, -1) @ p["wo"].reshape(-1, cfg.d_model)
+
+
+# ---------------------------------------------------------------------------
+# MoE: token-choice routing with a capacity gather, on one device
+# ---------------------------------------------------------------------------
+
+
+def moe_capacity(cfg: ModelConfig, n_tokens: int) -> int:
+    """Rows each expert takes when ``n_tokens`` rows route: the
+    reference's ceil(n·k / E · capacity_factor), at least 1."""
+    return max(int(math.ceil(n_tokens * cfg.experts_per_tok
+                             / cfg.num_experts * cfg.moe_capacity_factor)), 1)
+
+
+def moe_route(x, router, cap: int, k: int):
+    """The reference's routing and capacity dispatch (``_moe_local``'s
+    first half) with every expert local; the expert-parallel slices wait
+    for the model-parallel mesh. x: (T, D). Returns (gate (T·k,), rows,
+    valid, toks), the last three (E, cap): slot c of expert e holds the
+    flattened (token, choice) row ``rows[e, c]`` of token ``toks[e, c]``
+    where ``valid``. An expert keeps the first ``cap`` rows routed to
+    it, in token order; the rest are dropped."""
+    T = x.shape[0]
+    E = router.shape[-1]
+    probs = torch.softmax(x.float() @ router, dim=-1)
+    gate, ids = torch.topk(probs, k, dim=-1)  # (T, k); only the set matters
+    gate = gate / gate.sum(dim=-1, keepdim=True)
+    flat_ids = ids.reshape(-1)
+    # stable, as jnp.argsort: an expert's rows stay in token order, which
+    # decides the rows its capacity keeps
+    order = torch.argsort(flat_ids, stable=True)
+    experts = torch.arange(E, device=x.device)
+    sorted_ids = flat_ids[order]
+    starts = torch.searchsorted(sorted_ids, experts)
+    ends = torch.searchsorted(sorted_ids, experts, right=True)
+    slot = starts[:, None] + torch.arange(cap, device=x.device)[None, :]
+    valid = slot < ends[:, None]
+    rows = torch.where(valid, order[slot.clamp(0, T * k - 1)], 0)
+    return gate.reshape(-1).to(x.dtype), rows, valid, rows // k
+
+
+def _moe_local(x, p, cap: int, k: int, gated: bool):
+    """The reference's ``_moe_local`` on one device. x: (T, D)."""
+    T, D = x.shape
+    flat_gate, rows, valid, toks = moe_route(x, p["router"], cap, k)
+    xg = x[toks] * valid[..., None].to(x.dtype)  # (E, cap, D)
+    h = torch.bmm(xg, p["w_in"])
+    if gated:
+        h = F.silu(torch.bmm(xg, p["w_gate"])) * h
+    else:
+        h = F.gelu(h, approximate="tanh")
+    yg = torch.bmm(h, p["w_out"])
+    wts = (flat_gate[rows] * valid).to(x.dtype)
+    # a kept slot's row is a distinct (token, choice) index: write each
+    # into its own row of a (T·k + 1, D) buffer (dropped slots into the
+    # last, discarded) and sum over the choices, a deterministic form of
+    # the reference's scatter-add
+    out = x.new_zeros(T * k + 1, D)
+    out[torch.where(valid, rows, T * k).reshape(-1)] = \
+        (yg * wts[..., None]).reshape(-1, D)
+    return out[:T * k].view(T, k, D).sum(dim=1)
+
+
+def moe_block(cfg: ModelConfig, p, x):
+    """x: (B, S, D). The reference's single-device ``moe_block``: every
+    row of the batch routes, padding and empty decode slots included,
+    against ``moe_capacity(cfg, B·S)`` rows per expert, plus the shared
+    experts' MLP when the configuration has them."""
+    B, S, D = x.shape
+    y = _moe_local(x.reshape(B * S, D), p, moe_capacity(cfg, B * S),
+                   cfg.experts_per_tok, cfg.gated_mlp).reshape(B, S, D)
+    if "shared" in p:
+        y = y + mlp(cfg, p["shared"], x)
+    return y
+
+
+def moe_reference(cfg: ModelConfig, p, x):
+    """Dense oracle: the exact top-k mixture, no capacity drops, every
+    expert over every token (tests only)."""
+    B, S, D = x.shape
+    xt = x.reshape(-1, D)
+    probs = torch.softmax(xt.float() @ p["router"], dim=-1)
+    gate, ids = torch.topk(probs, cfg.experts_per_tok, dim=-1)
+    gate = gate / gate.sum(dim=-1, keepdim=True)
+    y = torch.zeros_like(xt)
+    for e in range(cfg.num_experts):
+        h = xt @ p["w_in"][e]
+        if cfg.gated_mlp:
+            h = F.silu(xt @ p["w_gate"][e]) * h
+        else:
+            h = F.gelu(h, approximate="tanh")
+        w_e = torch.where(ids == e, gate, torch.zeros_like(gate)).sum(-1)
+        y = y + (h @ p["w_out"][e]) * w_e[:, None].to(xt.dtype)
+    y = y.reshape(B, S, D)
+    if "shared" in p:
+        y = y + mlp(cfg, p["shared"], x)
+    return y
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""The decoder-only LM (dense, SSM and hybrid families): forward, the
+"""The decoder-only LM (dense, MoE, SSM and hybrid families): forward, the
 decode cache, prefill and one-token decode — the subset of the
 reference's ``src/repro/models/lm.py`` those families run.
 
@@ -31,6 +31,7 @@ from .layers import (
     attention_block,
     attention_decode,
     mlp,
+    moe_block,
     rms_norm,
     ssm_block,
     ssm_decode,
@@ -66,7 +67,7 @@ def _mix(cfg, bp, x, attn_impl, ssd_impl):
     if cfg.family != "ssm":
         a, k, v = attention_block(cfg, bp["attn"], x, attn_impl,
                                   _window(cfg))
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return a, k, v, state, conv
     s, state, conv = ssm_block(cfg, bp["ssm"], x, ssd_impl)
     if cfg.family == "ssm":
@@ -77,11 +78,15 @@ def _mix(cfg, bp, x, attn_impl, ssd_impl):
 
 
 def _ffn(cfg, bp, h):
-    """The block's FFN residual (None for the SSM family, which has
-    none)."""
+    """The block's FFN residual: the mixture of experts when the
+    configuration has experts, else the MLP (None for the SSM family,
+    which has none)."""
     if cfg.family == "ssm":
         return None
-    return mlp(cfg, bp["mlp"], rms_norm(h, bp["ln2"], cfg.norm_eps))
+    x = rms_norm(h, bp["ln2"], cfg.norm_eps)
+    if cfg.num_experts:
+        return moe_block(cfg, bp["moe"], x)
+    return mlp(cfg, bp["mlp"], x)
 
 
 def _ring_slots(S: int, T: int, device) -> tuple[int, torch.Tensor]:
@@ -209,12 +214,12 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos,
             a = attention_decode(cfg, bp["attn"], x, cache["k"][l],
                                  cache["v"][l], cache["slot_pos"][l], pos,
                                  attn_impl, window)
-        if cfg.family != "dense":
+        if cfg.family in ("ssm", "hybrid"):
             s, st, cv = ssm_decode(cfg, bp["ssm"], x, cache["state"][l],
                                    cache["conv"][l])
             cache["state"][l] = st
             cache["conv"][l] = cv
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             mix = a
         elif cfg.family == "ssm":
             mix = s

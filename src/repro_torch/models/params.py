@@ -1,4 +1,5 @@
-"""Parameters of the decoder-only LM (dense, SSM and hybrid families).
+"""Parameters of the decoder-only LM (dense, MoE, SSM and hybrid
+families).
 
 ``build_params(cfg, creator)`` walks the architecture and calls
 ``creator(path, shape, scale)`` for each tensor, with the reference's
@@ -13,8 +14,9 @@ the port serves on one card). Two creators:
   (``jax.tree.map(np.asarray, params)``) as tensors, unchanged in
   layout, so both packages compute the same function.
 
-The dense, SSM (Mamba-2) and hybrid (parallel attention + SSM heads)
-families are ported (``check_supported``).
+The dense, mixture-of-experts (with or without shared experts), SSM
+(Mamba-2) and hybrid (parallel attention + SSM heads) families are
+ported (``check_supported``).
 """
 from __future__ import annotations
 
@@ -30,21 +32,21 @@ Creator = Callable[[str, tuple, float], object]
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` unless ``cfg`` is a decoder-only LM
-    of the dense, SSM or hybrid family: the port's LLM slices. Sliding
-    windows are ported for the hybrid only (its attention heads). The
-    other families wait for later slices (ROADMAP)."""
-    if cfg.family not in ("dense", "ssm", "hybrid") or cfg.num_experts \
-            or cfg.use_mla:
+    of the dense, MoE, SSM or hybrid family: the port's LLM slices.
+    Sliding windows are ported for the hybrid only (its attention
+    heads). MLA, encoder-decoder, VLM and MTP wait for later slices
+    (ROADMAP)."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.use_mla:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} (experts "
-            f"{cfg.num_experts}, MLA {cfg.use_mla}) waits for the port's "
-            f"MoE/MLA/encoder-decoder/VLM slice; only dense, SSM and "
-            f"hybrid LMs are ported")
+            f"{cfg.num_experts}, MLA {cfg.use_mla}) is not ported; MLA, "
+            f"encoder-decoder, VLM and MTP wait for later slices")
     if ((cfg.attn_window and cfg.family != "hybrid") or cfg.encoder_layers
             or cfg.num_image_tokens or cfg.mtp_depth):
         raise NotImplementedError(
             f"{cfg.name}: sliding windows outside the hybrid family, "
-            f"encoders, image prefixes and MTP heads are not ported")
+            f"encoders (encoder-decoder), image prefixes (VLM) and MTP "
+            f"heads wait for later slices")
 
 
 def _attn_tree(cfg: ModelConfig, L, p, prefix: str):
@@ -63,14 +65,31 @@ def _attn_tree(cfg: ModelConfig, L, p, prefix: str):
     return t
 
 
-def _mlp_tree(cfg: ModelConfig, L, p, prefix="mlp"):
-    D, F = cfg.d_model, cfg.d_ff
+def _mlp_tree(cfg: ModelConfig, L, p, d_ff=None, prefix="mlp"):
+    D = cfg.d_model
+    F = d_ff or cfg.d_ff
     t = {
         "w_in": p(f"{prefix}/w_in", (*L, D, F), D),
         "w_out": p(f"{prefix}/w_out", (*L, F, D), F),
     }
     if cfg.gated_mlp:
         t["w_gate"] = p(f"{prefix}/w_gate", (*L, D, F), D)
+    return t
+
+
+def _moe_tree(cfg: ModelConfig, L, p):
+    D, E = cfg.d_model, cfg.num_experts
+    Fe = cfg.moe_d_ff or cfg.d_ff
+    t = {
+        "router": p("moe/router", (*L, D, E), D),
+        "w_in": p("moe/w_in", (*L, E, D, Fe), D),
+        "w_out": p("moe/w_out", (*L, E, Fe, D), Fe),
+    }
+    if cfg.gated_mlp:
+        t["w_gate"] = p("moe/w_gate", (*L, E, D, Fe), D)
+    if cfg.num_shared_experts:
+        t["shared"] = _mlp_tree(cfg, L, p, d_ff=Fe * cfg.num_shared_experts,
+                                prefix="moe/shared")
     return t
 
 
@@ -104,7 +123,10 @@ def _block_tree(cfg: ModelConfig, L, p) -> dict:
         t["ssm"] = _ssm_tree(cfg, L, p)
         t["attn_norm"] = p("attn_norm", (*L, cfg.d_model), -1)
         t["ssm_norm"] = p("ssm_norm", (*L, cfg.d_model), -1)
-    t["mlp"] = _mlp_tree(cfg, L, p)
+    if cfg.num_experts:
+        t["moe"] = _moe_tree(cfg, L, p)
+    else:
+        t["mlp"] = _mlp_tree(cfg, L, p)
     return t
 
 

@@ -732,6 +732,59 @@ def test_serving_kernel_path_matches_plain_path(dev):
 
 
 @pytest.mark.cuda
+def test_moe_serving_kernel_path_matches_plain_path(dev):
+    """olmoe-tiny (multi-head, group 1) at capacity factor 0.5, so
+    experts drop rows at admissions and rounds, served on the card with
+    K7/K8 and with the plain attention: the same answers, K7 once per
+    layer per admission, K8 once per layer per round."""
+    from repro_torch.configs import get_tiny
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServingEngine
+
+    cfg = get_tiny("olmoe-1b-7b").replace(vocab_size=512,
+                                          moe_capacity_factor=0.5)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    prompts = [f"card moe probe {i} " + "word " * (i % 11)
+               for i in range(13)]
+    out = {}
+    for impl in ("auto", "ref"):
+        eng = ServingEngine(cfg, params, batch_size=4, max_seq=24,
+                            max_new_tokens=3, device=dev, attn_impl=impl)
+        _build.reset_launches()
+        out[impl] = eng.answer(prompts)
+        launches = dict(_build.LAUNCHES)
+        want = dict.fromkeys(launches, 0)
+        if impl == "auto":
+            want.update(flash_attention=cfg.num_layers * eng.stats.batches,
+                        decode_attention=cfg.num_layers
+                        * eng.stats.decode_steps)
+        assert launches == want
+    assert out["auto"] == out["ref"]
+
+
+@pytest.mark.cuda
+def test_moe_block_on_the_card_is_deterministic(dev):
+    """``moe_block`` on the card (stable sort, the scatter as distinct
+    row writes): two calls equal bit for bit, and within 1e-4 of the
+    same call on the CPU, drops included (capacity factor 1.0)."""
+    from repro_torch.configs import get_tiny
+    from repro_torch.models import init_params, moe_block
+
+    cfg = get_tiny("olmoe-1b-7b").replace(moe_capacity_factor=1.0)
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         device="cpu")
+    p = {k: v[0] for k, v in params["blocks"]["moe"].items()}
+    x = torch.randn(4, 64, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    want = moe_block(cfg, p, x)
+    pd = {k: v.to(dev) for k, v in p.items()}
+    a, b = moe_block(cfg, pd, x.to(dev)), moe_block(cfg, pd, x.to(dev))
+    assert torch.equal(a, b)
+    torch.testing.assert_close(a.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d", AC.HEAD_DIMS)
 @pytest.mark.parametrize("group", AC.GROUPS)
 @pytest.mark.parametrize("window", AC.WINDOWS)

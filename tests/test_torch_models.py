@@ -1,4 +1,4 @@
-"""The port's LM (dense, SSM and hybrid families) against the
+"""The port's LM (dense, MoE, SSM and hybrid families) against the
 reference's on the same weights: the reference's parameters
 (``repro.models.init_params``) carried across with
 ``params_from_numpy``, the same token ids from a numpy seed, and
@@ -34,7 +34,7 @@ from repro_torch.configs import get_config as port_config  # noqa: E402
 from repro_torch.configs import get_tiny as port_tiny  # noqa: E402
 
 DENSE = ("stablelm-3b", "starcoder2-3b", "qwen2.5-32b", "internlm2-20b")
-ARCHS = DENSE + ("mamba2-370m", "hymba-1.5b")
+ARCHS = DENSE + ("olmoe-1b-7b", "mamba2-370m", "hymba-1.5b")
 TOL = dict(atol=1e-4, rtol=1e-4)
 POLICY = ShardingPolicy.single()
 _CACHE: dict = {}
@@ -102,7 +102,13 @@ def test_params_layout(arch):
         assert not blocks["ssm"]["dt_bias"].any()
         w = blocks["ssm"]["w_in"]
         assert abs(float(w.std()) * np.sqrt(cfg.d_model) - 1) < 0.1
-    assert ("mlp" in blocks) == (cfg.family != "ssm")
+    assert ("mlp" in blocks) == (cfg.family in ("dense", "hybrid"))
+    assert ("moe" in blocks) == (cfg.family == "moe")
+    if "moe" in blocks:  # the router and experts at normal / sqrt(fan_in)
+        for name, fan_in in (("router", cfg.d_model), ("w_in", cfg.d_model),
+                             ("w_out", cfg.moe_d_ff)):
+            w = blocks["moe"][name]
+            assert abs(float(w.std()) * np.sqrt(fan_in) - 1) < 0.1
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -206,3 +212,7 @@ def test_full_configs_are_the_references():
     assert cfg.param_count() == 3_180_515_328  # without the final norm
     assert (cfg.num_heads // cfg.num_kv_heads, cfg.resolved_head_dim) == \
         (12, 128)
+    cfg = port_config("olmoe-1b-7b")
+    assert pm.count_params(cfg) == count_params(cfg) == 6_919_096_320
+    assert (cfg.num_heads // cfg.num_kv_heads, cfg.resolved_head_dim) == \
+        (1, 128)

@@ -6,7 +6,8 @@ and must give identical answers, continuous and drained (a partial final
 chunk included), identical ``ServingStats`` counters, the same
 ``serving_round``/``serving_decode`` sync counts, the same slot
 assignments under recycling and weighted/FIFO admission, and the same
-``ModelBackend`` parsing and tokenizer ids, for dense, SSM
+``ModelBackend`` parsing and tokenizer ids, for dense, MoE
+(olmoe-1b-7b, also at a capacity factor that drops rows), SSM
 (mamba2-370m) and hybrid (hymba-1.5b) models. The tiny hybrid's window
 is 16, so its engines (max_seq 24) keep the last 16 padded positions
 in a ring, and a short prompt's first decode sees only the slot it
@@ -43,8 +44,8 @@ from repro_torch.training.data import (  # noqa: E402
     HashTokenizer as PortTokenizer,
 )
 
-ARCHS = ("stablelm-3b", "starcoder2-3b", "qwen2.5-32b", "mamba2-370m",
-         "hymba-1.5b")
+ARCHS = ("stablelm-3b", "starcoder2-3b", "qwen2.5-32b", "olmoe-1b-7b",
+         "mamba2-370m", "hymba-1.5b")
 COUNTERS = ("prompts", "batches", "prefill_tokens", "decode_steps",
             "prefill_rows", "live_prefill_rows", "slot_steps",
             "live_slot_steps", "decode_tokens", "queued_peak")
@@ -62,9 +63,12 @@ def weights(arch: str):
     return _WEIGHTS[arch]
 
 
-def engines(arch: str, batch_size=4, max_seq=24, max_new=2):
-    """A fresh reference engine and port engine on the same weights."""
+def engines(arch: str, batch_size=4, max_seq=24, max_new=2, **cfg_kw):
+    """A fresh reference engine and port engine on the same weights
+    (``cfg_kw`` replaces fields of the config the weights were made
+    for)."""
     cfg, ref_p, port_p = weights(arch)
+    cfg = cfg.replace(**cfg_kw)
     ref = ServingEngine(cfg, ref_p, ShardingPolicy.single(),
                         tokenizer=HashTokenizer(cfg.vocab_size),
                         batch_size=batch_size, max_seq=max_seq,
@@ -108,6 +112,28 @@ def test_answers_stats_and_syncs_match(arch):
     assert counters(port.stats) == counters(ref.stats)
     assert delta(sites(HOST_SYNCS), p1) == delta(sites(REF_SYNCS), r1)
     assert len(port.stats.ttv_s) == len(ref.stats.ttv_s) == 14
+
+
+def test_moe_drops_follow_the_admission_shape():
+    """olmoe-tiny at capacity factor 0.5: experts drop rows both at
+    admission (capacity from the bucketed B x S, padding routed too) and
+    at every decode round (from the live and dead slots' B rows). The
+    answers and token ids over continuous, drained and two-wave serving
+    equal the reference's."""
+    ref, port = engines("olmoe-1b-7b", max_new=3, moe_capacity_factor=0.5)
+    prompts = [f"does expert {i} drop this row?" + " word" * (i % 5)
+               for i in range(9)]
+    assert port.answer(prompts) == ref.answer(prompts)
+    assert port.answer_drained(prompts) == ref.answer_drained(prompts)
+    assert counters(port.stats) == counters(ref.stats)
+    waves = []
+    for eng in (ref, port):
+        ta = eng.submit(prompts[:3])
+        eng.poll()
+        tb = eng.submit(prompts[3:])
+        eng.drain()
+        waves.append(eng.answers(ta) + eng.answers(tb))
+    assert waves[0] == waves[1]
 
 
 def test_shuffled_arrival_and_interleaved_tickets():
@@ -309,6 +335,30 @@ class TestKernelPathGlue:
             assert checked > 0 and eng.stats.batches > 2
         assert runs["kernel"] == runs["ref"]
 
+    def test_moe_kernel_path_matches_plain_path(self, glue):
+        """olmoe-tiny (multi-head, group 1) through two waves: K7 once
+        per layer per admission, K8 with ``lengths`` once per layer per
+        round, the same answers as the plain path."""
+        cfg, _, params = weights("olmoe-1b-7b")
+        runs = {}
+        for impl in ("kernel", "ref"):
+            for k in glue:
+                glue[k] = 0
+            eng = PortEngine(cfg, params, batch_size=4, max_seq=24,
+                             max_new_tokens=3, device="cpu", attn_impl=impl)
+            ta = eng.submit([f"moe glue one {i}" for i in range(3)])
+            eng.poll()
+            tb = eng.submit([f"moe glue two {i} " + "word " * i
+                             for i in range(6)])
+            eng.drain()
+            runs[impl] = eng.answers(ta) + eng.answers(tb)
+            st, L = eng.stats, cfg.num_layers
+            want = ({"flash": L * st.batches, "decode_len":
+                     L * st.decode_steps, "decode_slots": 0, "ssd": 0}
+                    if impl == "kernel" else dict.fromkeys(glue, 0))
+            assert glue == want and st.batches > 2
+        assert runs["kernel"] == runs["ref"]
+
     @pytest.mark.parametrize("arch", ("mamba2-370m", "hymba-1.5b"))
     def test_ssm_kernel_paths_match_plain_path(self, glue, arch):
         """Two waves through slot recycling; the hybrid at max_seq 24,
@@ -446,6 +496,17 @@ def test_serve_entry_point_tiny_cpu(capsys):
     assert "random-weight stablelm-tiny on cpu" in out
     assert "'hello' -> " in out and "'world' -> " in out
     assert "2 prompts, 1 batches" in out
+
+
+def test_serve_entry_point_defaults_to_olmoe(capsys):
+    """As the reference's ``launch/serve.py``, the default ``--arch`` is
+    olmoe-1b-7b (here its tiny config on the CPU)."""
+    from repro_torch.launch.serve import main
+
+    main(["--tiny", "--device", "cpu", "--prompts", "hello", "world"])
+    out = capsys.readouterr().out
+    assert "random-weight olmoe-tiny on cpu" in out
+    assert "'world' -> " in out and "2 prompts, 1 batches" in out
 
 
 @pytest.mark.parametrize("arch", ("mamba2-370m", "hymba-1.5b"))
