@@ -146,7 +146,35 @@ Phases, each printing one JSON line:
    gated);
 17. ``llm_query_moe`` — Q13 and q8 through ``ModelBackend`` on the
    olmoe-1b-7b engines, held as ``llm_query`` holds its queries;
-18. the ``kernels`` line: per kernel, its launches in the run of the
+18. ``train_equiv`` — three ``build_train_step`` steps of stablelm-tiny
+   (2 microbatches, remat "full") and olmoe-tiny (remat "dots") from
+   one set of weights on the card and on the CPU, every loss within
+   TRAIN_TOLERANCE relative; then ``launch/train`` on the card with the
+   tiny mamba2: killed after step 6 (exit 42) and resumed, its final
+   ``loss=`` line equal to an uninterrupted run's (checkpoints in a
+   temporary directory; whether the two final checkpoints are equal
+   bit for bit is recorded);
+19. ``train`` — stablelm-3b at full width (32 layers, d_model 2560, 32
+   heads, gated d_ff 6912, vocab 50304: 2,795,276,800 float32
+   parameters) on ``TokenStream(seed=7)`` at batch 8 x seq 128 with
+   remat "full": the grad norm with and without remat within
+   REMAT_TOLERANCE, the first step's loss with 2 microbatches and with 1
+   within MICROBATCH_TOLERANCE, three more steps on one batch (2
+   microbatches, fp32 moments) with finite, decreasing losses, one step
+   with int8 moments;
+   step times, tokens/s, model FLOP/s, ``apply_updates`` ms and peak
+   memory; no checkpoint. Training runs the plain attention (the
+   kernels have no backward), so it launches no kernel;
+20. ``train_backend`` — ``examples/torch_train_backend.py`` on the card
+   (backend-13m, 300 steps on ``make_ecommerce(seed=4)``'s labelled
+   prompts), held-out accuracy above the majority class, a checkpoint
+   in a temporary directory restored through ``CheckpointManager``, and
+   ``examples/torch_serve_semantic_queries.py``'s plan (products ⋈
+   previews, two semantic filters) under ``none`` and ``cost`` through
+   ``ModelBackend`` on a K7/K8 engine and a plain one: answers, token
+   ids, rows, ``llm_calls`` and ``cache_hits`` identical; F1 against
+   the oracle and the YES share of the verdicts recorded;
+21. the ``kernels`` line: per kernel, its launches in the run of the
    path it belongs to (``e2e`` for K1-K4, ``e2e_hash`` for K5 and K6,
    ``serve`` for K7 and K8, ``serve_ssm`` for K9, the cold
    ``e2e_sharded`` run for K10; every path's counts
@@ -238,6 +266,19 @@ LLM_KERNELS = ("flash_attention", "decode_attention", "ssd_chunk")
 LONG_TOLERANCE = 1e-3
 # the hybrid's corpus queries through ModelBackend
 HYBRID_QIDS = ("Q13", "q8")
+# training: full-width stablelm-3b (the reference launch/train's default
+# arch) at TRAIN; the tiny configurations of TRAIN_EQUIV_ARCHS, each
+# with its microbatches and remat, card against CPU at TRAIN_EQUIV
+TRAIN_ARCH = "stablelm-3b"
+TRAIN = dict(batch_size=8, seq_len=128)
+TRAIN_EQUIV = dict(batch_size=4, seq_len=32)
+TRAIN_EQUIV_ARCHS = {
+    "stablelm-3b": dict(num_microbatches=2, remat="full"),
+    "olmoe-1b-7b": dict(num_microbatches=1, remat="dots")}
+TRAIN_TOLERANCE = 1e-4  # a loss on the card against the CPU's, relative
+MICROBATCH_TOLERANCE = 1e-5  # 2 microbatches against 1 (the reference's)
+REMAT_TOLERANCE = 1e-4  # grad norm under remat "full" against none
+BACKEND_STEPS = 300
 
 
 def emit(obj) -> None:
@@ -1961,9 +2002,9 @@ def record_routes(calls: list):
 
     def recorded(x, router, cap, k):
         probs = torch.softmax(x.float() @ router, dim=-1)
-        top = torch.topk(probs, min(k + 1, probs.shape[-1]), dim=-1)
-        calls.append((top.indices[:, :k].sort(dim=-1).values,
-                      top.values[:, k - 1] - top.values[:, -1]))
+        vals, ids = layers.top_k(probs, min(k + 1, probs.shape[-1]))
+        calls.append((ids[:, :k].sort(dim=-1).values,
+                      vals[:, k - 1] - vals[:, -1]))
         return route(x, router, cap, k)
 
     layers.moe_route = recorded
@@ -2296,6 +2337,392 @@ def run_llm_query(device, engines, scale: float = 0.15, qids=None) -> dict:
             "queries": {qid: {"rows": len(q["rows"]), **q["stats"],
                               "split": q["split"]}
                         for qid, q in kern["queries"].items()}}
+
+
+# ------------------------------------------------------------ training
+
+
+def _tree_to(tree, device):
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def _llm_launches() -> dict:
+    from repro_torch.kernels import _build
+
+    return {k: _build.LAUNCHES[k] for k in LLM_KERNELS}
+
+
+def train_losses(device, cfg, params, steps: int, **step_kw) -> list[float]:
+    """``steps`` steps of ``build_train_step`` on ``TokenStream(seed=7)``
+    at TRAIN_EQUIV's shape; the losses."""
+    import torch
+
+    from repro_torch.training import (
+        AdamWConfig, TokenStream, build_train_step, init_state)
+
+    opt = AdamWConfig(lr=1e-3)
+    data = TokenStream(cfg.vocab_size, seed=7, **TRAIN_EQUIV)
+    state = init_state(params, opt)
+    step = build_train_step(cfg, opt, **step_kw)
+    out = []
+    for i in range(steps):
+        batch = {"tokens": torch.from_numpy(data[i]["tokens"]).to(device)}
+        params, state, m = step(params, state, batch)
+        out.append(float(m["loss"]))
+    return out
+
+
+def _launch_train(args: list[str], env: dict) -> subprocess.Popen:
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=str(ROOT))
+
+
+def _finish(proc: subprocess.Popen, rc: int) -> str:
+    """The stdout of ``proc`` once it exits with ``rc``."""
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        proc.kill()
+    if proc.returncode != rc:
+        raise AssertionError(f"train_equiv: launch/train exited "
+                             f"{proc.returncode}, not {rc}: {stderr[-2000:]}")
+    return stdout
+
+
+def run_train_equiv(device, archs=TRAIN_EQUIV_ARCHS) -> dict:
+    """Three train steps of each tiny configuration in ``archs`` from one
+    set of weights (made on the CPU from seed 0), on ``device`` and on
+    the CPU: every loss within TRAIN_TOLERANCE relative. Then
+    ``launch/train`` on ``device``: the tiny mamba2 killed after step
+    6 (``--simulate-failure 6``, exit 42) and resumed ends on the same
+    ``final loss=`` line as an uninterrupted run, and its final
+    checkpoint is compared with the uninterrupted run's bit for bit
+    (recorded)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_tiny
+    from repro_torch.kernels import _build
+    from repro_torch.models import init_params
+    from repro_torch.training import CheckpointManager
+
+    out = {"shape": TRAIN_EQUIV, "steps": 3, "tolerance": TRAIN_TOLERANCE}
+    _build.reset_launches()
+    for arch, kw in archs.items():
+        cfg = get_tiny(arch)
+        host = init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+        losses = {str(d): train_losses(d, cfg, _tree_to(host, d), 3, **kw)
+                  for d in (device, torch.device("cpu"))}
+        got, want = losses[str(device)], losses["cpu"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        if not rel <= TRAIN_TOLERANCE:
+            raise AssertionError(f"train_equiv {arch}: losses {got} on "
+                                 f"{device} vs {want} on the CPU")
+        out[arch] = {"step": kw, "losses": got, "cpu_losses": want,
+                     "max_rel_diff": rel}
+    out["launches"] = _llm_launches()
+    dev = str(device)
+    common = ["--arch", "mamba2-370m", "--tiny", "--device", dev,
+              "--steps", "12", "--batch", "2", "--seq", "16",
+              "--ckpt-every", "3", "--log-every", "1"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = Path(tmp) / "a", Path(tmp) / "b"
+        # the uninterrupted run and the one that fails, side by side
+        p1 = _launch_train(common + ["--ckpt-dir", str(a)], env)
+        p2 = _launch_train(common + ["--ckpt-dir", str(b),
+                                     "--simulate-failure", "6"], env)
+        out1 = _finish(p1, 0)
+        _finish(p2, 42)
+        out3 = _finish(_launch_train(common + ["--ckpt-dir", str(b)], env), 0)
+        last = [o.strip().splitlines()[-1] for o in (out1, out3)]
+        if "resumed from step 6" not in out3 or \
+                "final loss=" not in last[0] or last[0] != last[1]:
+            raise AssertionError(f"train_equiv launch/train: resumed "
+                                 f"{last[1]!r} vs uninterrupted {last[0]!r}")
+        ta = dict(_items(CheckpointManager(a).restore(12)[0]))
+        tb = dict(_items(CheckpointManager(b).restore(12)[0]))
+        bitwise = ta.keys() == tb.keys() and all(
+            np.array_equal(v, tb[k]) for k, v in ta.items())
+    out["launcher"] = {"device": dev, "final_line": last[0],
+                       "resumed_line": last[1], "identical": True,
+                       "checkpoint_bitwise_equal": bitwise,
+                       "seconds": time.perf_counter() - t0}
+    return out
+
+
+def run_train(device, arch: str = TRAIN_ARCH, tiny: bool = False,
+              shape=TRAIN, further: int = 3) -> dict:
+    """Full-width training (``tiny`` for a CPU rehearsal) of ``arch``
+    on ``TokenStream(seed=7)`` batches at ``shape``: the gradient norm
+    with remat "full" and without remat (within REMAT_TOLERANCE); the
+    first step's loss with 2 microbatches and with 1 (within
+    MICROBATCH_TOLERANCE), from the same weights and zero state, on
+    batch 0; then ``further`` steps with 2 microbatches and fp32
+    moments, all on batch 1, each loss finite and below the one before
+    (on fresh batches of random tokens the loss moves less in a few
+    steps than from one batch to the next); one step with int8 moments
+    on batch 2. Step
+    times, tokens/s, model FLOP/s (8·N·tokens/s: forward, backward and
+    the recomputed forward), ``apply_updates`` ms (CUDA events around
+    it) and peak memory. No checkpoint is written."""
+    import torch
+
+    from repro_torch.configs import get_config, get_tiny
+    from repro_torch.kernels import _build
+    from repro_torch.models import count_params, init_params
+    from repro_torch.training import AdamWConfig, TokenStream, init_state
+    from repro_torch.training import train_step as TS
+    from repro_torch.training.optimizer import global_norm
+
+    cfg = get_tiny(arch) if tiny else get_config(arch)
+    cuda = device.type == "cuda"
+    n_params = count_params(cfg)
+    data = TokenStream(cfg.vocab_size, seed=7, **shape)
+    tokens = shape["batch_size"] * shape["seq_len"]
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(device)
+
+    def fresh():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        params = init_params(cfg, torch.Generator(device=device)
+                             .manual_seed(0), device=device)
+        sync()
+        return params
+
+    def batch(i):
+        return {"tokens": torch.from_numpy(data[i]["tokens"]).to(device)}
+
+    apply_ms = []
+    apply = TS.apply_updates
+
+    def timed_apply(*a):
+        if not cuda:
+            return apply(*a)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        res = apply(*a)
+        e1.record()
+        apply_ms.append((e0, e1))
+        return res
+
+    def timed_step(step, params, state, i):
+        sync()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch(i))
+        loss = float(m["loss"])
+        sync()
+        return params, state, loss, time.perf_counter() - t0
+
+    out = {"arch": cfg.name, "params": n_params, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "heads": cfg.num_heads,
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, **shape,
+           "tokens_per_step": tokens, "remat": "full",
+           "allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    _build.reset_launches()
+    TS.apply_updates = timed_apply
+    try:
+        params = fresh()
+        norms, grad_s = {}, {}
+        for remat in (None, "full"):
+            sync()
+            t0 = time.perf_counter()
+            _, grads = TS.value_and_grad(cfg, params, batch(0), remat)
+            norms[remat] = float(global_norm(grads))
+            sync()
+            grad_s[remat] = time.perf_counter() - t0
+            del grads
+        rel = abs(norms["full"] - norms[None]) / norms[None]
+        if not rel <= REMAT_TOLERANCE:
+            raise AssertionError(f"train: grad norm {norms['full']} under "
+                                 f"remat 'full' vs {norms[None]}")
+        out["grad_norm"] = {"none": norms[None], "full": norms["full"],
+                            "rel_diff": rel,
+                            "fwd_bwd_s": {"none": grad_s[None],
+                                          "full": grad_s["full"]}}
+        fp32 = AdamWConfig()
+        first = {}
+        for mb in (1, 2):
+            if mb == 2:
+                del params, state
+                params = fresh()
+            state = init_state(params, fp32)
+            step = TS.build_train_step(cfg, fp32, num_microbatches=mb,
+                                       remat="full")
+            params, state, first[mb], secs = timed_step(step, params,
+                                                        state, 0)
+        rel = abs(first[2] - first[1]) / abs(first[1])
+        if not rel <= MICROBATCH_TOLERANCE:
+            raise AssertionError(f"train: first loss {first[2]} with 2 "
+                                 f"microbatches vs {first[1]} with 1")
+        losses, times = [], [secs]
+        for _ in range(further):
+            params, state, loss, secs = timed_step(step, params, state, 1)
+            losses.append(loss)
+            times.append(secs)
+        if not all(np.isfinite(losses)) or \
+                any(b >= a for a, b in zip(losses, losses[1:])):
+            raise AssertionError(f"train: losses {losses} on one batch not "
+                                 f"finite and decreasing")
+        out["microbatch_first_loss"] = {"1": first[1], "2": first[2],
+                                        "rel_diff": rel}
+        out["losses_on_batch_1"] = losses
+        out["microbatches"] = 2
+        out["step_s"] = times
+        step_s = statistics.median(times[1:])
+        out["step_s_median"] = step_s
+        out["tokens_per_s"] = tokens / step_s
+        out["model_flop_per_s"] = 8 * n_params * tokens / step_s
+        fp32_apply = len(apply_ms)
+        del state
+        gc.collect()
+        int8 = AdamWConfig(moment_dtype="int8")
+        state = init_state(params, int8)
+        step = TS.build_train_step(cfg, int8, remat="full")
+        params, state, loss8, secs8 = timed_step(step, params, state, 2)
+        if not np.isfinite(loss8):
+            raise AssertionError(f"train: int8-moment loss {loss8}")
+        out["int8_step"] = {"loss": loss8, "step_s": secs8}
+    finally:
+        TS.apply_updates = apply
+    if cuda:
+        ms = [a.elapsed_time(b) for a, b in apply_ms]
+        out["apply_updates_ms"] = {"fp32": ms[:fp32_apply],
+                                   "int8": ms[fp32_apply:]}
+        out["peak_device_bytes"] = torch.cuda.max_memory_allocated(device)
+    out["launches"] = _llm_launches()
+    del params, state
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_train_backend(device, steps: int = BACKEND_STEPS) -> dict:
+    """``examples/torch_train_backend.py`` on ``device``: the 13M
+    backend trained ``steps`` steps on ``make_ecommerce(seed=4)``'s
+    labelled prompts (no kernel launches), its held-out accuracy beside
+    the majority class; checkpointed to a temporary directory, restored
+    through ``CheckpointManager`` and served by two engines, the kernel
+    path (K7/K8) and the plain path, through
+    ``examples/torch_serve_semantic_queries.py``'s products ⋈ previews
+    plan under ``none`` and ``cost``: answers, verdicts, rows,
+    ``llm_calls``, ``cache_hits`` and the token ids of every answer
+    identical between the paths; F1 against the oracle and the YES
+    share of the verdicts recorded."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.serving import ServingEngine
+    from repro_torch.training import CheckpointManager, HashTokenizer
+    from repro_torch.training.backend import (
+        EVAL_BATCHES, backend_config, train_backend)
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    try:
+        import torch_serve_semantic_queries as example
+    finally:
+        sys.path.remove(str(ROOT / "examples"))
+    cfg = backend_config()
+    _build.reset_launches()
+    log = []
+    params, info = train_backend(steps, device=device, log=log.append)
+    out = {**info, "train_launches": _llm_launches(), "log": log}
+    # the steps launch nothing; the held-out forward runs K7 per layer
+    want = {k: 0 for k in LLM_KERNELS}
+    if device.type == "cuda":
+        want["flash_attention"] = cfg.num_layers * EVAL_BATCHES
+    if out["train_launches"] != want:
+        raise AssertionError(f"train_backend: launches {out['train_launches']}"
+                             f" while training and scoring, not {want}")
+    if not info["accuracy"] > info["majority_share"]:
+        raise AssertionError(f"train_backend: held-out accuracy "
+                             f"{info['accuracy']} not above the majority "
+                             f"class {info['majority_share']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        CheckpointManager(tmp).save(steps, {"params": params},
+                                    extra={"arch": cfg.name,
+                                           "accuracy": info["accuracy"]})
+        tree, manifest = CheckpointManager(tmp).restore(device=device)
+    restored = tree["params"]
+    got = dict(_items(restored))
+    if got.keys() != dict(_items(params)).keys() or not all(
+            torch.equal(a, got[k]) for k, a in _items(params)):
+        raise AssertionError("train_backend: the restored checkpoint "
+                             "differs from the trained weights")
+    runs = {}
+    for impl in ("auto", "ref"):
+        eng = ServingEngine(cfg, restored, tokenizer=HashTokenizer(
+            cfg.vocab_size), batch_size=32, max_seq=48, max_new_tokens=2,
+            device=device, attn_impl=impl, ssd_impl=impl)
+        rec = record_serving(eng)
+        _build.reset_launches()
+        try:
+            res = example.serve_plan(eng, device)
+        finally:
+            unrecord_serving(eng)
+        runs[impl] = (res, rec["ids"], dict(_build.LAUNCHES))
+    (kern, k_ids, k_launch), (plain, p_ids, p_launch) = \
+        runs["auto"], runs["ref"]
+    for strategy, r in kern.items():
+        p = plain[strategy]
+        for key in ("answers", "verdicts", "llm_calls", "cache_hits"):
+            if r[key] != p[key]:
+                raise AssertionError(f"train_backend {strategy}: {key} "
+                                     f"differ between the kernel and plain "
+                                     f"paths")
+        if _freeze(r["rows"]) != _freeze(p["rows"]):
+            raise AssertionError(f"train_backend {strategy}: rows differ")
+    if k_ids != p_ids:
+        raise AssertionError("train_backend: token ids differ between the "
+                             "kernel and plain paths")
+    if device.type == "cuda":
+        require_launched("train_backend serve", k_launch, ATTN_KERNELS)
+        if any(p_launch[k] for k in LLM_KERNELS):
+            raise AssertionError(f"train_backend: the plain path launched "
+                                 f"{p_launch}")
+    verdicts = [v for r in kern.values() for v in r["verdicts"]]
+    yes = sum(v is True for v in verdicts) / max(len(verdicts), 1)
+    if not yes > 0:
+        raise AssertionError("train_backend: every verdict is NO")
+    out["serve"] = {
+        s: {"f1": r["f1"], "rows": len(r["rows"]),
+            "oracle_rows": r["oracle_rows"], "llm_calls": r["llm_calls"],
+            "cache_hits": r["cache_hits"],
+            "yes_share": sum(v is True for v in r["verdicts"])
+            / max(len(r["verdicts"]), 1),
+            "wall_s": r["wall_s"], "plain_wall_s": plain[s]["wall_s"]}
+        for s, r in kern.items()}
+    out["yes_share"] = yes
+    out["answers_compared"] = len(k_ids)
+    out["tokens_compared"] = sum(map(len, k_ids))
+    out["launches"] = k_launch
+    out["plain_launches"] = p_launch
+    out["identical"] = True
+    return out
+
+
+def _items(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _items(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
 
 
 # ------------------------------------------------- timing at main-path shapes
@@ -3102,6 +3529,21 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
+    tequiv = run_train_equiv(device)
+    emit({"phase": "train_equiv", **tequiv,
+          "seconds": time.perf_counter() - t0, "gpu": smi})
+    t0 = time.perf_counter()
+    train = run_train(device)
+    emit({"phase": "train", **train, "seconds": time.perf_counter() - t0,
+          "gpu": smi})
+    t0 = time.perf_counter()
+    tback = run_train_backend(device)
+    emit({"phase": "train_backend", **tback,
+          "seconds": time.perf_counter() - t0, "gpu": smi})
+    gc.collect()
+    torch.cuda.empty_cache()
+
     launches = dict(e2e["launches"])
     shapes = dict(e2e["shapes"])
     for k in ("segment_reduce", "radix_rank"):
@@ -3146,7 +3588,11 @@ def main() -> int:
                         "long_prefill_hybrid": long["hybrid"]["launches"],
                         "llm_query_hybrid": llm_h["launches"],
                         "serve_moe": moe["kernel"]["launches"],
-                        "llm_query_moe": llm_m["launches"]},
+                        "llm_query_moe": llm_m["launches"],
+                        "train_equiv": tequiv["launches"],
+                        "train": train["launches"],
+                        "train_backend": tback["train_launches"],
+                        "train_backend_serve": tback["launches"]},
                        serve["decode_lengths"], llm=llm_shapes,
                        n_shards=sharded["n_shards"])
     emit({"kernels": rows})

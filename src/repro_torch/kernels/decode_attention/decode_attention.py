@@ -22,6 +22,7 @@ import math
 import torch
 
 from .. import _build
+from ..util import refuse_autograd
 
 MAX_HEAD_DIM = 128
 MAX_GROUP = 32  # query heads per KV head
@@ -42,6 +43,7 @@ def decode_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     and, for window > 0, pos[b] - slot_pos[b,t] < window. Returns
     (B, H, d). Raises for a tensor off the card: there is no
     fallback. One memset and one kernel launch on the current stream."""
+    refuse_autograd("decode_attention_kernel", q, k, v)
     _build.check_cuda(q, "q", torch.float32, 3, contiguous=False)
     for t, name in ((k, "k"), (v, "v")):
         _build.check_cuda(t, name, torch.float32, 4, contiguous=False)

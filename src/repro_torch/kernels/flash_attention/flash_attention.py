@@ -25,6 +25,7 @@ import math
 import torch
 
 from .. import _build
+from ..util import refuse_autograd
 
 MAX_HEAD_DIM = 128
 
@@ -39,6 +40,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     positions before the query (the hybrid's sliding window); 0 is
     none. Returns (B, H, Sq, d), laid out like ``q``. Raises for a
     tensor off the card: there is no fallback."""
+    refuse_autograd("flash_attention_kernel", q, k, v)
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _build.check_cuda(t, name, torch.float32, 4, contiguous=False)
     B, H, Sq, d = q.shape

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from ..util import refuse_autograd
 
 MAX_CHUNK = 128
 MAX_HEAD_DIM = 128
@@ -60,6 +61,7 @@ def ssd_chunk_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     chunk_decay (b,nc,h), cum (b,s,h)), in one block per row, chunk and
     head group (``head_groups``). Raises for a tensor off the card:
     there is no fallback."""
+    refuse_autograd("ssd_chunk_kernel", x, dt, A, B, C)
     _build.check_cuda(x, "x", torch.float32, 4, contiguous=False)
     _build.check_cuda(dt, "dt", torch.float32, 3)
     _build.check_cuda(A, "A", torch.float32, 1)

@@ -52,6 +52,21 @@ def resolve_impl(impl: str, fallback: str, device=None) -> str:
     return "kernel"
 
 
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise when grad mode is on and an input requires grad. The CUDA
+    kernels launch on raw pointers, so their outputs carry no
+    ``grad_fn``: a training call would drop the gradients of every
+    weight upstream without a word. Training runs the plain versions
+    (``impl="ref"``), as the reference trains through its einsum
+    attention and ``ssd_chunked``."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward; an input requires grad "
+            f"with grad mode on (train through impl='ref', or call the "
+            f"kernel under torch.no_grad())")
+
+
 def check_int32_domain(total: int, device, what: str) -> None:
     """Raise when ``total`` output rows of device work on a CUDA device
     exceed what int32 indices address (2^30, the reference's skew

@@ -15,9 +15,15 @@ behind the serving tier and answer prompts, on the card unless ``--device cpu``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \\
         --tiny --device cpu --prompts "hello" "world"
 
-Dense, MoE, SSM and hybrid configurations are served. There are no
-trained weights to restore yet (``--ckpt`` waits for the training
-slice) and no model-parallel mesh (``--dp``/``--tp`` wait for it; the
+    # the trained 13M backend (examples/torch_train_backend.py)
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --ckpt artifacts/torch_backend_ckpt \\
+        --prompts "is product 3 electronics?"
+
+Dense, MoE, SSM and hybrid configurations are served, with random
+weights or, with ``--ckpt``, the trained semantic backend
+(``training/backend.py::backend_config``) restored from its checkpoint.
+There is no model-parallel mesh (``--dp``/``--tp`` wait for it; the
 partitioned data tier's mesh shards tables, not a model).
 """
 from __future__ import annotations
@@ -30,30 +36,42 @@ from ..configs import get_config, get_tiny
 from ..engine.table import resolve_device
 from ..models import init_params
 from ..serving.engine import ServingEngine
+from ..training.backend import backend_config
+from ..training.checkpoint import CheckpointManager
 from ..training.data import HashTokenizer
 
 
 def main(argv=None):
+    """Parse ``argv``, stand up the engine and print its answers."""
     ap = argparse.ArgumentParser(
         description="Serve a dense, MoE, SSM or hybrid LM with random "
-                    "weights (seed 0). "
-                    "Not ported: --ckpt (training slice), --dp/--tp "
-                    "(the model-parallel mesh).")
+                    "weights (seed 0), or the trained backend (--ckpt). "
+                    "Not ported: --dp/--tp (the model-parallel mesh).")
     ap.add_argument("--arch", default="olmoe-1b-7b",
                     help="a dense, MoE, SSM or hybrid configuration "
                          "(default olmoe-1b-7b)")
     ap.add_argument("--tiny", action="store_true")
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint dir of the trained backend (e.g. "
+                         "artifacts/torch_backend_ckpt)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--max-seq", type=int, default=64)
     ap.add_argument("--prompts", nargs="+", required=True)
     args = ap.parse_args(argv)
 
-    cfg = get_tiny(args.arch) if args.tiny else get_config(args.arch)
     dev = resolve_device(args.device)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = init_params(cfg, gen, device=dev)
-    print(f"[serve] random-weight {cfg.name} on {dev} (smoke mode)")
+    if args.ckpt:
+        cfg = backend_config()
+        tree, manifest = CheckpointManager(args.ckpt).restore(device=dev)
+        params = tree["params"]
+        print(f"[serve] restored {cfg.name} @ step {manifest['step']} "
+              f"on {dev}")
+    else:
+        cfg = get_tiny(args.arch) if args.tiny else get_config(args.arch)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = init_params(cfg, gen, device=dev)
+        print(f"[serve] random-weight {cfg.name} on {dev} (smoke mode)")
     engine = ServingEngine(cfg, params,
                            tokenizer=HashTokenizer(cfg.vocab_size),
                            batch_size=args.batch, max_seq=args.max_seq,

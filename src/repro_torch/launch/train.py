@@ -1,0 +1,124 @@
+"""Training entry point on one device, on the card unless ``--device cpu``.
+
+    # a tiny configuration on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \\
+        --tiny --device cpu --steps 200 --batch 8 --seq 64 \\
+        --ckpt-dir /tmp/ckpt
+
+    # stablelm-3b (the default) at full width on one card
+    PYTHONPATH=src python -m repro_torch.launch.train --steps 10 \\
+        --seq 128 --microbatches 2
+
+Fault tolerance: checkpoints are atomic and asynchronous
+(``training/checkpoint.py``); ``--simulate-failure K`` exits with code
+42 after step K; running the same command again resumes from the latest
+checkpoint and replays the exact batch schedule (step-addressable data),
+so the final ``loss=`` line equals an uninterrupted run's. Weights come
+from ``init_params`` with a generator seeded 0 on the device, the data
+from ``TokenStream(seed=7)``. ``--dp``/``--tp`` (an elastic
+model-parallel mesh) wait for the mesh slice and are refused.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import torch
+
+from ..configs import get_config, get_tiny
+from ..engine.table import resolve_device
+from ..models import init_params
+from ..training.checkpoint import CheckpointManager
+from ..training.data import TokenStream
+from ..training.optimizer import MOMENT_DTYPES, AdamWConfig, init_state
+from ..training.train_step import build_train_step
+
+
+def main(argv=None):
+    """Parse ``argv``, train (resuming from ``--ckpt-dir`` when it holds
+    a checkpoint) and return the last step's loss."""
+    ap = argparse.ArgumentParser(
+        description="Train an LM (dense, MoE, SSM or hybrid) on one "
+                    "device. Not ported: --dp/--tp (the model-parallel "
+                    "mesh).")
+    ap.add_argument("--arch", default="stablelm-3b")
+    ap.add_argument("--tiny", action="store_true",
+                    help="use the reduced same-family config")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--dp", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--moment-dtype", default="fp32", choices=MOMENT_DTYPES)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--simulate-failure", type=int, default=None,
+                    help="hard-abort at this step (fault-tolerance test)")
+    ap.add_argument("--log-every", type=int, default=10)
+    args = ap.parse_args(argv)
+    if args.dp != 1 or args.tp != 1:
+        ap.error("--dp/--tp need the model-parallel mesh, which is not "
+                 "ported; train on one device")
+
+    cfg = get_tiny(args.arch) if args.tiny else get_config(args.arch)
+    dev = resolve_device(args.device)
+    opt_cfg = AdamWConfig(lr=args.lr, moment_dtype=args.moment_dtype)
+    data = TokenStream(vocab_size=cfg.vocab_size, batch_size=args.batch,
+                       seq_len=args.seq, seed=7)
+
+    mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    start_step = 0
+    if mgr is not None and mgr.latest_step() is not None:
+        tree, manifest = mgr.restore(device=dev)
+        params, opt_state = tree["params"], tree["opt"]
+        start_step = int(manifest["step"])
+        print(f"[train] resumed from step {start_step}")
+    else:
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+        opt_state = init_state(params, opt_cfg)
+
+    step_fn = build_train_step(cfg, opt_cfg,
+                               num_microbatches=args.microbatches,
+                               remat=None)
+
+    t0 = time.perf_counter()
+    metrics = None
+    for step in range(start_step, args.steps):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in data[step].items()}
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        if (step + 1) % args.log_every == 0 or step == start_step:
+            dt = time.perf_counter() - t0
+            print(f"[train] step {step+1:5d} "
+                  f"loss={float(metrics['loss']):.4f} "
+                  f"gnorm={float(metrics['grad_norm']):.3f} "
+                  f"({dt/(step-start_step+1):.3f}s/step)", flush=True)
+        if mgr is not None and (step + 1) % args.ckpt_every == 0:
+            mgr.save_async(step + 1,
+                           {"params": params, "opt": opt_state},
+                           extra={"arch": cfg.name})
+        if args.simulate_failure is not None \
+                and step + 1 == args.simulate_failure:
+            print(f"[train] SIMULATED FAILURE at step {step+1}", flush=True)
+            if mgr is not None:
+                mgr.wait()
+            sys.exit(42)
+    if mgr is not None:
+        mgr.save(args.steps, {"params": params, "opt": opt_state},
+                 extra={"arch": cfg.name})
+        mgr.wait()
+    if metrics is None:
+        raise SystemExit(f"[train] nothing to run: already at step "
+                         f"{start_step} of {args.steps}")
+    print(f"[train] done: {args.steps} steps, "
+          f"final loss={float(metrics['loss']):.4f}")
+    return float(metrics["loss"])
+
+
+if __name__ == "__main__":
+    main()

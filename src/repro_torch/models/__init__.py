@@ -1,11 +1,12 @@
-"""The LM of the serving tier: config, parameters, layers,
-forward/prefill/decode (the dense, MoE, SSM and hybrid subset of the
-reference's ``repro.models``)."""
+"""The LM of the serving and training tiers: config, parameters,
+layers, forward/forward_loss/prefill/decode (the dense, MoE, SSM and
+hybrid subset of the reference's ``repro.models``)."""
 from .config import ModelConfig
 from .lm import (
     build_cache_spec,
     decode_step,
     forward,
+    forward_loss,
     init_cache,
     prefill,
 )
@@ -20,7 +21,8 @@ from .params import (
 
 __all__ = [
     "ModelConfig",
-    "build_cache_spec", "decode_step", "forward", "init_cache", "prefill",
+    "build_cache_spec", "decode_step", "forward", "forward_loss",
+    "init_cache", "prefill",
     "moe_block", "moe_reference",
     "build_params", "check_supported", "count_params", "init_params",
     "params_from_numpy",

@@ -220,6 +220,17 @@ def moe_capacity(cfg: ModelConfig, n_tokens: int) -> int:
                              / cfg.num_experts * cfg.moe_capacity_factor)), 1)
 
 
+def top_k(probs, k: int):
+    """The k largest of each row of ``probs`` and their indices, largest
+    first, ties to the lower index as ``jax.lax.top_k`` breaks them
+    (``torch.topk`` may pick any of the tied indices, which changes the
+    selected set, not only its order). A stable descending sort keeps
+    ties in index order, needs no host sync (the serving CUDA graphs
+    capture it) and passes gradients to the values."""
+    vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], ids[..., :k]
+
+
 def moe_route(x, router, cap: int, k: int):
     """The reference's routing and capacity dispatch (``_moe_local``'s
     first half) with every expert local; the expert-parallel slices wait
@@ -231,7 +242,7 @@ def moe_route(x, router, cap: int, k: int):
     T = x.shape[0]
     E = router.shape[-1]
     probs = torch.softmax(x.float() @ router, dim=-1)
-    gate, ids = torch.topk(probs, k, dim=-1)  # (T, k); only the set matters
+    gate, ids = top_k(probs, k)  # (T, k)
     gate = gate / gate.sum(dim=-1, keepdim=True)
     flat_ids = ids.reshape(-1)
     # stable, as jnp.argsort: an expert's rows stay in token order, which
@@ -288,7 +299,7 @@ def moe_reference(cfg: ModelConfig, p, x):
     B, S, D = x.shape
     xt = x.reshape(-1, D)
     probs = torch.softmax(xt.float() @ p["router"], dim=-1)
-    gate, ids = torch.topk(probs, cfg.experts_per_tok, dim=-1)
+    gate, ids = top_k(probs, cfg.experts_per_tok)
     gate = gate / gate.sum(dim=-1, keepdim=True)
     y = torch.zeros_like(xt)
     for e in range(cfg.num_experts):

@@ -4,6 +4,7 @@ reference's ``src/repro/models/lm.py`` those families run.
 
 Entry points
 ------------
+forward_loss(cfg, params, batch, remat)            -> scalar loss (training)
 forward(cfg, params, batch)                        -> (logits, h)
 prefill(cfg, params, batch, max_seq)               -> (logits_last, cache)
 decode_step(cfg, params, cache, tokens, pos)       -> (logits, cache)
@@ -15,16 +16,24 @@ init_cache / build_cache_spec                      -> the reference's
 
 ``batch`` is ``{"tokens": (B, S) int tensor}``. The reference's
 ``lax.scan`` over stacked layers is a Python loop over
-``params["blocks"][...][l]``; ``decode_step`` updates the cache in place
-(the reference returns a new one, which its engine donates) and returns
-the same dict. ``attn_impl`` picks the attention path and ``ssd_impl``
-the SSD path of every layer (see ``layers.py``).
+the layers of ``params["blocks"]`` (unbound once, so the gradients of
+the L layers land in the stacked ``(L, ...)`` leaves in one stack, and
+training keeps the reference's leaves); ``decode_step`` updates the
+cache in place (the reference returns a new one, which its engine
+donates) and returns the same dict. ``attn_impl`` picks the attention
+path and ``ssd_impl`` the SSD path of every layer (see ``layers.py``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from .config import ModelConfig
 from .layers import (
@@ -39,14 +48,22 @@ from .layers import (
 from .params import check_supported
 
 
-def _layer(tree: dict, l: int) -> dict:
-    """Layer ``l`` of the stacked block parameters."""
-    return {k: _layer(v, l) if isinstance(v, dict) else v[l]
-            for k, v in tree.items()}
+def _layers(tree: dict, n: int) -> list[dict]:
+    """The ``n`` layers of the stacked block parameters, each leaf
+    unbound along its first axis once (one stack in the backward, where
+    ``n`` slices would each build a zero (L, ...) gradient)."""
+    out: list[dict] = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = _layers(v, n) if isinstance(v, dict) else torch.unbind(v)
+        for layer, part in zip(out, parts):
+            layer[k] = part
+    return out
 
 
 def _embed_tokens(params, tokens):
-    return params["embed"][tokens.long()]
+    # a gather whose backward is deterministic on the card, where
+    # indexing's accumulating index_put_ adds with atomics
+    return F.embedding(tokens.long(), params["embed"])
 
 
 def _lm_logits(cfg, params, h):
@@ -108,26 +125,53 @@ def _write_kv(dst, src):
     dst[:, slots] = src[:, first:]
 
 
-def _blocks(cfg, params, h, attn_impl, ssd_impl, cache=None):
-    """Every layer over the full sequence; with ``cache`` each layer's
+# remat="dots": keep the outputs of matrix products without batch
+# dimensions and recompute the rest, the counterpart of the reference's
+# ``checkpoint_dots_with_no_batch_dims`` (the projections are ``mm``;
+# attention scores and expert products are ``bmm`` and are recomputed)
+_SAVE_DOTS = functools.partial(
+    create_selective_checkpoint_contexts,
+    [torch.ops.aten.mm.default, torch.ops.aten.addmm.default])
+REMATS = (None, "full", "dots")
+
+
+def _block(cfg, bp, h, attn_impl, ssd_impl, cache=None, l=0):
+    """One layer (the reference's ``_block_train``); with ``cache`` its
     roped K/V (``_write_kv``) and its SSM state and conv tail are
     written into layer ``l`` of the cache's leaves."""
-    for l in range(cfg.num_layers):
-        bp = _layer(params["blocks"], l)
-        mix, k, v, state, conv = _mix(
-            cfg, bp, rms_norm(h, bp["ln1"], cfg.norm_eps), attn_impl,
-            ssd_impl)
-        if cache is not None:
-            if k is not None:
-                _write_kv(cache["k"][l], k)
-                _write_kv(cache["v"][l], v)
-            if state is not None:
-                cache["state"][l] = state
-                cache["conv"][l] = conv
-        h = h + mix
-        f = _ffn(cfg, bp, h)
-        if f is not None:
-            h = h + f
+    mix, k, v, state, conv = _mix(
+        cfg, bp, rms_norm(h, bp["ln1"], cfg.norm_eps), attn_impl, ssd_impl)
+    if cache is not None:
+        if k is not None:
+            _write_kv(cache["k"][l], k)
+            _write_kv(cache["v"][l], v)
+        if state is not None:
+            cache["state"][l] = state
+            cache["conv"][l] = conv
+    h = h + mix
+    f = _ffn(cfg, bp, h)
+    if f is not None:
+        h = h + f
+    return h
+
+
+def _blocks(cfg, params, h, attn_impl, ssd_impl, cache=None,
+            remat: Optional[str] = None):
+    """Every layer over the full sequence (with ``cache``, see
+    ``_block``). ``remat`` recomputes each layer in the backward as the
+    reference's ``_scan_blocks`` checkpoints its scan body: "full"
+    keeps only the layer's input, "dots" also its unbatched matrix
+    products, None keeps everything."""
+    if remat not in REMATS:
+        raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
+    for l, bp in enumerate(_layers(params["blocks"], cfg.num_layers)):
+        if remat is None:
+            h = _block(cfg, bp, h, attn_impl, ssd_impl, cache, l)
+            continue
+        fn = functools.partial(_block, cfg, bp, attn_impl=attn_impl,
+                               ssd_impl=ssd_impl)
+        extra = {"context_fn": _SAVE_DOTS} if remat == "dots" else {}
+        h = checkpoint(fn, h, use_reentrant=False, **extra)
     return h
 
 
@@ -139,6 +183,37 @@ def forward(cfg: ModelConfig, params, batch, attn_impl: str = "auto",
     h = _blocks(cfg, params, h, attn_impl, ssd_impl)
     h = rms_norm(h, params["final_ln"], cfg.norm_eps)
     return _lm_logits(cfg, params, h), h
+
+
+def forward_loss(cfg: ModelConfig, params, batch,
+                 remat: Optional[str] = None):
+    """Next-token cross-entropy of ``batch["tokens"]`` (B, S): position
+    t predicts token t + 1, weighted by ``token != 0`` (padding), summed
+    in float32 and divided by max(sum of weights, 1), the reference's
+    ``forward_loss`` for the families without an image prefix
+    (``n_img`` = 0) or MTP heads, which ``check_supported`` refuses.
+
+    Attention and the SSD run their plain versions ("ref"): the grouped
+    einsum and ``ssd_chunked`` are the reference's own training path
+    (its ``forward`` never reaches a Pallas kernel), and the CUDA
+    kernels have no backward (their wrappers refuse grad mode)."""
+    check_supported(cfg)
+    tokens = batch["tokens"]
+    h = _embed_tokens(params, tokens)
+    h = _blocks(cfg, params, h, "ref", "ref", remat=remat)
+    h = rms_norm(h, params["final_ln"], cfg.norm_eps)
+    logits = _lm_logits(cfg, params, h)
+    S = tokens.shape[1]
+    labels = tokens[:, 1:].long()
+    return _xent(logits[:, :S - 1], labels, (labels != 0).float())
+
+
+def _xent(logits, labels, weights):
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = (logz - ll) * weights
+    return torch.sum(nll) / torch.clamp(torch.sum(weights), min=1.0)
 
 
 def build_cache_spec(cfg: ModelConfig, batch_size: int, max_seq: int
@@ -207,8 +282,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos,
     conv tail into ``cache`` in place; returns (logits (B, V), cache)."""
     h = _embed_tokens(params, tokens[:, None])
     window = _window(cfg)
-    for l in range(cfg.num_layers):
-        bp = _layer(params["blocks"], l)
+    for l, bp in enumerate(_layers(params["blocks"], cfg.num_layers)):
         x = rms_norm(h, bp["ln1"], cfg.norm_eps)
         if cfg.family != "ssm":
             a = attention_decode(cfg, bp["attn"], x, cache["k"][l],

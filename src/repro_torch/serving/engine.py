@@ -101,7 +101,9 @@ class ServingStats:
 class ServingEngine:
     """One model, one cache, two serving disciplines (see module doc).
     ``params`` must already live on ``device`` (default the card; a
-    missing card raises)."""
+    missing card raises). Its device functions run without autograd,
+    so weights that require grad (fresh from training) reach the
+    kernels, which refuse grad mode, as plain inputs."""
 
     def __init__(self, cfg: ModelConfig, params,
                  tokenizer: Optional[HashTokenizer] = None,
@@ -133,11 +135,13 @@ class ServingEngine:
         return self.batch_size * 8
 
     # ------------------------------------------------- device functions
+    @torch.no_grad()
     def _prefill(self, tokens: torch.Tensor):
         return prefill(self.cfg, self.params, {"tokens": tokens},
                        max_seq=self.cache_len, attn_impl=self.attn_impl,
                        ssd_impl=self.ssd_impl)
 
+    @torch.no_grad()
     def _decode(self, cache, tok, pos):
         return decode_step(self.cfg, self.params, cache, tok, pos,
                            attn_impl=self.attn_impl)

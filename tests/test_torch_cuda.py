@@ -14,7 +14,9 @@ wrapped ring too, and at its chunk edges: lengths around the chunk, a
 4104-position cache, a full 2048-slot ring, rings with dead chunks
 between live ones, CUDA-graph replays), K9 within ``ssd_cases.tolerance`` of its plain
 version over the ``ssd_cases`` sweep, the dense, SSM and hybrid
-LMs' kernel paths equal to their plain paths (K7/K8/K9), K10 bit-identical
+LMs' kernel paths equal to their plain paths (K7/K8/K9), K7/K8/K9
+refusing grad mode, tiny train steps on the card equal to the CPU's,
+K10 bit-identical
 to its plain version over the ``partition_cases`` sweep, and the
 partitioned data tier on four shards of one card (and on two cards,
 where there are two) equal to its plain path and to the single-device
@@ -782,6 +784,95 @@ def test_moe_block_on_the_card_is_deterministic(dev):
     a, b = moe_block(cfg, pd, x.to(dev)), moe_block(cfg, pd, x.to(dev))
     assert torch.equal(a, b)
     torch.testing.assert_close(a.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_autograd_on_the_card(dev):
+    """K7, K8 and K9 have no backward: with grad mode on and an input
+    that requires grad they raise and launch nothing; under
+    ``torch.no_grad()`` they launch once each."""
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        decode_attention_kernel,
+    )
+    from repro_torch.kernels.ssd.ssd import ssd_chunk_kernel
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn(2, 4, 16, 64, generator=g, device=dev,
+                    requires_grad=True)
+    kv = torch.randn(2, 2, 16, 64, generator=g, device=dev)
+    x = torch.randn(1, 64, 2, 16, generator=g, device=dev,
+                    requires_grad=True)
+    dt = torch.rand(1, 64, 2, generator=g, device=dev)
+    A = -torch.rand(2, generator=g, device=dev) - 1
+    B = torch.randn(1, 64, 16, generator=g, device=dev)
+    lengths = torch.full((2,), 16, dtype=torch.int32, device=dev)
+    calls = {"flash_attention": lambda: t_fa.flash_attention_kernel(
+                 q, kv, kv),
+             "decode_attention": lambda: decode_attention_kernel(
+                 q[:, :, 0], kv, kv, lengths),
+             "ssd_chunk": lambda: ssd_chunk_kernel(x, dt, A, B, B,
+                                                   chunk=64)}
+    for name, call in calls.items():
+        _build.reset_launches()
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        assert _build.LAUNCHES[name] == 0
+        with torch.no_grad():
+            call()
+        torch.cuda.synchronize(dev)
+        assert _build.LAUNCHES[name] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ("stablelm-3b", "olmoe-1b-7b"))
+def test_train_steps_on_the_card_match_the_cpu(dev, arch):
+    """Three ``build_train_step`` steps (2 microbatches, remat "full")
+    from one set of weights, on the card and on the CPU: every loss
+    within 1e-4 relative; the served model then runs the kernel path on
+    the trained tensors, even set to require grad (the engine serves
+    without autograd)."""
+    from repro_torch.configs import get_tiny
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServingEngine
+    from repro_torch.training import (
+        AdamWConfig,
+        TokenStream,
+        build_train_step,
+        init_state,
+    )
+
+    cfg = get_tiny(arch)
+    opt = AdamWConfig(lr=1e-3)
+    data = TokenStream(cfg.vocab_size, batch_size=4, seq_len=32, seed=7)
+    losses = {}
+    for device in ("cpu", dev):
+        params = _to(init_params(cfg, torch.Generator().manual_seed(0),
+                                 device="cpu"), device)
+        state = init_state(params, opt)
+        step = build_train_step(cfg, opt, num_microbatches=2, remat="full")
+        losses[str(device)] = []
+        for i in range(3):
+            batch = {"tokens": torch.from_numpy(data[i]["tokens"]).to(
+                device)}
+            params, state, m = step(params, state, batch)
+            losses[str(device)].append(float(m["loss"]))
+    np.testing.assert_allclose(losses[str(dev)], losses["cpu"], rtol=1e-4)
+    for v in _leaves(params):
+        v.requires_grad_(True)  # the engine serves them without autograd
+    _build.reset_launches()
+    eng = ServingEngine(cfg, params, batch_size=4, max_seq=24, device=dev)
+    assert all(eng.answer(["card train probe", "two words here"]))
+    assert _build.LAUNCHES["flash_attention"] > 0
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from _leaves(v) if isinstance(v, dict) else (v,)
 
 
 @pytest.mark.cuda

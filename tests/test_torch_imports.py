@@ -1,7 +1,8 @@
-"""Import hygiene of the port: no module of ``src/repro_torch`` and
-neither ``chip_smoke.py`` nor ``chip_sweep.py`` imports JAX or the JAX
-package (``repro``), and the whole package imports on a machine without
-triton, nvcc or CUDA."""
+"""Import hygiene of the port: no module of ``src/repro_torch``, no
+example of the port (``examples/torch_*.py``) and neither
+``chip_smoke.py`` nor ``chip_sweep.py`` imports JAX or the JAX package
+(``repro``), and the whole package imports on a machine without triton,
+nvcc or CUDA."""
 import ast
 import os
 import subprocess
@@ -18,8 +19,9 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "chip_sweep.py"]
+    return (sorted(PORT.rglob("*.py"))
+            + sorted((ROOT / "examples").glob("torch_*.py"))
+            + [ROOT / "chip_smoke.py", ROOT / "chip_sweep.py"])
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -50,8 +52,14 @@ def test_port_files_exist():
                 "serving/scheduler.py", "serving/engine.py",
                 "launch/serve.py", "kernels/flash_attention/ops.py",
                 "kernels/decode_attention/ops.py", "sharding/data.py",
-                "kernels/partition/ops.py", "kernels/partition_cases.py"):
+                "kernels/partition/ops.py", "kernels/partition_cases.py",
+                "training/optimizer.py", "training/train_step.py",
+                "training/checkpoint.py", "training/backend.py",
+                "launch/train.py"):
         assert PORT / rel in files, rel
+    for example in ("torch_train_backend.py",
+                    "torch_serve_semantic_queries.py"):
+        assert ROOT / "examples" / example in files, example
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -123,3 +123,53 @@ def test_capacity_at_the_served_shapes():
         assert moe_capacity(cfg, n) == max(int(np.ceil(
             n * ref.experts_per_tok / ref.num_experts
             * ref.moe_capacity_factor)), 1)
+
+
+def tie_router(kind: str, d: int, e: int) -> np.ndarray:
+    """A router whose probabilities tie: ``"zero"`` ties all ``e``
+    experts; ``"kth"`` (x positive, so expert e's logit is w_e·sum(x))
+    ties the 2nd to 4th largest (experts 3, 4 and 5), so with k = 2 the
+    tie straddles the k-th and (k+1)-th place."""
+    if kind == "zero":
+        return np.zeros((d, e), np.float32)
+    w = np.array([0.1, 0.9, 0.1, 0.5, 0.5, 0.5, 0.2, 0.3], np.float32)
+    return np.repeat(w[None, :e], d, axis=0) / np.float32(np.sqrt(d))
+
+
+@pytest.mark.parametrize("cf", (None, 1.0), ids=("no_drops", "drops"))
+@pytest.mark.parametrize("kind", ("zero", "kth"))
+def test_moe_top_k_ties_go_to_the_lower_expert(kind, cf):
+    """Tied router probabilities go to the lower expert index, as
+    ``jax.lax.top_k`` sends them: the selected set, and at capacity
+    factor 1.0 the rows each expert keeps, are the reference's.
+    ``torch.topk`` may pick any tied index (on eight equal
+    probabilities, k = 2, it gave experts 6 and 5), and then
+    ``moe_block`` missed by O(1)."""
+    cfg, ref_cfg, p, _, _ = setup("no_drops")
+    if cf is not None:
+        cfg = cfg.replace(moe_capacity_factor=cf)
+        ref_cfg = ref_cfg.replace(moe_capacity_factor=cf)
+    assert (cfg.num_experts, cfg.experts_per_tok) == (8, 2)
+    p = dict(p, router=tie_router(kind, cfg.d_model, cfg.num_experts))
+    x = np.random.default_rng(3).standard_normal(
+        (2, 16, cfg.d_model)).astype(np.float32)
+    if kind == "kth":
+        x = np.abs(x)
+    rp = jax.tree.map(jnp.asarray, p)
+    port_p = pm.params_from_numpy(p, "cpu")
+    xt = torch.as_tensor(x)
+    want = np.asarray(moe_block(ref_cfg, POLICY, rp, jnp.asarray(x)))
+    np.testing.assert_allclose(pm.moe_block(cfg, port_p, xt).numpy(), want,
+                               **TOL)
+    dense = np.asarray(moe_reference(ref_cfg, rp, jnp.asarray(x)))
+    np.testing.assert_allclose(pm.moe_reference(cfg, port_p, xt).numpy(),
+                               dense, **TOL)
+    T, k = 32, cfg.experts_per_tok
+    cap = moe_capacity(cfg, T)
+    _, _, valid, toks = moe_route(xt.reshape(T, -1), port_p["router"],
+                                  cap, k)
+    got = {(int(t), e) for e in range(cfg.num_experts)
+           for t, ok in zip(toks[e].tolist(), valid[e].tolist()) if ok}
+    assert got == kept_numpy(x.reshape(T, -1), p["router"], cap, k)
+    first = {e for t, e in got if t == 0}
+    assert first == ({0, 1} if kind == "zero" else {1, 3})
