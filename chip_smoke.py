@@ -30,6 +30,9 @@ Phases, each printing one JSON line:
    ``repro_torch.kernels.radix_cases``: sizes around its tile, five
    digit kinds, B in {1, 4, 7, 256, 1024}, each case repeated 20 times
    (at B <= 32 also equal to K10), graph replays and two streams;
+   K10 (a one-pass look-back rank) also over ``partition_cases``' sizes
+   around its tile, each case repeated 20 times, graph replays and two
+   streams;
    K5 segmented reduction over {sum, min, max} x {int32, float32} and
    G in {1, 16, 4097, 2^20} with NaN, ±inf, -0.0, empty segments and a
    hot segment — bit-identical except float32 sums, which are held to
@@ -185,12 +188,13 @@ Phases, each printing one JSON line:
    CUDA-graph replays, so no host work is counted, except K3's
    ``torch.unique_consecutive``, which syncs the host and is timed as
    one eager call), plus the wrapper's
-   eager call time; the scans (K1, K3, K4), K5, K6, K7, K8 and K9 also
-   list their device activity over 20 calls under ``torch.profiler``
-   (``device_kernels``: each kernel and memset with its count and device
-   time per launch, beside the launches the wrappers counted; K3, K5,
-   K6, K7, K8 and K9 must show one data kernel per call, K3, K5, K6 and
-   K8 at most one memset beside it); K5 also at the radix histograms'
+   eager call time; the scans (K1, K3, K4), K5, K6, K7, K8, K9 and K10
+   also list their device activity over 20 calls under
+   ``torch.profiler`` (``device_kernels``: each kernel and memset with
+   its count and device time per launch, beside the launches the
+   wrappers counted; K3, K5, K6, K7, K8, K9 and K10 must show one data
+   kernel per call, K3, K5, K6, K8 and K10 at most one memset beside
+   it); K5 also at the radix histograms'
    shape (``radix_histogram``: int32 ones into 256 buckets, with
    ``index_add_`` as its library call and ``torch.bincount`` beside it,
    eager, since it syncs the host); K7 and K9, which run
@@ -793,6 +797,55 @@ def check_radix(device, sizes=None, repeats=None, seed: int = 3):
                 cases += SC.graph_replays(kernel, xs, wants, RC.REPLAYS)
                 cases += SC.two_streams(kernel, xs, wants)
     if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return cases
+
+
+def check_shard(device, sizes=None, repeats=None, seed: int = 4):
+    """K10 over ``partition_cases``: every size, shard count,
+    destination kind and offset kind, each call repeated ``repeats``
+    times against one plain result with one launch counted per call,
+    and on a card the graph replays and two streams at P = 4 and 32.
+    Returns the cases compared."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import partition_cases as PC
+    from repro_torch.kernels import radix_cases as RC
+    from repro_torch.kernels import scan_cases as SC
+    from repro_torch.kernels.partition.partition import shard_rank_kernel
+    from repro_torch.kernels.partition.ref import shard_rank_torch
+
+    sizes = PC.SIZES if sizes is None else sizes
+    repeats = PC.REPEATS if repeats is None else repeats
+    g = torch.Generator(device=device).manual_seed(seed)
+    cases = 0
+    for n, p, dkind, bkind in PC.sweep(sizes):
+        d = PC.dest_case(dkind, n, p, g, device)
+        b = PC.base_case(bkind, d, p, g)
+        want = shard_rank_torch(d, b, p)
+        before = _build.LAUNCHES["shard_rank"]
+        for r in range(repeats):
+            _same(shard_rank_kernel(d, b), want,
+                  f"K10 n={n} p={p} {dkind} {bkind} rep {r}")
+        launched = _build.LAUNCHES["shard_rank"] - before
+        if device.type == "cuda" and launched != repeats:
+            raise AssertionError(f"K10: {launched} launches for {repeats} "
+                                 f"calls")
+        cases += repeats
+    if device.type == "cuda":
+        for n in sizes:
+            for p in (4, 32):
+                ds = [PC.dest_case(k, n, p, g, device)
+                      for k in ("uniform", "half")]
+                bases = [PC.base_case(k, d, p, g)
+                         for k, d in zip(PC.BASES, ds)]
+                xs = [RC.packed(d, b) for d, b in zip(ds, bases)]
+                wants = [shard_rank_torch(d, b, p)
+                         for d, b in zip(ds, bases)]
+                kernel = RC.unpacking(shard_rank_kernel, n)
+                cases += SC.graph_replays(kernel, xs, wants, PC.REPLAYS)
+                cases += SC.two_streams(kernel, xs, wants)
         torch.cuda.synchronize(device)
     return cases
 
@@ -3027,7 +3080,10 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
             k6_at_b_eq_p_ms=time_ms(lambda: radix_rank_kernel(dest, base)),
             at_p32_ms=time_ms(lambda: shard_rank_kernel(d32, b32)),
             at_p32_plain_ms=time_ms(lambda: shard_rank_torch(d32, b32, 32)),
-            k6_at_p32_ms=time_ms(lambda: radix_rank_kernel(d32, b32)))
+            k6_at_p32_ms=time_ms(lambda: radix_rank_kernel(d32, b32)),
+            device_kernels=one_data_kernel(
+                "K10", lambda: shard_rank_kernel(dest, base),
+                "shard_rank_kernel", memset=True))
         del dest, base, d32, b32
 
     # K7 at a full admission: the (B, S, H, d) projections as the model
@@ -3339,6 +3395,7 @@ def main() -> int:
     sys.path.insert(0, str(src))
     from repro_torch.kernels import _build
     from repro_torch.kernels import attention_cases as AC
+    from repro_torch.kernels import partition_cases as PC
     from repro_torch.kernels import radix_cases as RC
     from repro_torch.kernels import reduce_cases as RD
     from repro_torch.kernels import scan_cases as SC
@@ -3374,6 +3431,12 @@ def main() -> int:
                              f"library's K6 tile")
     radix = check_radix(device)
     cases["radix_rank"] += radix
+    if lib.repro_shard_rank_tiles(PC.TILE) != 1 or \
+            lib.repro_shard_rank_tiles(PC.TILE + 1) != 2:
+        raise AssertionError(f"partition_cases.TILE {PC.TILE} is not the "
+                             f"library's K10 tile")
+    shard = check_shard(device)
+    cases["shard_rank"] += shard
     if (lib.repro_segment_reduce_batch(),
             lib.repro_segment_reduce_shared_max()) != (RD.BATCH,
                                                        RD.SHARED_MAX):
@@ -3395,6 +3458,11 @@ def main() -> int:
                     "kinds": list(RC.KINDS), "buckets": list(RC.BUCKETS),
                     "repeats": RC.REPEATS, "graph_replays": RC.REPLAYS,
                     "streams": 2, "cases": radix},
+          "shard": {"tile": PC.TILE, "sizes": list(PC.SIZES),
+                    "shards": list(PC.SHARDS), "dests": list(PC.DESTS),
+                    "bases": list(PC.BASES), "repeats": PC.REPEATS,
+                    "graph_replays": PC.REPLAYS, "streams": 2,
+                    "cases": shard},
           "reduce": {"batch": RD.BATCH, "sizes": list(RD.SIZES),
                      "segments": list(RD.SEGMENTS),
                      "id_kinds": list(RD.ID_KINDS),

@@ -1,25 +1,30 @@
-"""Time K3 (group boundaries) and K5 (segmented reduction) on one CUDA
-card at the shapes their main paths give them, for this tree's kernels,
-for the same sources rebuilt with one design choice changed, and for
-another tree's kernels:
+"""Time K3 (group boundaries), K5 (segmented reduction), K10 (shard
+rank) and K6 (radix rank) on one CUDA card at the shapes their main
+paths give them, for this tree's kernels, for the same sources rebuilt
+with one design choice changed, and for another tree's kernels:
 
-    python chip_sweep.py [--root DIR ...] [--rounds 2]
+    python chip_sweep.py [--root DIR ...] [--rounds 2] [--variant NAME ...]
 
 Shapes: K3 at e2e's largest build, (12,584,948,) sorted keys with runs
 of ~4 (``chip_smoke.kernel_rows``' input); K5 at e2e_hash's group-by,
 (5,768,831,) float32 rows into 120 groups (max), and at its radix
 histograms, (4,194,304,) int32 ones over 8-bit digits into 256 buckets
-(sum); K1 at 2^24 0/1 flags beside them, the look-back's other client.
-Each time is ``chip_smoke.time_ms`` (the median of 30 samples of 20
-CUDA-graph replays).
+(sum); K1 at 2^24 0/1 flags beside them, the look-back's other client;
+K10 at e2e_sharded's source block, (4,194,304,) uniform destinations
+into P = 4 fixed-stride buckets, and into P = 32, each with K6 over the
+same B = P buckets beside it; K6 at e2e_hash's largest radix pass,
+(4,194,304,) uniform 8-bit digits into 256 buckets. Each time is
+``chip_smoke.time_ms`` (the median of 30 samples of 20 CUDA-graph
+replays).
 
 The variants (``VARIANTS``) copy ``src/repro_torch/csrc`` under the
 git-ignored ``build/sweep/``, change one design choice there (a
 ``constexpr``) and build the library from the copy. Every tree and
 variant is timed in a process of its own, all of them in turn,
-``--rounds`` times. Prints one JSON line per measurement, then the
-card's name and power limit. Needs a CUDA card; imports nothing of the
-JAX package.
+``--rounds`` times; ``--variant`` runs only the named variants (all by
+default, none with ``--variant none``). Prints one JSON line per
+measurement, then the card's name and power limit. Needs a CUDA card;
+imports nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -49,6 +54,25 @@ VARIANTS = {
     "k5_blocks_8": ("segment_reduce.cu", [
         ("constexpr int kBlocksPerSm = 4;",
          "constexpr int kBlocksPerSm = 8;")]),
+    # K10's peers above kPerBucketMax buckets: __match_any_sync instead
+    # of one ballot per bucket bit
+    "k10_match_any": ("shard_rank.cu", [
+        ("constexpr bool kMatchAny = false;",
+         "constexpr bool kMatchAny = true;")]),
+    # K10's per-bucket ballots (and register counts) up to 8 buckets
+    "k10_per_bucket_8": ("shard_rank.cu", [
+        ("constexpr int kPerBucketMax = 4;",
+         "constexpr int kPerBucketMax = 8;")]),
+    # K10's look-back window: one warp or four read a row of status words
+    "k10_window_1": ("shard_rank.cu", [
+        ("constexpr int kWindowWarps = kWarps;",
+         "constexpr int kWindowWarps = 1;")]),
+    "k10_window_4": ("shard_rank.cu", [
+        ("constexpr int kWindowWarps = kWarps;",
+         "constexpr int kWindowWarps = 4;")]),
+    # K10's tile: rows per lane (the tile is 256 times as many rows)
+    "k10_runs_16": ("shard_rank.cu", [
+        ("constexpr int kRuns = 32;", "constexpr int kRuns = 16;")]),
 }
 
 
@@ -78,10 +102,14 @@ def measure(src: Path, csrc: Path | None) -> dict:
     sys.path.insert(0, str(src))
     import chip_smoke
     from repro_torch.kernels import _build
+    from repro_torch.kernels import radix_cases as RC
     from repro_torch.kernels.compact.compact import prefix_count_kernel
+    from repro_torch.kernels.hash_join.hash_join import (
+        radix_rank_kernel, radix_rank_torch)
     from repro_torch.kernels.hash_dedup.group_build import (
         group_boundaries_kernel)
     from repro_torch.kernels.hash_dedup.ref import group_boundaries_ref
+    from repro_torch.kernels.partition.partition import shard_rank_kernel
     from repro_torch.kernels.segmented_reduce.ref import segment_reduce_torch
     from repro_torch.kernels.segmented_reduce.segmented_reduce import (
         segment_reduce_kernel)
@@ -122,6 +150,27 @@ def measure(src: Path, csrc: Path | None) -> dict:
     flags = torch.randint(0, 2, (1 << 24,), generator=g, device=dev,
                           dtype=torch.int32)
     out["k1_ms"] = chip_smoke.time_ms(lambda: prefix_count_kernel(flags))
+    n = 1 << 22
+    for p in (4, 32):
+        dest = torch.randint(0, p, (n,), generator=g, device=dev,
+                             dtype=torch.int32)
+        base = torch.arange(p, dtype=torch.int32, device=dev) * n
+        got = shard_rank_kernel(dest, base)
+        if not torch.equal(got, radix_rank_torch(dest, base)) or \
+                not torch.equal(got, radix_rank_kernel(dest, base)):
+            raise AssertionError(f"K10 at P = {p} differs from its plain "
+                                 f"version or from K6")
+        out[f"k10_p{p}_ms"] = chip_smoke.time_ms(
+            lambda: shard_rank_kernel(dest, base))
+        out[f"k6_b{p}_ms"] = chip_smoke.time_ms(
+            lambda: radix_rank_kernel(dest, base))
+    digit = torch.randint(0, 256, (n,), generator=g, device=dev,
+                          dtype=torch.int32)
+    base = RC.exclusive_bases(digit, 256)
+    if not torch.equal(radix_rank_kernel(digit, base),
+                       radix_rank_torch(digit, base)):
+        raise AssertionError("K6 differs from its plain version")
+    out["k6_ms"] = chip_smoke.time_ms(lambda: radix_rank_kernel(digit, base))
     return out
 
 
@@ -130,6 +179,8 @@ def main() -> int:
     ap.add_argument("--root", action="append", default=[],
                     help="another tree to time (its src/repro_torch)")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--variant", action="append", choices=[*VARIANTS, "none"],
+                    help="time only these variants (default: all)")
     ap.add_argument("--child", nargs=2, metavar=("SRC", "CSRC"))
     args = ap.parse_args()
     if args.child:
@@ -144,7 +195,7 @@ def main() -> int:
         return 2
     runs = [("this tree", ROOT / "src", "-")]
     runs += [(name, ROOT / "src", str(variant_csrc(name)))
-             for name in VARIANTS]
+             for name in args.variant or VARIANTS if name != "none"]
     runs += [(root, Path(root).resolve() / "src", "-") for root in args.root]
     for r in range(args.rounds):
         for label, src, csrc in runs:

@@ -28,15 +28,14 @@
 //   1. takes the next tile of kTile rows from an atomic counter, so every
 //      earlier tile has started and a look-back never waits on a tile
 //      that is not resident (the rule of scan_lookback.cuh);
-//   2. ranks inside the tile as K10 does (shard_rank.cu), with the
-//      counter rows widened to B buckets: each warp holds a contiguous
-//      run of kWarpRows rows in registers (coalesced 4-byte loads, kRuns
-//      in flight per lane), and per 32 rows one ballot per digit bit
-//      groups the lanes by digit (__match_any_sync, which K10 uses, slows
-//      with the distinct digits in a warp) and each group's lowest lane
-//      adds the group's size to its warp's counter of that digit
-//      (distinct digits, distinct counters: no atomics, no block barrier
-//      in the walk);
+//   2. ranks inside the tile: each warp holds a contiguous run of
+//      kWarpRows rows in registers (coalesced 4-byte loads, kRuns in
+//      flight per lane: bucket_rank.cuh's load_run, which K10 shares),
+//      and per 32 rows one ballot per digit bit groups the lanes by digit
+//      (peers_of; __match_any_sync slows with the distinct digits in a
+//      warp) and each group's lowest lane adds the group's size to its
+//      warp's counter of that digit (distinct digits, distinct counters:
+//      no atomics, no block barrier in the walk);
 //   3. turns the warps' counters into per-warp offsets inside the tile,
 //      one thread per bucket, and publishes the tile's count of each
 //      bucket as a 64-bit flag-and-value status word (flag A; tile 0
@@ -72,11 +71,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bucket_rank.cuh"
 #include "scan_lookback.cuh"
 
 namespace {
 
 namespace lb = repro::lookback;
+namespace rk = repro::rank;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -86,37 +87,7 @@ constexpr int kTile = kWarps * kWarpRows;  // rows per block
 constexpr int kMaxBuckets = 1024;
 constexpr int kBucketsPerThread = kMaxBuckets / kThreads;
 constexpr int kWindow = 8;  // predecessors a look-back reads at once
-constexpr unsigned kFull = 0xffffffffu;
-
-// This lane's rows of the warp's run [lo, lo + kWarpRows): row
-// lo + 32 j + lane in d[j], -1 past the end or outside [0, buckets).
-__device__ __forceinline__ void load_run(const int* __restrict__ digits,
-                                         int64_t lo, int n, int buckets,
-                                         int (&d)[kRuns]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int j = 0; j < kRuns; ++j) {
-    const int64_t i = lo + j * 32 + lane;
-    const int v = i < n ? __ldg(digits + i) : -1;
-    d[j] = static_cast<unsigned>(v) < static_cast<unsigned>(buckets) ? v
-                                                                      : -1;
-  }
-}
-
-// The lanes whose key equals this lane's (keys < 2^bits), from one
-// ballot per key bit. __match_any_sync does the same in one instruction,
-// but its time grows with the distinct keys in the warp: at 256 uniform
-// buckets nearly every lane holds its own.
-__device__ __forceinline__ unsigned peers_of(int key, int bits) {
-  unsigned peers = kFull;
-#pragma unroll 4
-  for (int i = 0; i < bits; ++i) {
-    const bool one = (key >> i) & 1;
-    const unsigned set = __ballot_sync(kFull, one);
-    peers &= one ? set : ~set;
-  }
-  return peers;
-}
+using rk::kFull;
 
 // Adds the run's rows to the warp's counters wc[bucket]; keeps each
 // step's peer mask (the lanes sharing the row's bucket; rows with no
@@ -127,7 +98,7 @@ __device__ __forceinline__ void count_run(const int (&d)[kRuns], int* wc,
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int j = 0; j < kRuns; ++j) {
-    peers[j] = peers_of(d[j] >= 0 ? d[j] : buckets, bits);
+    peers[j] = rk::peers_of(d[j] >= 0 ? d[j] : buckets, bits);
     if (d[j] >= 0 && __ffs(peers[j]) - 1 == lane) {
       wc[d[j]] += __popc(peers[j]);
     }
@@ -187,7 +158,7 @@ radix_rank_kernel(const int* __restrict__ digits,
   const int64_t lo = static_cast<int64_t>(tile) * kTile + warp * kWarpRows;
   int d[kRuns];
   unsigned peers[kRuns];
-  load_run(digits, lo, n, buckets, d);
+  rk::load_run(digits, lo, n, buckets, d);
   count_run(d, wc, buckets, 32 - __clz(buckets), peers);
   __syncthreads();
 

@@ -73,10 +73,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "scan.cuh"  // warp_inclusive_scan
-
 namespace repro {
 namespace lookback {
+
+__device__ __forceinline__ int warp_inclusive_scan(int v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += t;
+  }
+  return v;
+}
 
 constexpr int kThreads = 256;
 constexpr int kItems = 32;                    // per thread

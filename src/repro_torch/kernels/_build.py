@@ -65,6 +65,7 @@ SIGNATURES = {
     "repro_ssd_chunk": (_P,) * 9 + (_I,) * 7 + (_LL,) * 7 + (_P,),
     # b, chunks, h, chunk, p, n -> head groups
     "repro_ssd_groups": (_I,) * 6,
+    # dest, base, out, scratch (1 + tiles * P int64 words), n, P, stream
     "repro_shard_rank": (_P, _P, _P, _P, _I, _I, _P),
     "repro_shard_rank_tiles": (_I,),
 }

@@ -4,14 +4,15 @@ kernel (``csrc/shard_rank.cu``).
 Replaces ``src/repro/kernels/partition/partition.py::shard_rank_kernel``,
 which carries the (P,) per-bucket running counts across its sequential
 grid in VMEM and ranks inside a tile through a (rows x P) one-hot
-cumsum. On Hopper, for P <= 32 shard buckets: each warp holds a
-contiguous run of 512 rows in registers and one row of 32 counters in
-shared memory (every bucket); per-tile bucket counts from
-``__match_any_sync`` groups, a per-bucket scan of the (P, tiles) count
-matrix in tile order, then the in-tile rank walked warp by warp with no
-block-wide barrier. It is not K6 (``radix_rank.cu``), whose shared
-histograms, per-warp rank state and block-synchronised 256-row steps
-are sized for 256 buckets. Memory-bound: 8N bytes, 12N moved.
+cumsum. On Hopper, for P <= 32 shard buckets: one memset and one launch,
+a decoupled look-back over per-bucket status words. Each warp holds a
+contiguous run of 1024 rows in registers and ranks it 32 rows a step
+(one ballot per bucket up to 4 buckets, per bucket bit above); each
+8192-row tile publishes its bucket counts, its 8 warps look back over
+the predecessors' words (a window of 8 x 32 words covers 256 / P
+predecessors of every bucket, P rounded up to a power of two), and each
+row then lands at its bucket's offset plus its rank, from registers.
+Bound and traffic: 8N bytes, the destinations read once.
 """
 from __future__ import annotations
 
@@ -43,10 +44,12 @@ def shard_rank_kernel(dest: torch.Tensor, base: torch.Tensor
     if n == 0:
         return out
     tiles = _build.library().repro_shard_rank_tiles(n)
-    counts = torch.empty(tiles * n_shards, dtype=torch.int32,
-                         device=dest.device)
+    # the tile counter and one status word per (tile, bucket), zeroed by
+    # the call's own memset
+    scratch = torch.empty(1 + tiles * n_shards, dtype=torch.int64,
+                          device=dest.device)
     _build.call("repro_shard_rank", dest.device, _build.ptr(dest),
-                _build.ptr(base), _build.ptr(out), _build.ptr(counts), n,
+                _build.ptr(base), _build.ptr(out), _build.ptr(scratch), n,
                 n_shards, _build.stream(dest))
     _build.count_launch("shard_rank", dest.shape)
     return out

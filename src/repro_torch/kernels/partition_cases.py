@@ -1,5 +1,7 @@
-"""The sweep that holds K10 (the stable shard rank) to its plain version
-bit for bit: one copy for the card tests and for ``chip_smoke.py``.
+"""The sweep that holds K10 (the stable shard rank, a one-pass decoupled
+look-back over per-bucket status words, ``csrc/shard_rank.cu``) to its
+plain version bit for bit: one copy for the card tests and for
+``chip_smoke.py``.
 
 Shard counts P in {1, 2, 4, 8, 32} (32 is the kernel's limit: one warp
 holds every bucket); destinations uniform over [0, P), all in one
@@ -7,11 +9,28 @@ bucket, or half in one bucket and the rest uniform; offsets
 ``arange(P) * N`` (the exchange's fixed-stride buckets, each with room
 for every row) or random exclusive offsets (the buckets in a random
 order, with random gaps between them).
+
+Sizes around the kernel's tile: one short of a tile, one tile, one past
+it (the first look-back), 33 tiles and one (past the 8 predecessors one
+look-back window of 8 rows of 32 status words covers at P = 32) and
+2^22 + 17 (the sharded e2e's source blocks: many waves, a ragged tail,
+past the 256 predecessors a window covers at P = 1). Each case is
+repeated ``REPEATS`` times, since a fault of memory ordering shows only
+now and then; a captured CUDA graph is replayed ``REPLAYS`` times on
+alternating inputs (each replay must reset the scratch), and two calls
+run on two streams at once (``scan_cases.graph_replays`` /
+``two_streams`` over ``radix_cases.packed`` operands).
 """
 from __future__ import annotations
 
 import torch
 
+# rows per tile: csrc/shard_rank.cu's kTile (8 warps x 32 lanes x 32
+# rows); the library's repro_shard_rank_tiles(n) counts tiles of it
+TILE = 8192
+SIZES = (TILE - 1, TILE, TILE + 1, 33 * TILE + 1, 2**22 + 17)
+REPEATS = 20
+REPLAYS = 200
 SHARDS = (1, 2, 4, 8, 32)
 DESTS = ("uniform", "one", "half")
 BASES = ("blocks", "random")

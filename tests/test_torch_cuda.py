@@ -17,7 +17,8 @@ version over the ``ssd_cases`` sweep, the dense, SSM and hybrid
 LMs' kernel paths equal to their plain paths (K7/K8/K9), K7/K8/K9
 refusing grad mode, tiny train steps on the card equal to the CPU's,
 K10 bit-identical
-to its plain version over the ``partition_cases`` sweep, and the
+to its plain version over the ``partition_cases`` sweep (sizes around
+its look-back tile, repeated calls, graph replays, two streams), and the
 partitioned data tier on four shards of one card (and on two cards,
 where there are two) equal to its plain path and to the single-device
 executor. Imports neither JAX nor the reference, so it runs where only
@@ -1229,6 +1230,59 @@ def test_shard_rank_kernel_matches_plain_version(dev, n):
     torch.cuda.synchronize(dev)
     assert _build.LAUNCHES["shard_rank"] == len(cases)
     assert _build.LAUNCHES["radix_rank"] == 0  # not K6
+
+
+@pytest.mark.cuda
+def test_shard_tile_matches_the_library(dev):
+    lib = _build.library()
+    assert lib.repro_shard_rank_tiles(PC.TILE) == 1
+    assert lib.repro_shard_rank_tiles(PC.TILE + 1) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", PC.SIZES)
+def test_shard_rank_lookback_cases_match_plain_version(dev, n):
+    """K10's look-back sweep: sizes around its tile, every case of
+    ``partition_cases`` repeated, one launch per call."""
+    gen = torch.Generator(device=dev).manual_seed(5100 + n)
+    _build.reset_launches()
+    calls = 0
+    for _, p, dkind, bkind in PC.sweep((n,)):
+        dest = PC.dest_case(dkind, n, p, gen, dev)
+        base = PC.base_case(bkind, dest, p, gen)
+        want = shard_rank_torch(dest, base, p)
+        for r in range(PC.REPEATS):
+            assert torch.equal(t_part.shard_rank_kernel(dest, base), want), \
+                (p, dkind, bkind, r)
+        calls += PC.REPEATS
+    torch.cuda.synchronize(dev)
+    assert _build.LAUNCHES["shard_rank"] == calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", (4, 32))
+def test_shard_rank_under_graph_replays(dev, p):
+    n = PC.SIZES[4]
+    gen = torch.Generator(device=dev).manual_seed(5200 + p)
+    ds = [PC.dest_case(kind, n, p, gen, dev) for kind in ("uniform", "half")]
+    bases = [PC.base_case(kind, d, p, gen) for kind, d in zip(PC.BASES, ds)]
+    xs = [RADIX.packed(d, b) for d, b in zip(ds, bases)]
+    wants = [shard_rank_torch(d, b, p) for d, b in zip(ds, bases)]
+    kernel = RADIX.unpacking(t_part.shard_rank_kernel, n)
+    assert SCAN.graph_replays(kernel, xs, wants, PC.REPLAYS) == PC.REPLAYS
+
+
+@pytest.mark.cuda
+def test_shard_rank_on_two_streams(dev):
+    n = PC.SIZES[4]
+    gen = torch.Generator(device=dev).manual_seed(5300)
+    ds = [PC.dest_case(kind, n, 4, gen, dev) for kind in ("uniform", "one")]
+    bases = [PC.base_case(kind, d, 4, gen) for kind, d in zip(PC.BASES, ds)]
+    xs = [RADIX.packed(d, b) for d, b in zip(ds, bases)]
+    wants = [shard_rank_torch(d, b, 4) for d, b in zip(ds, bases)]
+    kernel = RADIX.unpacking(t_part.shard_rank_kernel, n)
+    for _ in range(10):
+        assert SCAN.two_streams(kernel, xs, wants) == 2
 
 
 @pytest.mark.cuda

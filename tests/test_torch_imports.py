@@ -40,8 +40,8 @@ def _imported_roots(path: Path) -> set[str]:
 def test_port_files_exist():
     files = _port_files()
     assert len(files) > 20
-    for src in ("scan.cuh", "flash_attention.cu", "decode_attention.cu",
-                "shard_rank.cu"):
+    for src in ("scan_lookback.cuh", "bucket_rank.cuh", "flash_attention.cu",
+                "decode_attention.cu", "shard_rank.cu"):
         assert (PORT / "csrc" / src).exists(), src
     # the scan below covers the modules of every slice
     for rel in ("streaming/state.py", "streaming/ingest.py",
