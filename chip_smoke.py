@@ -149,15 +149,36 @@ Phases, each printing one JSON line:
    gated);
 17. ``llm_query_moe`` — Q13 and q8 through ``ModelBackend`` on the
    olmoe-1b-7b engines, held as ``llm_query`` holds its queries;
-18. ``train_equiv`` — three ``build_train_step`` steps of stablelm-tiny
-   (2 microbatches, remat "full") and olmoe-tiny (remat "dots") from
-   one set of weights on the card and on the CPU, every loss within
+18. ``serve_mla`` — deepseek-v3-671b at full width with its depth cut to
+   one layer (``reduced``: 61 -> 1; d_model 7168, MLA over 128 heads
+   with q/kv latent ranks 1536/512 and head widths 128 + 64 / 128, 256
+   routed experts of gated d_ff 2048 at top-8 and capacity factor 1.25
+   plus one shared expert, vocab 129280; 13,712,994,304 float32
+   parameters, 54.85 GB), one engine (MLA has one path: the reference
+   runs it outside any Pallas kernel), 128 prompts served continuously
+   and again drained on the same engine: identical answers and token
+   ids, no K7/K8 launch; the two-wave 64 twice, identical (which rows
+   an expert's capacity of 1 keeps in a round depends on the other
+   slots, so their differences from the drained answers are recorded);
+   decode-matches-forward at full width (the absorbed decode against
+   the materialised forward, within MLA_DECODE_TOLERANCE, at a capacity
+   factor with no drops) with ``router_topk_diff`` between the two
+   forms; the predictions beside the eager and graph-replayed admission
+   and round; peak memory;
+19. ``llm_query_mla`` — Q13 and q8 through ``ModelBackend`` on that
+   engine, twice (rows, stats, calls and token ids identical); the
+   query path's K1/K3/K4/K5 launches recorded, K7/K8 none; then the
+   model is freed;
+20. ``train_equiv`` — three ``build_train_step`` steps of stablelm-tiny
+   (2 microbatches, remat "full"), olmoe-tiny (remat "dots") and
+   deepseek-tiny (MLA and the MTP loss; 2 microbatches, remat "full")
+   from one set of weights on the card and on the CPU, every loss within
    TRAIN_TOLERANCE relative; then ``launch/train`` on the card with the
    tiny mamba2: killed after step 6 (exit 42) and resumed, its final
    ``loss=`` line equal to an uninterrupted run's (checkpoints in a
    temporary directory; whether the two final checkpoints are equal
    bit for bit is recorded);
-19. ``train`` — stablelm-3b at full width (32 layers, d_model 2560, 32
+21. ``train`` — stablelm-3b at full width (32 layers, d_model 2560, 32
    heads, gated d_ff 6912, vocab 50304: 2,795,276,800 float32
    parameters) on ``TokenStream(seed=7)`` at batch 8 x seq 128 with
    remat "full": the grad norm with and without remat within
@@ -168,7 +189,7 @@ Phases, each printing one JSON line:
    step times, tokens/s, model FLOP/s, ``apply_updates`` ms and peak
    memory; no checkpoint. Training runs the plain attention (the
    kernels have no backward), so it launches no kernel;
-20. ``train_backend`` — ``examples/torch_train_backend.py`` on the card
+22. ``train_backend`` — ``examples/torch_train_backend.py`` on the card
    (backend-13m, 300 steps on ``make_ecommerce(seed=4)``'s labelled
    prompts), held-out accuracy above the majority class, a checkpoint
    in a temporary directory restored through ``CheckpointManager``, and
@@ -177,7 +198,7 @@ Phases, each printing one JSON line:
    ``ModelBackend`` on a K7/K8 engine and a plain one: answers, token
    ids, rows, ``llm_calls`` and ``cache_hits`` identical; F1 against
    the oracle and the YES share of the verdicts recorded;
-21. the ``kernels`` line: per kernel, its launches in the run of the
+23. the ``kernels`` line: per kernel, its launches in the run of the
    path it belongs to (``e2e`` for K1-K4, ``e2e_hash`` for K5 and K6,
    ``serve`` for K7 and K8, ``serve_ssm`` for K9, the cold
    ``e2e_sharded`` run for K10; every path's counts
@@ -254,6 +275,20 @@ HYBRID_ARCH = "hymba-1.5b"
 SSM_PROMPTS = 128
 MOE_ARCH = "olmoe-1b-7b"
 MOE_PROMPTS = SSM_PROMPTS
+# deepseek-v3-671b at full width with its depth cut to one layer:
+# 13,712,994,304 float32 parameters (54.85 GB); two layers (100.9 GB)
+# do not fit on one card
+MLA_ARCH = "deepseek-v3-671b"
+MLA_REDUCED = {"num_layers": "61 -> 1"}
+MLA_PROMPTS = SSM_PROMPTS
+# the absorbed MLA decode against the materialised forward, absolute and
+# relative: the reference's own decode-matches-forward tolerance
+# (tests/test_models_smoke.py); the two forms contract the latent in
+# different orders
+MLA_DECODE_TOLERANCE = 2e-3
+# the query path's kernels an LLM query's relational work launches
+QUERY_KERNELS = ("prefix_count", "group_boundaries", "running_segment_ids",
+                 "segment_reduce")
 # the float32 GEMM rate the dense model's prefill GEMMs reach on an H100
 # (``serve``'s ``prefill_gemm_tflop_per_s``), beside the data sheet's
 # peak, for the MoE predictions
@@ -278,7 +313,8 @@ TRAIN = dict(batch_size=8, seq_len=128)
 TRAIN_EQUIV = dict(batch_size=4, seq_len=32)
 TRAIN_EQUIV_ARCHS = {
     "stablelm-3b": dict(num_microbatches=2, remat="full"),
-    "olmoe-1b-7b": dict(num_microbatches=1, remat="dots")}
+    "olmoe-1b-7b": dict(num_microbatches=1, remat="dots"),
+    "deepseek-v3-671b": dict(num_microbatches=2, remat="full")}
 TRAIN_TOLERANCE = 1e-4  # a loss on the card against the CPU's, relative
 MICROBATCH_TOLERANCE = 1e-5  # 2 microbatches against 1 (the reference's)
 REMAT_TOLERANCE = 1e-4  # grad norm under remat "full" against none
@@ -1749,8 +1785,9 @@ def serve_engine_pair(device, cfg, params, serve=SERVE):
 def path_launches(cfg, admissions: int, rounds: int) -> dict:
     """The LLM kernels' launches a served run must make: K7 and K9 once
     per layer per admission, K8 once per layer per round, as far as the
-    family has attention (K7/K8) and SSM heads (K9)."""
-    attn = cfg.family != "ssm"
+    family has grouped-query attention (K7/K8; MLA has no kernel, as the
+    reference runs it outside any Pallas kernel) and SSM heads (K9)."""
+    attn = cfg.family != "ssm" and not cfg.use_mla
     ssm = cfg.family in ("ssm", "hybrid")
     L = cfg.num_layers
     return {"flash_attention": L * admissions * attn,
@@ -1761,7 +1798,9 @@ def path_launches(cfg, admissions: int, rounds: int) -> dict:
 def timed_serve(eng, prompts) -> tuple[list[str], dict]:
     """``eng.answer(prompts)`` with CUDA events recorded around every
     ``_admit`` and ``_round`` call of its scheduler (set on the
-    instance here, so the engine itself carries no timing)."""
+    instance here, so the engine itself carries no timing): their sums
+    and each call's ms (an ``_admit`` call with nothing to admit takes
+    ~0)."""
     import torch
 
     sched = eng.scheduler
@@ -1797,13 +1836,15 @@ def timed_serve(eng, prompts) -> tuple[list[str], dict]:
             delattr(sched, name)
     wall = time.perf_counter() - t0
 
-    def seconds(name):
+    def each_ms(name):
         if not cuda:
-            return sum(events[name])
-        return sum(a.elapsed_time(b) for a, b in events[name]) / 1e3
+            return [t * 1e3 for t in events[name]]
+        return [a.elapsed_time(b) for a, b in events[name]]
 
-    return answers, {"wall_s": wall, "prefill_s": seconds("_admit"),
-                     "decode_s": seconds("_round")}
+    admits, rounds = each_ms("_admit"), each_ms("_round")
+    return answers, {"wall_s": wall, "prefill_s": sum(admits) / 1e3,
+                     "decode_s": sum(rounds) / 1e3,
+                     "admit_calls_ms": admits, "round_calls_ms": rounds}
 
 
 def record_serving(eng) -> dict:
@@ -2002,29 +2043,46 @@ def run_serve(device, arch: str = SERVE_ARCH, n_prompts: int = 256,
     return out
 
 
+def attn_weights(cfg) -> int:
+    """Elements of one layer's attention projections: grouped-query
+    wq/wk/wv/wo, or MLA's wdq, wuq, wdkv, wuk, wuv and wo."""
+    D, H = cfg.d_model, cfg.num_heads
+    if cfg.use_mla:
+        qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+        r, vh = cfg.kv_lora_rank, cfg.v_head_dim
+        return (D * cfg.q_lora_rank + cfg.q_lora_rank * H * qk
+                + D * (r + cfg.qk_rope_head_dim)
+                + r * H * (cfg.qk_nope_head_dim + vh) + H * vh * D)
+    K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    return D * (H + 2 * K) * hd + H * hd * D
+
+
 def moe_predictions(cfg, serve) -> dict:
     """What a MoE model's serving should cost, from its shapes: the
     weights a decode round must read (each expert's, since a round's
     capacity of at least one row an expert computes every expert; the
-    router, attention and LM head beside them) over the card's memory
-    rate, and a full admission's operations (the experts' products over
-    their capacity slots, the router, the attention projections) at the
-    data sheet's float32 rate and at the GEMM rate ``serve`` measured."""
+    router, attention, shared experts and LM head beside them) over the
+    card's memory rate, and a full admission's operations (the experts'
+    products over their capacity slots, the router, the attention
+    projections, the shared experts) at the data sheet's float32 rate
+    and at the GEMM rate ``serve`` measured."""
     from repro_torch.models.layers import moe_capacity
 
     B, S = serve["batch_size"], serve["max_seq"]
     L, D, E = cfg.num_layers, cfg.d_model, cfg.num_experts
     Fe = cfg.moe_d_ff or cfg.d_ff
-    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     mats = 3 if cfg.gated_mlp else 2
     cap_admit, cap_round = moe_capacity(cfg, B * S), moe_capacity(cfg, B)
     expert_bytes = 4 * L * mats * E * D * Fe
-    attn_w = L * (D * (H + 2 * K) * hd + H * hd * D)
-    round_bytes = (expert_bytes + 4 * attn_w + 4 * L * D * E
+    attn_w = L * attn_weights(cfg)
+    shared_w = L * mats * D * Fe * cfg.num_shared_experts
+    round_bytes = (expert_bytes + 4 * (attn_w + shared_w) + 4 * L * D * E
                    + 4 * D * cfg.vocab_size)
     expert_flop = 2 * L * mats * E * cap_admit * D * Fe
     attn_flop = 2 * B * S * attn_w
-    admit_flop = expert_flop + attn_flop + 2 * B * S * L * D * E
+    shared_flop = 2 * B * S * shared_w
+    admit_flop = (expert_flop + attn_flop + shared_flop
+                  + 2 * B * S * L * D * E)
     return {"experts": E, "experts_per_tok": cfg.experts_per_tok,
             "moe_d_ff": Fe, "capacity_factor": cfg.moe_capacity_factor,
             "capacity_admission": cap_admit, "capacity_round": cap_round,
@@ -2034,6 +2092,7 @@ def moe_predictions(cfg, serve) -> dict:
                 "round_bound_ms": round_bytes / PEAK_BYTES_PER_S * 1e3,
                 "admission_expert_flop": expert_flop,
                 "admission_attn_proj_flop": attn_flop,
+                "admission_shared_flop": shared_flop,
                 "admission_flop": admit_flop,
                 "admission_ms_at_f32_peak":
                     admit_flop / PEAK_OPS_PER_S * 1e3,
@@ -2082,7 +2141,8 @@ def router_topk_diff(kern: list, plain: list) -> dict:
             * kern[0][0].shape[0], "min_topk_gap": gap}
 
 
-GEMM_LEAVES = ("wq", "wk", "wv", "wo", "w_in", "w_out", "w_gate")
+GEMM_LEAVES = ("wq", "wk", "wv", "wo", "w_in", "w_out", "w_gate", "wdq",
+               "wuq", "wdkv", "wuk", "wuv")
 
 
 def serve_breakdown(eng, toks, run: dict) -> dict:
@@ -2172,6 +2232,195 @@ def moe_gemms(cfg, p, n_tokens: int, g) -> dict:
             ms += L * time_ms(lambda: torch.bmm(a, w), reps=10, inner=5)
             flop += L * 2 * E * cap * D * Fe
     return {"ms": ms, "flop": flop}
+
+
+def run_serve_mla(device, tiny: bool = False, n_prompts: int = MLA_PROMPTS,
+                  seed: int = 0, serve=SERVE) -> dict:
+    """deepseek-v3-671b at full width, its depth cut to one layer
+    (``tiny`` for a CPU rehearsal): weights from a seeded generator, one
+    engine (MLA has one path: the reference runs it outside any Pallas
+    kernel), ``n_prompts`` prompts served continuously with CUDA events
+    around every admission and round, then drained on the same engine:
+    identical answers and token ids, and no K7/K8 launch. Then the
+    two-wave 64 (slots refilled mid-decode), twice, identical;
+    decode-matches-forward (``mla_decode_check``) with
+    ``router_topk_diff`` between its two forms; one admission's prefill,
+    and an admission and a round as graph replays. Returns the phase's
+    numbers and keeps the engine under ``"engine"`` for
+    ``run_llm_query``."""
+    import torch
+
+    from repro_torch.configs import get_config, get_tiny
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.sync import HOST_SYNCS
+    from repro_torch.models import count_params, init_params, prefill
+    from repro_torch.serving import ServingEngine
+
+    cfg = get_tiny(MLA_ARCH) if tiny else get_config(MLA_ARCH).replace(
+        num_layers=1)
+    cuda = device.type == "cuda"
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device)
+                         .manual_seed(seed), device=device)
+    if cuda:
+        torch.cuda.synchronize(device)
+    init_s = time.perf_counter() - t0
+    eng = ServingEngine(cfg, params, device=device, **serve)
+    prompts = serve_prompts(n_prompts, seed)
+    name = cfg.name
+    out = {"arch": name, "params": count_params(cfg),
+           "reduced": {} if tiny else MLA_REDUCED,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "heads": cfg.num_heads, "q_lora_rank": cfg.q_lora_rank,
+           "kv_lora_rank": cfg.kv_lora_rank,
+           "qk_head_dim": [cfg.qk_nope_head_dim, cfg.qk_rope_head_dim],
+           "v_head_dim": cfg.v_head_dim, "mtp_depth": cfg.mtp_depth,
+           "shared_experts": cfg.num_shared_experts,
+           "prompts": n_prompts, **serve, "init_s": init_s,
+           "allow_tf32": [torch.backends.cuda.matmul.allow_tf32,
+                          torch.backends.cudnn.allow_tf32],
+           "moe": moe_predictions(cfg, serve)}
+    if cuda:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    rounds0 = HOST_SYNCS.by_site.get("serving_round", 0)
+    _build.reset_launches()
+    answers, t = timed_serve(eng, prompts)
+    launches = {k: _build.LAUNCHES[k] for k in LLM_KERNELS}
+    st = eng.stats
+    padded = st.prefill_rows * eng.max_seq
+    run = {**t, "admissions": st.batches, "decode_rounds": st.decode_steps,
+           "prefill_tokens": st.prefill_tokens, "prefill_padded": padded,
+           "prefill_tokens_per_s": st.prefill_tokens / t["prefill_s"],
+           "prefill_padded_per_s": padded / t["prefill_s"],
+           "decode_slot_steps": st.slot_steps,
+           "decode_slot_steps_per_s": st.slot_steps / t["decode_s"],
+           "decode_tokens": st.decode_tokens,
+           "serving_round_syncs": HOST_SYNCS.by_site.get(
+               "serving_round", 0) - rounds0,
+           "occupancy": st.occupancy, "launches": launches,
+           "peak_device_bytes": (torch.cuda.max_memory_allocated(device)
+                                 if cuda else None)}
+    out["continuous"] = run
+    if len(answers) != n_prompts or not all(answers):
+        raise AssertionError(f"serve_mla {name}: missing answers")
+    if run["serving_round_syncs"] != run["decode_rounds"]:
+        raise AssertionError(f"serve_mla {name}: not one serving_round "
+                             f"sync per round")
+    want = path_launches(cfg, run["admissions"], run["decode_rounds"])
+    if launches != want or any(want.values()):
+        raise AssertionError(f"serve_mla {name}: launches {launches}, "
+                             f"not {want}")
+    t0 = time.perf_counter()
+    drained = eng.answer_drained(prompts)
+    out["drained_wall_s"] = time.perf_counter() - t0
+    # an answer is its token ids, up to a YES/NO that ends it (_detok)
+    if drained != answers:
+        diff = sum(a != b for a, b in zip(answers, drained))
+        raise AssertionError(f"serve_mla {name}: {diff} of {n_prompts} "
+                             f"continuous answers differ from the drained")
+    out["answers_identical"] = True
+    out["tokens_compared"] = sum(len(a.split()) for a in answers)
+    # one admission's prefill: finite logits and latent cache
+    toks = torch.from_numpy(np.stack([eng.encode_row(p)[0] for p in
+                                      prompts[:serve["batch_size"]]])
+                            ).to(device)
+    logits, cache = prefill(cfg, params, {"tokens": toks},
+                            max_seq=eng.cache_len)
+    if set(cache) != {"ckv", "krope"} or not all(
+            bool(torch.isfinite(x).all()) for x in (logits, *cache.values())):
+        raise AssertionError(f"serve_mla {name}: prefill cache "
+                             f"{sorted(cache)} or non-finite values")
+    out["prefill_logit_max_abs"] = float(logits.abs().max())
+    del logits, cache
+    # slots freed and refilled mid-decode, twice on the engine: which
+    # rows an expert's capacity keeps in a round depends on the other
+    # slots' tokens, so these answers may differ from the drained ones
+    # (recorded), but never between two runs
+    b = serve["batch_size"]
+    stag = [staggered_serve(eng, prompts[:4 * b], b // 2) for _ in range(2)]
+    (sa, sr), (sa2, sr2) = stag
+    if sa != sa2 or sr["ids"] != sr2["ids"]:
+        raise AssertionError(f"serve_mla {name} (staggered): two runs on "
+                             f"one engine differ")
+    if not sr["mid_decode_admissions"]:
+        raise AssertionError(f"serve_mla {name} (staggered): no slot was "
+                             f"refilled mid-decode")
+    out["staggered"] = {
+        "prompts": 4 * b, "first_wave": b // 2,
+        "mid_decode_admissions": sr["mid_decode_admissions"],
+        "tokens_compared": sum(map(len, sr["ids"])),
+        "differ_from_drained": sum(
+            a != d for a, d in zip(sa, drained[:4 * b]))}
+    out["decode_matches_forward"] = mla_decode_check(cfg, params, device,
+                                                     seed)
+    if cuda:
+        out["breakdown"] = serve_breakdown(eng, toks, run)
+    out["moe"]["measured"] = {
+        "admission_eager_ms": run["prefill_s"] / run["admissions"] * 1e3,
+        "round_eager_ms": run["decode_s"] / run["decode_rounds"] * 1e3,
+        **{n: out.get("breakdown", {}).get(n) for n in (
+            "prefill_graph_ms", "decode_round_graph_ms", "prefill_gemm_ms",
+            "prefill_moe_gemm_ms")}}
+    out["cache_len"] = eng.cache_len
+    out["answer_sample"] = answers[:4]
+    out["engine"] = eng
+    return out
+
+
+def mla_decode_check(cfg, params, device, seed: int = 0, batch: int = 2,
+                     seq: int = 12, first: int = 8) -> dict:
+    """Decode-matches-forward: prefill ``first`` of ``seq`` seeded
+    tokens, then decode the rest one at a time (the absorbed form); each
+    step's logits equal the full forward's (the materialised form) at
+    that position within MLA_DECODE_TOLERANCE. The capacity factor is
+    raised to at least E / k for this check, so no expert drops a row in
+    either form (which rows drop depends on the batch shape, which
+    differs between the two forms), as the reference's tiny
+    configuration does (8.0 over 8 experts, top-2). Beside it,
+    ``router_topk_diff`` between the two forms' routing of the decoded
+    tokens."""
+    import torch
+
+    from repro_torch.models import decode_step, forward, prefill
+
+    cfg = cfg.replace(moe_capacity_factor=max(
+        cfg.moe_capacity_factor, cfg.num_experts / cfg.experts_per_tok))
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (batch, seq)).astype(np.int32)).to(device)
+    fwd, dec = [], []
+    with torch.no_grad():
+        with record_routes(fwd):
+            full, _ = forward(cfg, params, {"tokens": toks})
+        _, cache = prefill(cfg, params, {"tokens": toks[:, :first]},
+                           max_seq=seq)
+        worst = 0.0
+        for t in range(first, seq):
+            with record_routes(dec):
+                lg, cache = decode_step(
+                    cfg, params, cache, toks[:, t],
+                    torch.full((batch,), t, dtype=torch.int32,
+                               device=device))
+            ok = torch.isclose(lg, full[:, t], rtol=MLA_DECODE_TOLERANCE,
+                               atol=MLA_DECODE_TOLERANCE)
+            worst = max(worst, float((lg - full[:, t]).abs().max()))
+            if not bool(ok.all()) or not bool(torch.isfinite(lg).all()):
+                raise AssertionError(
+                    f"serve_mla decode-matches-forward: step {t} "
+                    f"{worst} apart, beyond {MLA_DECODE_TOLERANCE}")
+    L, k = cfg.num_layers, cfg.experts_per_tok
+    # the forward routed (batch * seq) tokens a layer; each decode step
+    # routed the batch's tokens at one position
+    plain = [(fwd[l][0].view(batch, seq, k)[:, t],
+              fwd[l][1].view(batch, seq)[:, t])
+             for t in range(first, seq) for l in range(L)]
+    return {"capacity_factor": cfg.moe_capacity_factor, "batch": batch,
+            "prefill": first, "steps": seq - first,
+            "max_abs_diff": worst,
+            "max_abs_logit": float(full[:, first:].abs().max()),
+            "tolerance": f"rtol = atol = {MLA_DECODE_TOLERANCE}",
+            "router_topk_diff": router_topk_diff(dec, plain)}
 
 
 def run_long_prefill(device, ssm_eng, hybrid_eng, ssm_shape=(2, 2048),
@@ -2297,14 +2546,16 @@ def run_long_prefill(device, ssm_eng, hybrid_eng, ssm_shape=(2, 2048),
     return out
 
 
-def run_llm_query(device, engines, scale: float = 0.15, qids=None) -> dict:
+def run_llm_query(device, engines, scale: float = 0.15, qids=None,
+                  second: str = "plain") -> dict:
     """Five corpus queries (one per schema; or those of ``qids``) through
     per-schema ``FrontDoor``s sharing one runner over
     ``ModelBackend.from_engine``, once per engine of ``engines`` (kernel
-    path, plain path); everything the queries report must agree, and so
-    must the token ids the model emitted for every backend prompt (with
-    random weights the verdicts parse to False on both paths, so the ids
-    are what holds the kernels to the plain path here)."""
+    path, plain path; or one engine twice, ``second="repeat"``, where
+    the model has one path); everything the queries report must agree,
+    and so must the token ids the model emitted for every backend prompt
+    (with random weights the verdicts parse to False on both paths, so
+    the ids are what holds the kernels to the plain path here)."""
     import torch
 
     from repro_torch.core import CostParams, Q, col, optimize
@@ -2358,11 +2609,12 @@ def run_llm_query(device, engines, scale: float = 0.15, qids=None) -> dict:
                      "wall_s": wall, "launches": dict(_build.LAUNCHES),
                      "serving": eng.stats.snapshot(), **rec})
     kern, plain = runs
+    runs_of = f"the first and {second} runs"
     for qid, q in kern["queries"].items():
         p = plain["queries"][qid]
         if q["rows"] != p["rows"]:
             raise AssertionError(f"llm_query {qid}: rows differ between "
-                                 f"the kernel and plain paths")
+                                 f"{runs_of}")
         if q["stats"] != p["stats"]:
             raise AssertionError(f"llm_query {qid}: {q['stats']} != "
                                  f"{p['stats']}")
@@ -2374,7 +2626,7 @@ def run_llm_query(device, engines, scale: float = 0.15, qids=None) -> dict:
         raise AssertionError(
             f"llm_query: the token ids of {diff} of {len(kern['ids'])} "
             f"answers (counts {len(kern['ids'])} vs {len(plain['ids'])}) "
-            f"differ between the kernel and plain paths")
+            f"differ between {runs_of}")
     split = {k: sum(q["split"][k] for q in kern["queries"].values())
              for k in ("optimize_s", "execute_s", "rel_s", "sem_s",
                        "materialize_s")}
@@ -2383,10 +2635,10 @@ def run_llm_query(device, engines, scale: float = 0.15, qids=None) -> dict:
             "answers_compared": len(kern["ids"]),
             "tokens_compared": sum(map(len, kern["ids"])),
             "mid_decode_admissions": kern["mid_decode_admissions"],
-            "wall_s": kern["wall_s"], "plain_wall_s": plain["wall_s"],
+            "wall_s": kern["wall_s"], f"{second}_wall_s": plain["wall_s"],
             "split": split, "serving": kern["serving"],
             "launches": kern["launches"],
-            "plain_launches": plain["launches"],
+            f"{second}_launches": plain["launches"],
             "queries": {qid: {"rows": len(q["rows"]), **q["stats"],
                               "split": q["split"]}
                         for qid, q in kern["queries"].items()}}
@@ -3598,6 +3850,25 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
+    mla = run_serve_mla(device)
+    mla_engine = mla.pop("engine")
+    emit({"phase": "serve_mla", **mla, "seconds": time.perf_counter() - t0,
+          "gpu": smi})
+    t0 = time.perf_counter()
+    llm_mla = run_llm_query(device, (mla_engine, mla_engine),
+                            qids=HYBRID_QIDS, second="repeat")
+    emit({"phase": "llm_query_mla", **llm_mla,
+          "seconds": time.perf_counter() - t0, "gpu": smi})
+    require_launched("llm_query_mla", llm_mla["launches"], QUERY_KERNELS)
+    if any(llm_mla["launches"][k] for k in LLM_KERNELS):
+        raise AssertionError(f"llm_query_mla: MLA launched "
+                             f"{llm_mla['launches']}")
+    # free the 54.85 GB model before training
+    del mla_engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
     tequiv = run_train_equiv(device)
     emit({"phase": "train_equiv", **tequiv,
           "seconds": time.perf_counter() - t0, "gpu": smi})
@@ -3657,6 +3928,8 @@ def main() -> int:
                         "llm_query_hybrid": llm_h["launches"],
                         "serve_moe": moe["kernel"]["launches"],
                         "llm_query_moe": llm_m["launches"],
+                        "serve_mla": mla["continuous"]["launches"],
+                        "llm_query_mla": llm_mla["launches"],
                         "train_equiv": tequiv["launches"],
                         "train": train["launches"],
                         "train_backend": tback["train_launches"],

@@ -1,4 +1,4 @@
-"""Serving entry point: stand up an LM (dense, MoE, SSM or hybrid)
+"""Serving entry point: stand up an LM (dense, MoE, SSM, hybrid or MLA)
 behind the serving tier and answer prompts, on the card unless ``--device cpu``.
 
     # full-width olmoe-1b-7b (the default), random weights (seed 0), on
@@ -15,12 +15,17 @@ behind the serving tier and answer prompts, on the card unless ``--device cpu``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \\
         --tiny --device cpu --prompts "hello" "world"
 
+    # MLA with a shared expert (deepseek-v3-671b's tiny config; its full
+    # width, 704 B parameters, fits no card)
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch deepseek-v3-671b --tiny --prompts "hello" "world"
+
     # the trained 13M backend (examples/torch_train_backend.py)
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --ckpt artifacts/torch_backend_ckpt \\
         --prompts "is product 3 electronics?"
 
-Dense, MoE, SSM and hybrid configurations are served, with random
+Dense, MoE, SSM, hybrid and MLA configurations are served, with random
 weights or, with ``--ckpt``, the trained semantic backend
 (``training/backend.py::backend_config``) restored from its checkpoint.
 There is no model-parallel mesh (``--dp``/``--tp`` wait for it; the
@@ -44,11 +49,11 @@ from ..training.data import HashTokenizer
 def main(argv=None):
     """Parse ``argv``, stand up the engine and print its answers."""
     ap = argparse.ArgumentParser(
-        description="Serve a dense, MoE, SSM or hybrid LM with random "
+        description="Serve a dense, MoE, SSM, hybrid or MLA LM with random "
                     "weights (seed 0), or the trained backend (--ckpt). "
                     "Not ported: --dp/--tp (the model-parallel mesh).")
     ap.add_argument("--arch", default="olmoe-1b-7b",
-                    help="a dense, MoE, SSM or hybrid configuration "
+                    help="a dense, MoE, SSM, hybrid or MLA configuration "
                          "(default olmoe-1b-7b)")
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--ckpt", default=None,

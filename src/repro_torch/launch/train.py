@@ -5,6 +5,11 @@
         --tiny --device cpu --steps 200 --batch 8 --seq 64 \\
         --ckpt-dir /tmp/ckpt
 
+    # MLA and the multi-token-prediction loss (deepseek-v3-671b's tiny
+    # config) on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch deepseek-v3-671b --tiny --device cpu --steps 20
+
     # stablelm-3b (the default) at full width on one card
     PYTHONPATH=src python -m repro_torch.launch.train --steps 10 \\
         --seq 128 --microbatches 2
@@ -39,9 +44,9 @@ def main(argv=None):
     """Parse ``argv``, train (resuming from ``--ckpt-dir`` when it holds
     a checkpoint) and return the last step's loss."""
     ap = argparse.ArgumentParser(
-        description="Train an LM (dense, MoE, SSM or hybrid) on one "
-                    "device. Not ported: --dp/--tp (the model-parallel "
-                    "mesh).")
+        description="Train an LM (dense, MoE, SSM, hybrid or MLA with "
+                    "MTP) on one device. Not ported: --dp/--tp (the "
+                    "model-parallel mesh).")
     ap.add_argument("--arch", default="stablelm-3b")
     ap.add_argument("--tiny", action="store_true",
                     help="use the reduced same-family config")

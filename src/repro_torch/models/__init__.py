@@ -1,6 +1,7 @@
 """The LM of the serving and training tiers: config, parameters,
 layers, forward/forward_loss/prefill/decode (the dense, MoE, SSM and
-hybrid subset of the reference's ``repro.models``)."""
+hybrid subset of the reference's ``repro.models``, with MLA and
+multi-token prediction)."""
 from .config import ModelConfig
 from .lm import (
     build_cache_spec,

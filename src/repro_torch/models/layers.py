@@ -7,7 +7,8 @@ the mixture of experts on one device (``moe_block`` with its routing
 and capacity dispatch ``moe_route``, and the dense oracle
 ``moe_reference``), and
 the SSM block: ``causal_conv1d``, ``ssd_chunked``, ``ssd_reference``,
-``ssm_block`` and ``ssm_decode``.
+``ssm_block`` and ``ssm_decode``, and DeepSeek-V3's latent attention
+(MLA): ``_mla_q``, ``_mla_kv_latent``, ``mla_block`` and ``mla_decode``.
 
 Attention has two paths, chosen by ``attn_impl`` through
 ``kernels/util.py::resolve_impl`` ("auto": the kernel on a CUDA tensor,
@@ -26,6 +27,10 @@ is all K7 masks. Without a window a decode row's cache holds position
 row), so K8's ``lengths = pos + 1`` masks what ``slot_pos`` masks; the
 hybrid's ring cache (slot ``pos % window``) breaks that, so there K8
 takes the reference's slot mask itself.
+
+MLA has one path: the reference computes it with einsums outside any
+Pallas kernel, so there is no kernel to port; "auto" and "ref" both
+run it, and "kernel" raises (``check_mla_impl``).
 
 The SSD scan has two paths too, chosen by ``ssd_impl``: "kernel" runs
 ``kernels/ssd/ops.py::ssd`` (K9 for the intra-chunk step, the
@@ -205,6 +210,97 @@ def attention_decode(cfg: ModelConfig, p, x, k_cache, v_cache, slot_pos,
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         bias = torch.where(ok, zero, torch.full_like(zero, -1e30))[:, None]
         out = gqa_attention(q, k_cache, v_cache, bias)
+    return out.reshape(B, 1, -1) @ p["wo"].reshape(-1, cfg.d_model)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3): latent-compressed attention
+# ---------------------------------------------------------------------------
+
+
+def check_mla_impl(attn_impl: str) -> None:
+    """MLA runs one path for "auto" and "ref"; "kernel" raises, since
+    the reference runs MLA outside any Pallas kernel and so the port
+    has no kernel for it (never a silent fallback)."""
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
+                         f"{attn_impl!r}")
+    if attn_impl == "kernel":
+        raise ValueError("attn_impl='kernel': MLA has no kernel path (the "
+                         "reference runs MLA outside any Pallas kernel); "
+                         "use 'auto' or 'ref'")
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+
+
+def _mla_q(cfg: ModelConfig, p, x, positions):
+    """The queries: (B,S,H,qk_nope) unroped and (B,S,H,qk_rope) roped."""
+    cq = rms_norm(_proj(x, p["wdq"]), p["q_ln"], cfg.norm_eps)
+    q = _proj(cq, p["wuq"])
+    qn, qr = torch.split(q, [cfg.qk_nope_head_dim, cfg.qk_rope_head_dim],
+                         dim=-1)
+    return qn, rope(qr, positions, cfg.rope_theta)
+
+
+def _mla_kv_latent(cfg: ModelConfig, p, x, positions):
+    """The latent the cache stores: the normed (B,S,kv_lora_rank) ``ckv``
+    and the one shared roped key head (B,S,qk_rope)."""
+    ckv, k_rope = torch.split(_proj(x, p["wdkv"]),
+                              [cfg.kv_lora_rank, cfg.qk_rope_head_dim],
+                              dim=-1)
+    ckv = rms_norm(ckv, p["kv_ln"], cfg.norm_eps)
+    k_rope = rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return ckv, k_rope
+
+
+def mla_block(cfg: ModelConfig, p, x):
+    """Causal MLA over positions ``arange(S)`` on every row (train
+    forward / prefill), per-head K/V materialised from the latent.
+    Returns (out (B,S,D), ckv, k_rope), the latent the decode cache
+    stores."""
+    B, S = x.shape[0], x.shape[1]
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    qn, qr = _mla_q(cfg, p, x, positions)
+    ckv, k_rope = _mla_kv_latent(cfg, p, x, positions)
+    kn = _proj(ckv, p["wuk"])
+    v = _proj(ckv, p["wuv"])
+    scores = (torch.einsum("bshk,bthk->bhst", qn, kn)
+              + torch.einsum("bshk,btk->bhst", qr, k_rope)).float()
+    bias = _mask_bias(positions, positions)
+    w = torch.softmax(scores * _mla_scale(cfg) + bias[:, None],
+                      dim=-1).to(x.dtype)
+    out = torch.einsum("bhst,bthk->bshk", w, v)
+    o = out.reshape(B, S, -1) @ p["wo"].reshape(-1, cfg.d_model)
+    return o, ckv, k_rope
+
+
+def mla_decode(cfg: ModelConfig, p, x, ckv_cache, krope_cache, pos):
+    """Absorbed-form single-token MLA: ``wuk`` folds into the query and
+    ``wuv`` into the output, so the step reads only the latent cache and
+    never materialises per-head K/V. x: (B,1,D); caches ckv (B,T,r) and
+    krope (B,T,qk_rope) are updated IN PLACE at slot ``pos`` of each
+    row; every slot ``<= pos`` is visible. Returns (B,1,D)."""
+    B = x.shape[0]
+    qn, qr = _mla_q(cfg, p, x, pos[:, None])
+    ckv_new, krope_new = _mla_kv_latent(cfg, p, x, pos[:, None])
+    bidx = torch.arange(B, device=x.device)
+    slot = pos.long()
+    ckv_cache[bidx, slot] = ckv_new[:, 0]
+    krope_cache[bidx, slot] = krope_new[:, 0]
+    q_abs = torch.einsum("bshk,rhk->bshr", qn, p["wuk"])  # (B,1,H,r)
+    T = ckv_cache.shape[1]
+    scores = (torch.einsum("bshr,btr->bhst", q_abs, ckv_cache)
+              + torch.einsum("bshk,btk->bhst", qr, krope_cache)
+              ).float() * _mla_scale(cfg)
+    ok = torch.arange(T, device=x.device)[None, :] <= pos[:, None]
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    scores = scores + torch.where(ok, zero, torch.full_like(zero, -1e30)
+                                  )[:, None, None, :]
+    w = torch.softmax(scores, dim=-1).to(x.dtype)
+    ctx = torch.einsum("bhst,btr->bshr", w, ckv_cache)  # (B,1,H,r)
+    out = torch.einsum("bshr,rhk->bshk", ctx, p["wuv"])
     return out.reshape(B, 1, -1) @ p["wo"].reshape(-1, cfg.d_model)
 
 

@@ -1,6 +1,7 @@
-"""The decoder-only LM (dense, MoE, SSM and hybrid families): forward, the
-decode cache, prefill and one-token decode — the subset of the
-reference's ``src/repro/models/lm.py`` those families run.
+"""The decoder-only LM (dense, MoE, SSM and hybrid families, MLA and
+multi-token prediction): forward, the decode cache, prefill and
+one-token decode — the subset of the reference's
+``src/repro/models/lm.py`` those families run.
 
 Entry points
 ------------
@@ -12,7 +13,9 @@ init_cache / build_cache_spec                      -> the reference's
     layout: (L, B, T, K, hd) K/V plus (L, B, T) ``slot_pos`` (T =
     min(max_seq, attn_window) for the hybrid, a ring at ``pos % T``),
     and for the SSM/hybrid (L, B, nh, hd, ns) ``state`` and
-    (L, B, cw-1, conv_dim) ``conv``
+    (L, B, cw-1, conv_dim) ``conv``; an MLA configuration stores only
+    the latent: (L, B, T, kv_lora_rank) ``ckv`` and (L, B, T,
+    qk_rope_head_dim) ``krope``
 
 ``batch`` is ``{"tokens": (B, S) int tensor}``. The reference's
 ``lax.scan`` over stacked layers is a Python loop over
@@ -21,7 +24,8 @@ the L layers land in the stacked ``(L, ...)`` leaves in one stack, and
 training keeps the reference's leaves); ``decode_step`` updates the
 cache in place (the reference returns a new one, which its engine
 donates) and returns the same dict. ``attn_impl`` picks the attention
-path and ``ssd_impl`` the SSD path of every layer (see ``layers.py``).
+path and ``ssd_impl`` the SSD path of every layer (see ``layers.py``;
+MLA has one path, and "kernel" raises on an MLA configuration).
 """
 from __future__ import annotations
 
@@ -39,13 +43,16 @@ from .config import ModelConfig
 from .layers import (
     attention_block,
     attention_decode,
+    check_mla_impl,
+    mla_block,
+    mla_decode,
     mlp,
     moe_block,
     rms_norm,
     ssm_block,
     ssm_decode,
 )
-from .params import check_supported
+from .params import check_supported, mtp_config
 
 
 def _layers(tree: dict, n: int) -> list[dict]:
@@ -78,20 +85,26 @@ def _window(cfg: ModelConfig) -> int:
 
 def _mix(cfg, bp, x, attn_impl, ssd_impl):
     """One layer's mixer over the full sequence (the reference's
-    ``_mixer_train``). Returns (out, k, v, state, conv_tail), the parts
-    a family lacks as None."""
-    k = v = state = conv = None
-    if cfg.family != "ssm":
+    ``_mixer_train``). Returns (out, kv, state, conv_tail): ``kv`` the
+    cache leaves of its attention by name (roped ``k`` and ``v``, or
+    MLA's latent ``ckv`` and ``krope``), the parts a family lacks as
+    None."""
+    kv = state = conv = None
+    if cfg.use_mla:
+        a, ckv, krope = mla_block(cfg, bp["mla"], x)
+        kv = {"ckv": ckv, "krope": krope}
+    elif cfg.family != "ssm":
         a, k, v = attention_block(cfg, bp["attn"], x, attn_impl,
                                   _window(cfg))
+        kv = {"k": k, "v": v}
     if cfg.family in ("dense", "moe"):
-        return a, k, v, state, conv
+        return a, kv, state, conv
     s, state, conv = ssm_block(cfg, bp["ssm"], x, ssd_impl)
     if cfg.family == "ssm":
-        return s, k, v, state, conv
+        return s, kv, state, conv
     out = 0.5 * (rms_norm(a, bp["attn_norm"], cfg.norm_eps)
                  + rms_norm(s, bp["ssm_norm"], cfg.norm_eps))
-    return out, k, v, state, conv
+    return out, kv, state, conv
 
 
 def _ffn(cfg, bp, h):
@@ -114,9 +127,9 @@ def _ring_slots(S: int, T: int, device) -> tuple[int, torch.Tensor]:
 
 
 def _write_kv(dst, src):
-    """Write the (B, S, K, hd) keys or values ``src`` into one layer's
-    (B, T, K, hd) cache ``dst``: at slots ``arange(S)``, or the last T
-    positions at ``pos % T`` when S > T (the hybrid's ring)."""
+    """Write the (B, S, ...) keys, values or MLA latent ``src`` into one
+    layer's (B, T, ...) cache ``dst``: at slots ``arange(S)``, or the
+    last T positions at ``pos % T`` when S > T (the hybrid's ring)."""
     S, T = src.shape[1], dst.shape[1]
     if S <= T:
         dst[:, :S] = src
@@ -137,14 +150,13 @@ REMATS = (None, "full", "dots")
 
 def _block(cfg, bp, h, attn_impl, ssd_impl, cache=None, l=0):
     """One layer (the reference's ``_block_train``); with ``cache`` its
-    roped K/V (``_write_kv``) and its SSM state and conv tail are
-    written into layer ``l`` of the cache's leaves."""
-    mix, k, v, state, conv = _mix(
+    roped K/V or MLA latent (``_write_kv``) and its SSM state and conv
+    tail are written into layer ``l`` of the cache's leaves."""
+    mix, kv, state, conv = _mix(
         cfg, bp, rms_norm(h, bp["ln1"], cfg.norm_eps), attn_impl, ssd_impl)
     if cache is not None:
-        if k is not None:
-            _write_kv(cache["k"][l], k)
-            _write_kv(cache["v"][l], v)
+        for name, t in (kv or {}).items():
+            _write_kv(cache[name][l], t)
         if state is not None:
             cache["state"][l] = state
             cache["conv"][l] = conv
@@ -175,10 +187,17 @@ def _blocks(cfg, params, h, attn_impl, ssd_impl, cache=None,
     return h
 
 
+def _check(cfg: ModelConfig, attn_impl: str) -> None:
+    check_supported(cfg)
+    if cfg.use_mla:
+        check_mla_impl(attn_impl)
+
+
 def forward(cfg: ModelConfig, params, batch, attn_impl: str = "auto",
             ssd_impl: str = "auto"):
-    """Full-sequence logits (B, S, V) and final hidden states."""
-    check_supported(cfg)
+    """Full-sequence logits (B, S, V) and final hidden states (after the
+    final norm)."""
+    _check(cfg, attn_impl)
     h = _embed_tokens(params, batch["tokens"])
     h = _blocks(cfg, params, h, attn_impl, ssd_impl)
     h = rms_norm(h, params["final_ln"], cfg.norm_eps)
@@ -189,9 +208,10 @@ def forward_loss(cfg: ModelConfig, params, batch,
                  remat: Optional[str] = None):
     """Next-token cross-entropy of ``batch["tokens"]`` (B, S): position
     t predicts token t + 1, weighted by ``token != 0`` (padding), summed
-    in float32 and divided by max(sum of weights, 1), the reference's
-    ``forward_loss`` for the families without an image prefix
-    (``n_img`` = 0) or MTP heads, which ``check_supported`` refuses.
+    in float32 and divided by max(sum of weights, 1), plus 0.3 times
+    ``_mtp_loss`` when the configuration has an MTP block: the
+    reference's ``forward_loss`` for the families without an image
+    prefix (``n_img`` = 0), which ``check_supported`` refuses.
 
     Attention and the SSD run their plain versions ("ref"): the grouped
     einsum and ``ssd_chunked`` are the reference's own training path
@@ -205,7 +225,30 @@ def forward_loss(cfg: ModelConfig, params, batch,
     logits = _lm_logits(cfg, params, h)
     S = tokens.shape[1]
     labels = tokens[:, 1:].long()
-    return _xent(logits[:, :S - 1], labels, (labels != 0).float())
+    loss = _xent(logits[:, :S - 1], labels, (labels != 0).float())
+    if cfg.mtp_depth:
+        loss = loss + 0.3 * _mtp_loss(cfg, params, h, tokens)
+    return loss
+
+
+def _mtp_loss(cfg: ModelConfig, params, h, tokens):
+    """DeepSeek-V3 multi-token prediction: ``mtp_depth`` dense blocks
+    (``mtp_config``: plain attention, the MLP; no checkpoint of their
+    own, as the reference's ``_scan`` takes none) over
+    ``[h_t ; embed(token_{t+1})]`` projected to ``d_model`` predict
+    token t + 2. ``h``: the model's final-normed hidden states (B, S,
+    D)."""
+    mtp = params["mtp"]
+    S = tokens.shape[1]
+    emb_next = _embed_tokens(params, tokens[:, 1:])
+    x = torch.cat([h[:, :S - 1], emb_next], dim=-1) @ mtp["proj"]
+    mcfg = mtp_config(cfg)
+    for bp in _layers(mtp["blocks"], cfg.mtp_depth):
+        x = _block(mcfg, bp, x, "ref", "ref")
+    x = rms_norm(x, mtp["final_ln"], cfg.norm_eps)
+    logits = _lm_logits(cfg, params, x)
+    labels = tokens[:, 2:].long()
+    return _xent(logits[:, :S - 2], labels, (labels != 0).float())
 
 
 def _xent(logits, labels, weights):
@@ -222,7 +265,10 @@ def build_cache_spec(cfg: ModelConfig, batch_size: int, max_seq: int
     check_supported(cfg)
     L, B = cfg.num_layers, batch_size
     spec = {}
-    if cfg.family != "ssm":
+    if cfg.use_mla:
+        spec["ckv"] = (L, B, max_seq, cfg.kv_lora_rank)
+        spec["krope"] = (L, B, max_seq, cfg.qk_rope_head_dim)
+    elif cfg.family != "ssm":
         K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
         attn_T = max_seq
         if cfg.family == "hybrid" and cfg.attn_window:
@@ -258,7 +304,7 @@ def prefill(cfg: ModelConfig, params, batch,
     default S), return the logits of the last (padded) position. The
     hybrid keeps the last ``T = min(max_seq, attn_window)`` positions in
     ring layout (slot ``pos % T``)."""
-    check_supported(cfg)
+    _check(cfg, attn_impl)
     tokens = batch["tokens"]
     h = _embed_tokens(params, tokens)
     B, S = tokens.shape
@@ -278,13 +324,19 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos,
                 attn_impl: str = "auto"):
     """One decode step. tokens: (B,) int, pos: (B,) int32 absolute
     positions (each < T without a window). Writes the step's K/V (at
-    slot ``pos``, or ``pos % window`` for the hybrid) and SSM state and
-    conv tail into ``cache`` in place; returns (logits (B, V), cache)."""
+    slot ``pos``, or ``pos % window`` for the hybrid) or MLA latent (at
+    slot ``pos``) and SSM state and conv tail into ``cache`` in place;
+    returns (logits (B, V), cache)."""
+    if cfg.use_mla:
+        check_mla_impl(attn_impl)
     h = _embed_tokens(params, tokens[:, None])
     window = _window(cfg)
     for l, bp in enumerate(_layers(params["blocks"], cfg.num_layers)):
         x = rms_norm(h, bp["ln1"], cfg.norm_eps)
-        if cfg.family != "ssm":
+        if cfg.use_mla:
+            a = mla_decode(cfg, bp["mla"], x, cache["ckv"][l],
+                           cache["krope"][l], pos)
+        elif cfg.family != "ssm":
             a = attention_decode(cfg, bp["attn"], x, cache["k"][l],
                                  cache["v"][l], cache["slot_pos"][l], pos,
                                  attn_impl, window)

@@ -1,5 +1,5 @@
 """Parameters of the decoder-only LM (dense, MoE, SSM and hybrid
-families).
+families, and MLA with multi-token prediction).
 
 ``build_params(cfg, creator)`` walks the architecture and calls
 ``creator(path, shape, scale)`` for each tensor, with the reference's
@@ -16,7 +16,9 @@ the port serves on one card). Two creators:
 
 The dense, mixture-of-experts (with or without shared experts), SSM
 (Mamba-2) and hybrid (parallel attention + SSM heads) families are
-ported (``check_supported``).
+ported, with DeepSeek-V3's latent attention (MLA, an ``"mla"`` subtree
+in place of ``"attn"``) and its multi-token-prediction block (the
+``"mtp"`` subtree) (``check_supported``).
 """
 from __future__ import annotations
 
@@ -32,21 +34,20 @@ Creator = Callable[[str, tuple, float], object]
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` unless ``cfg`` is a decoder-only LM
-    of the dense, MoE, SSM or hybrid family: the port's LLM slices.
-    Sliding windows are ported for the hybrid only (its attention
-    heads). MLA, encoder-decoder, VLM and MTP wait for later slices
-    (ROADMAP)."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.use_mla:
+    of the dense, MoE, SSM or hybrid family (MLA and MTP included): the
+    port's LLM slices. Sliding windows are ported for the hybrid only
+    (its attention heads). Encoder-decoder and VLM wait for a later
+    slice (ROADMAP)."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} (experts "
-            f"{cfg.num_experts}, MLA {cfg.use_mla}) is not ported; MLA, "
-            f"encoder-decoder, VLM and MTP wait for later slices")
+            f"{cfg.name}: family {cfg.family!r} is not ported; "
+            f"encoder-decoder and VLM wait for a later slice")
     if ((cfg.attn_window and cfg.family != "hybrid") or cfg.encoder_layers
-            or cfg.num_image_tokens or cfg.mtp_depth):
+            or cfg.num_image_tokens):
         raise NotImplementedError(
             f"{cfg.name}: sliding windows outside the hybrid family, "
-            f"encoders (encoder-decoder), image prefixes (VLM) and MTP "
-            f"heads wait for later slices")
+            f"encoders (encoder-decoder) and image prefixes (VLM) wait "
+            f"for a later slice")
 
 
 def _attn_tree(cfg: ModelConfig, L, p, prefix: str):
@@ -63,6 +64,22 @@ def _attn_tree(cfg: ModelConfig, L, p, prefix: str):
         t["bk"] = p(f"{prefix}/bk", (*L, K, hd), 0)
         t["bv"] = p(f"{prefix}/bv", (*L, K, hd), 0)
     return t
+
+
+def _mla_tree(cfg: ModelConfig, L, p):
+    D, H = cfg.d_model, cfg.num_heads
+    qlr, kvlr = cfg.q_lora_rank, cfg.kv_lora_rank
+    qk_n, qk_r, vh = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {
+        "wdq": p("mla/wdq", (*L, D, qlr), D),
+        "q_ln": p("mla/q_ln", (*L, qlr), -1),
+        "wuq": p("mla/wuq", (*L, qlr, H, qk_n + qk_r), qlr),
+        "wdkv": p("mla/wdkv", (*L, D, kvlr + qk_r), D),
+        "kv_ln": p("mla/kv_ln", (*L, kvlr), -1),
+        "wuk": p("mla/wuk", (*L, kvlr, H, qk_n), kvlr),
+        "wuv": p("mla/wuv", (*L, kvlr, H, vh), kvlr),
+        "wo": p("mla/wo", (*L, H, vh, D), H * vh),
+    }
 
 
 def _mlp_tree(cfg: ModelConfig, L, p, d_ff=None, prefix="mlp"):
@@ -118,7 +135,10 @@ def _block_tree(cfg: ModelConfig, L, p) -> dict:
     if cfg.family == "ssm":
         t["ssm"] = _ssm_tree(cfg, L, p)
         return t  # no FFN: ln2 exists but feeds nothing
-    t["attn"] = _attn_tree(cfg, L, p, "attn")
+    if cfg.use_mla:
+        t["mla"] = _mla_tree(cfg, L, p)
+    else:
+        t["attn"] = _attn_tree(cfg, L, p, "attn")
     if cfg.family == "hybrid":
         t["ssm"] = _ssm_tree(cfg, L, p)
         t["attn_norm"] = p("attn_norm", (*L, cfg.d_model), -1)
@@ -142,7 +162,20 @@ def build_params(cfg: ModelConfig, creator: Creator) -> dict:
     }
     if not cfg.tie_embeddings:
         tree["lm_head"] = p("lm_head", (D, V), D)
+    if cfg.mtp_depth:
+        tree["mtp"] = {
+            "proj": p("mtp/proj", (2 * D, D), 2 * D),
+            "blocks": _block_tree(mtp_config(cfg), (cfg.mtp_depth,), p),
+            "final_ln": p("mtp_final_ln", (D,), -1),
+        }
     return tree
+
+
+def mtp_config(cfg: ModelConfig) -> ModelConfig:
+    """The configuration of the MTP block: a dense block (plain
+    attention at ``num_heads`` x ``d_model // num_heads``, the MLP) at
+    the model's widths, as the reference builds it."""
+    return cfg.replace(num_experts=0, use_mla=False, family="dense")
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,

@@ -21,7 +21,10 @@ slot state (``index_copy_`` on the slot axis; the SSM ``state`` and
 picks the attention path of every layer and ``ssd_impl`` the SSD path
 of the SSM/hybrid prefill (``models/layers.py``): on the card "auto" is
 the K7/K8 and K9 kernels, "ref" the plain grouped einsum and
-``ssd_chunked``; an engine with both "ref" launches no kernel.
+``ssd_chunked``; an engine with both "ref" launches no kernel. An MLA
+configuration (deepseek-v3-671b) has one attention path, which "auto"
+and "ref" both run (the reference computes MLA outside any Pallas
+kernel); "kernel" is refused at construction.
 """
 from __future__ import annotations
 
@@ -36,7 +39,7 @@ from ..engine.table import resolve_device
 from ..kernels.sync import HOST_SYNCS
 from ..models import check_supported, decode_step, prefill
 from ..models.config import ModelConfig
-from ..models.layers import ATTN_IMPLS
+from ..models.layers import ATTN_IMPLS, check_mla_impl
 from ..training.data import HashTokenizer
 from .scheduler import SlotScheduler, Ticket
 
@@ -115,6 +118,8 @@ class ServingEngine:
             if impl not in ATTN_IMPLS:
                 raise ValueError(f"{name} must be one of {ATTN_IMPLS}, got "
                                  f"{impl!r}")
+        if cfg.use_mla:
+            check_mla_impl(attn_impl)
         self.cfg = cfg
         self.params = params
         self.device = resolve_device(device)

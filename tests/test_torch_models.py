@@ -1,4 +1,4 @@
-"""The port's LM (dense, MoE, SSM and hybrid families) against the
+"""The port's LM (dense, MoE, SSM, hybrid and MLA/MTP) against the
 reference's on the same weights: the reference's parameters
 (``repro.models.init_params``) carried across with
 ``params_from_numpy``, the same token ids from a numpy seed, and
@@ -6,10 +6,10 @@ reference's on the same weights: the reference's parameters
 layout, the SSM ``state`` and ``conv`` tail), ``decode_step`` and
 decode-matches-forward compared, including a hybrid prefill longer
 than its window, so that the ring wraps. Tolerance: 1e-4 absolute and
-relative on float32 logits, K/V and SSM state (the two frameworks sum
-and round matrix products and the SSD's chunk sums in different orders;
-logits here are O(1–10)); ``slot_pos`` exact. Other families raise
-``NotImplementedError``."""
+relative on float32 logits, K/V, the MLA latent and SSM state (the two
+frameworks sum and round matrix products and the SSD's chunk sums in
+different orders; logits here are O(1–10)); ``slot_pos`` exact. The
+encoder-decoder and VLM families raise ``NotImplementedError``."""
 import dataclasses
 
 import jax
@@ -34,7 +34,8 @@ from repro_torch.configs import get_config as port_config  # noqa: E402
 from repro_torch.configs import get_tiny as port_tiny  # noqa: E402
 
 DENSE = ("stablelm-3b", "starcoder2-3b", "qwen2.5-32b", "internlm2-20b")
-ARCHS = DENSE + ("olmoe-1b-7b", "mamba2-370m", "hymba-1.5b")
+ARCHS = DENSE + ("olmoe-1b-7b", "mamba2-370m", "hymba-1.5b",
+                 "deepseek-v3-671b")
 TOL = dict(atol=1e-4, rtol=1e-4)
 POLICY = ShardingPolicy.single()
 _CACHE: dict = {}

@@ -8,7 +8,7 @@ chunk included), identical ``ServingStats`` counters, the same
 assignments under recycling and weighted/FIFO admission, and the same
 ``ModelBackend`` parsing and tokenizer ids, for dense, MoE
 (olmoe-1b-7b, also at a capacity factor that drops rows), SSM
-(mamba2-370m) and hybrid (hymba-1.5b) models. The tiny hybrid's window
+(mamba2-370m), hybrid (hymba-1.5b) and MLA (deepseek-v3-671b) models. The tiny hybrid's window
 is 16, so its engines (max_seq 24) keep the last 16 padded positions
 in a ring, and a short prompt's first decode sees only the slot it
 writes (a reference behaviour the port keeps). On the CPU the port's
@@ -45,7 +45,7 @@ from repro_torch.training.data import (  # noqa: E402
 )
 
 ARCHS = ("stablelm-3b", "starcoder2-3b", "qwen2.5-32b", "olmoe-1b-7b",
-         "mamba2-370m", "hymba-1.5b")
+         "mamba2-370m", "hymba-1.5b", "deepseek-v3-671b")
 COUNTERS = ("prompts", "batches", "prefill_tokens", "decode_steps",
             "prefill_rows", "live_prefill_rows", "slot_steps",
             "live_slot_steps", "decode_tokens", "queued_peak")
@@ -463,7 +463,17 @@ def test_model_backend_parse_matches_reference():
 
 
 def test_model_backend_over_engine():
-    ref, port = engines("stablelm-3b")
+    _backend_over_engine("stablelm-3b")
+
+
+def test_model_backend_over_mla_engine():
+    """deepseek-tiny (MLA, shared expert): ``ModelBackend`` answers as
+    the reference's over its engine, sync and async."""
+    _backend_over_engine("deepseek-v3-671b")
+
+
+def _backend_over_engine(arch):
+    ref, port = engines(arch)
     rb, pb = ModelBackend(ref.answer), PortBackend(port.answer)
     ctx = [{"__dtype__": "bool"}] * 3
     prompts = ["prompt a", "prompt b", "prompt c"]
@@ -518,4 +528,14 @@ def test_serve_entry_point_ssm_families_tiny_cpu(capsys, arch):
           "--prompts", "hello", "world", "again"])
     out = capsys.readouterr().out
     assert f"random-weight {get_tiny(arch).name} on cpu" in out
+    assert "'again' -> " in out and "3 prompts, 2 batches" in out
+
+
+def test_serve_entry_point_mla_tiny_cpu(capsys):
+    from repro_torch.launch.serve import main
+
+    main(["--arch", "deepseek-v3-671b", "--tiny", "--device", "cpu",
+          "--max-seq", "24", "--prompts", "hello", "world", "again"])
+    out = capsys.readouterr().out
+    assert "random-weight deepseek-tiny on cpu" in out
     assert "'again' -> " in out and "3 prompts, 2 batches" in out

@@ -74,6 +74,22 @@ def test_failure_resume_identical(tmp_path):
             np.testing.assert_array_equal(u, v, err_msg=k)
 
 
+def test_train_mla_tiny_cpu(tmp_path, capsys):
+    """``launch/train --arch deepseek-v3-671b --tiny --device cpu``:
+    MLA and the MTP loss train, and the checkpoint holds the ``mtp``
+    leaves."""
+    loss = train.main(["--arch", "deepseek-v3-671b", "--tiny", "--device",
+                       "cpu", "--steps", "3", "--batch", "2", "--seq",
+                       "16", "--log-every", "1", "--ckpt-dir",
+                       str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "[train] done: 3 steps" in out and np.isfinite(loss)
+    _, manifest = CheckpointManager(tmp_path).restore(3)
+    assert manifest["arch"] == "deepseek-tiny"
+    assert "params.mtp.proj" in manifest["keys"]
+    assert "params.blocks.mla.wuk" in manifest["keys"]
+
+
 def test_train_refuses_a_model_parallel_mesh():
     with pytest.raises(SystemExit):
         train.main(["--tiny", "--device", "cpu", "--dp", "2"])

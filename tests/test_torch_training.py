@@ -47,7 +47,8 @@ from repro_torch.training.train_step import value_and_grad  # noqa: E402
 
 POLICY = ShardingPolicy.single()
 TOL = dict(rtol=1e-4, atol=1e-5)
-ARCHS = ("stablelm-3b", "olmoe-1b-7b", "mamba2-370m", "hymba-1.5b")
+ARCHS = ("stablelm-3b", "olmoe-1b-7b", "mamba2-370m", "hymba-1.5b",
+         "deepseek-v3-671b")
 _CACHE: dict = {}
 
 
@@ -275,7 +276,8 @@ def test_int8_adam_tracks_fp32():
 STEP_CASES = ([("stablelm-3b", mb, r) for mb in (1, 2, 4)
                for r in (None, "full", "dots")]
               + [("olmoe-1b-7b", 2, None), ("olmoe-1b-7b", 2, "dots"),
-                 ("mamba2-370m", 2, "full"), ("hymba-1.5b", 4, None)])
+                 ("mamba2-370m", 2, "full"), ("hymba-1.5b", 4, None),
+                 ("deepseek-v3-671b", 2, "full")])
 _REF_RUNS: dict = {}
 
 
