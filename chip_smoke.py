@@ -82,8 +82,14 @@ Phases, each printing one JSON line:
    in {1, 131, 1000} with rows of lengths {1, 2, T-1, T} in one batch,
    through the model's permuted (B, T, K, d) cache, and with the
    reference's slot mask over wrapped rings of 16 and 64 slots (entries
-   above pos, entries too old for the window, empty slots); within 1e-4
-   (float32 sums over <= 1000 keys in another order); then K8 at the
+   above pos, entries too old for the window, empty slots); head_dim
+   256 (paligemma-3b) at groups {1, 8} over one KV head: K7 causal, not
+   and windowed, K8 under lengths (T up to 1500) and the slot mask; K7
+   not causal with Sq in {1, 32, 65} against Sk in {63, 1500} (whisper's
+   cross-attention) at head_dim 64 and 256; the VLM's prefix route
+   (two K7 calls into one output) against the plain prefix-mask
+   attention; within 1e-4
+   (float32 sums over <= 1500 keys in another order); then K8 at the
    edges of its split over the cache (``check_decode_split``): lengths
    around its chunk over 131- and 4104-position caches, a full
    2048-slot ring, rings with dead chunks between live ones, each call
@@ -161,7 +167,7 @@ Phases, each printing one JSON line:
    an expert's capacity of 1 keeps in a round depends on the other
    slots, so their differences from the drained answers are recorded);
    decode-matches-forward at full width (the absorbed decode against
-   the materialised forward, within MLA_DECODE_TOLERANCE, at a capacity
+   the materialised forward, within DECODE_TOLERANCE, at a capacity
    factor with no drops) with ``router_topk_diff`` between the two
    forms; the predictions beside the eager and graph-replayed admission
    and round; peak memory;
@@ -169,16 +175,37 @@ Phases, each printing one JSON line:
    engine, twice (rows, stats, calls and token ids identical); the
    query path's K1/K3/K4/K5 launches recorded, K7/K8 none; then the
    model is freed;
-20. ``train_equiv`` — three ``build_train_step`` steps of stablelm-tiny
-   (2 microbatches, remat "full"), olmoe-tiny (remat "dots") and
-   deepseek-tiny (MLA and the MTP loss; 2 microbatches, remat "full")
+20. ``encdec`` — whisper-small at full width (12 + 12 layers, d_model
+   768, 12 heads x 64, 1500 frames, vocab 51865; weights from a seeded
+   generator) through the model's entry points (the reference's engine
+   feeds tokens only): 16 rows of 1500 frame embeddings and 32 prompt
+   tokens from a numpy seed, ``prefill(max_seq=64)`` then 16 greedy
+   ``decode_step``s, on the kernel path (K7 bidirectional over the
+   encoder, causal over the decoder, bidirectional with Sq != Sk for
+   cross-attention; K8 on self and cross decode) and on the plain path:
+   identical greedy ids, prefill logits within
+   MULTIMODAL_LOGIT_TOLERANCE of max|logit|, K7 and K8 launches per
+   layer by mode, decode-matches-forward within DECODE_TOLERANCE; CUDA
+   events around the encoder, the prefill and each step; peak memory;
+21. ``vlm`` — paligemma-3b at full width (18 layers, d_model 2048, 8
+   query heads over 1 KV head x 256, gated d_ff 16384, vocab 257216),
+   the same checks over 16 rows of 256 patch embeddings and 32 text
+   tokens, ``prefill(max_seq=304)`` and 16 greedy steps from pos 288;
+   K7's prefix route (causal over all rows, bidirectional over the image
+   rows into the same output) and K8 at head_dim 256;
+   decode-matches-forward at 2 rows; then the model is freed;
+22. ``train_equiv`` — three ``build_train_step`` steps of stablelm-tiny
+   (2 microbatches, remat "full"), olmoe-tiny (remat "dots"),
+   deepseek-tiny (MLA and the MTP loss; 2 microbatches, remat "full"),
+   whisper-tiny (2 microbatches, remat "full") and paligemma-tiny (2
+   microbatches, remat "dots"; the frames and patches from a numpy seed)
    from one set of weights on the card and on the CPU, every loss within
    TRAIN_TOLERANCE relative; then ``launch/train`` on the card with the
    tiny mamba2: killed after step 6 (exit 42) and resumed, its final
    ``loss=`` line equal to an uninterrupted run's (checkpoints in a
    temporary directory; whether the two final checkpoints are equal
    bit for bit is recorded);
-21. ``train`` — stablelm-3b at full width (32 layers, d_model 2560, 32
+23. ``train`` — stablelm-3b at full width (32 layers, d_model 2560, 32
    heads, gated d_ff 6912, vocab 50304: 2,795,276,800 float32
    parameters) on ``TokenStream(seed=7)`` at batch 8 x seq 128 with
    remat "full": the grad norm with and without remat within
@@ -189,7 +216,7 @@ Phases, each printing one JSON line:
    step times, tokens/s, model FLOP/s, ``apply_updates`` ms and peak
    memory; no checkpoint. Training runs the plain attention (the
    kernels have no backward), so it launches no kernel;
-22. ``train_backend`` — ``examples/torch_train_backend.py`` on the card
+24. ``train_backend`` — ``examples/torch_train_backend.py`` on the card
    (backend-13m, 300 steps on ``make_ecommerce(seed=4)``'s labelled
    prompts), held-out accuracy above the majority class, a checkpoint
    in a temporary directory restored through ``CheckpointManager``, and
@@ -198,7 +225,7 @@ Phases, each printing one JSON line:
    ``ModelBackend`` on a K7/K8 engine and a plain one: answers, token
    ids, rows, ``llm_calls`` and ``cache_hits`` identical; F1 against
    the oracle and the YES share of the verdicts recorded;
-23. the ``kernels`` line: per kernel, its launches in the run of the
+25. the ``kernels`` line: per kernel, its launches in the run of the
    path it belongs to (``e2e`` for K1-K4, ``e2e_hash`` for K5 and K6,
    ``serve`` for K7 and K8, ``serve_ssm`` for K9, the cold
    ``e2e_sharded`` run for K10; every path's counts
@@ -224,7 +251,10 @@ Phases, each printing one JSON line:
    K7 also with the hybrid's window and K8 with its slot mask at
    ``serve_hybrid``'s shapes (and both at ``long_prefill``'s: K8 over
    its 2048-slot ring with every slot live), K7 and K8 also at
-   ``serve_moe``'s multi-head shapes (group 1), K9 also at
+   ``serve_moe``'s multi-head shapes (group 1), K7 and K8 also at every
+   shape the ``encdec`` and ``vlm`` phases launched them at (with those
+   launches: whisper's encoder, decoder and cross-attention, paligemma's
+   prefix route at head_dim 256, and their decodes), K9 also at
    ``serve_hybrid``'s and ``long_prefill``'s shapes, with its head
    groups (``head_groups``) and blocks, K10
    also at P = 32 and beside K6 over the same P buckets.
@@ -281,11 +311,25 @@ MOE_PROMPTS = SSM_PROMPTS
 MLA_ARCH = "deepseek-v3-671b"
 MLA_REDUCED = {"num_layers": "61 -> 1"}
 MLA_PROMPTS = SSM_PROMPTS
-# the absorbed MLA decode against the materialised forward, absolute and
-# relative: the reference's own decode-matches-forward tolerance
-# (tests/test_models_smoke.py); the two forms contract the latent in
-# different orders
-MLA_DECODE_TOLERANCE = 2e-3
+# decode against forward, absolute and relative: the reference's own
+# decode-matches-forward tolerance (tests/test_models_smoke.py); the
+# absorbed MLA decode and the materialised forward contract the latent
+# in different orders
+DECODE_TOLERANCE = 2e-3
+# the encoder-decoder and VLM families at full width through the model's
+# entry points (the reference's engine feeds tokens only): rows, prompt
+# tokens, greedy decode steps, cache length, and the rows that
+# decode-matches-forward runs at (a 16-row paligemma forward's logits
+# alone are 4.8 GB)
+MULTIMODAL = {
+    "encdec": dict(arch="whisper-small", rows=16, prompt=32, steps=16,
+                   max_seq=64, check_rows=16),
+    "vlm": dict(arch="paligemma-3b", rows=16, prompt=32, steps=16,
+                max_seq=256 + 32 + 16, check_rows=2)}
+# the kernel path's prefill logits against the plain path's, of
+# max|plain logit| (float32 attention sums in other orders through 12-18
+# layers)
+MULTIMODAL_LOGIT_TOLERANCE = 1e-3
 # the query path's kernels an LLM query's relational work launches
 QUERY_KERNELS = ("prefix_count", "group_boundaries", "running_segment_ids",
                  "segment_reduce")
@@ -314,7 +358,9 @@ TRAIN_EQUIV = dict(batch_size=4, seq_len=32)
 TRAIN_EQUIV_ARCHS = {
     "stablelm-3b": dict(num_microbatches=2, remat="full"),
     "olmoe-1b-7b": dict(num_microbatches=1, remat="dots"),
-    "deepseek-v3-671b": dict(num_microbatches=2, remat="full")}
+    "deepseek-v3-671b": dict(num_microbatches=2, remat="full"),
+    "whisper-small": dict(num_microbatches=2, remat="full"),
+    "paligemma-3b": dict(num_microbatches=2, remat="dots")}
 TRAIN_TOLERANCE = 1e-4  # a loss on the card against the CPU's, relative
 MICROBATCH_TOLERANCE = 1e-5  # 2 microbatches against 1 (the reference's)
 REMAT_TOLERANCE = 1e-4  # grad norm under remat "full" against none
@@ -1516,16 +1562,23 @@ def check_attention(device, seq=None, groups=None, dims=None,
     inputs from ``seed``, in the model's layouts) over the sweep of
     ``attention_cases`` (or the given one): K7 causal and not, and
     causal with a sliding window; K8 with per-row lengths, and with the
-    slot mask over a wrapped ring; raises above its tolerance. Returns
-    the cases and the worst max|Δ| per kernel and mask."""
+    slot mask over a wrapped ring; then head_dim 256 (K7 causal, not
+    and windowed, K8 under both masks, at ``WIDE_GROUPS``), K7 not
+    causal with Sq != Sk (``CROSS_QUERIES`` x ``CROSS_KEYS``) and the
+    VLM's prefix route (``prefix_attention``: two K7 calls) against the
+    plain prefix-mask attention (``PREFIX_CASES``); raises above its
+    tolerance. Returns the cases and the worst max|Δ| per kernel and
+    mask."""
     import torch
 
     from repro_torch.kernels import attention_cases as AC
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.ref import (
         decode_attention_ref)
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, prefix_attention)
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_prefix_ref, attention_ref)
 
     seq = seq or AC.SEQ_LENS
     groups = groups or AC.GROUPS
@@ -1537,7 +1590,9 @@ def check_attention(device, seq=None, groups=None, dims=None,
     impl = "kernel" if device.type == "cuda" else "ref"
     g = torch.Generator(device=device).manual_seed(seed)
     errs = {"flash_attention": 0.0, "decode_attention": 0.0,
-            "flash_attention_window": 0.0, "decode_attention_ring": 0.0}
+            "flash_attention_window": 0.0, "decode_attention_ring": 0.0,
+            "flash_attention_wide": 0.0, "decode_attention_wide": 0.0,
+            "flash_attention_cross": 0.0, "flash_attention_prefix": 0.0}
     cases = dict.fromkeys(errs, 0)
 
     def hold(name, got, want, what):
@@ -1604,6 +1659,64 @@ def check_attention(device, seq=None, groups=None, dims=None,
                      decode_attention_ref(q, kc, vc, slot_pos=sp, pos=pos,
                                           window=W),
                      f"K8 ring W={W} rows={rows} group={grp} d={d}")
+
+    def bshd(B, S, n, d):  # the model's (B, S, heads, d), transposed
+        return torch.randn(B, S, n, d, generator=g,
+                           device=device).transpose(1, 2)
+
+    d, K = AC.WIDE_HEAD_DIM, 1
+    for grp in AC.WIDE_GROUPS:
+        for S in seq:
+            q, k, v = bshd(B, S, grp, d), bshd(B, S, K, d), bshd(B, S, K, d)
+            for causal, w in ((True, 0), (False, 0), (True, 17)):
+                hold("flash_attention_wide",
+                     flash_attention(q, k, v, causal=causal, window=w,
+                                     impl=impl),
+                     attention_ref(q, k, v, causal=causal, window=w),
+                     f"K7 d={d} S={S} group={grp} causal={causal} "
+                     f"window={w}")
+        for T in cache_lens + (1500,):
+            lengths = torch.tensor(AC.chunk_lengths(T), dtype=torch.int32,
+                                   device=device)
+            Bd = lengths.shape[0]
+            q = torch.randn(Bd, grp, d, generator=g, device=device)
+            kc, vc = (torch.randn(Bd, T, K, d, generator=g, device=device)
+                      .permute(0, 2, 1, 3) for _ in range(2))
+            hold("decode_attention_wide",
+                 decode_attention(q, kc, vc, lengths, impl=impl),
+                 decode_attention_ref(q, kc, vc, lengths),
+                 f"K8 d={d} T={T} lengths={lengths.tolist()} group={grp}")
+        W = ring_windows[-1]
+        rows = AC.ring_rows(W)
+        sp = torch.tensor(AC.ring_slot_pos(W, rows), dtype=torch.int32,
+                          device=device)
+        pos = torch.tensor([p for _, p in rows], dtype=torch.int32,
+                           device=device)
+        q = torch.randn(len(rows), grp, d, generator=g, device=device)
+        kc, vc = (torch.randn(len(rows), W, K, d, generator=g,
+                              device=device).permute(0, 2, 1, 3)
+                  for _ in range(2))
+        hold("decode_attention_wide",
+             decode_attention(q, kc, vc, slot_pos=sp, pos=pos, window=W,
+                              impl=impl),
+             decode_attention_ref(q, kc, vc, slot_pos=sp, pos=pos,
+                                  window=W),
+             f"K8 d={d} ring W={W} group={grp}")
+    for d in (64, AC.WIDE_HEAD_DIM):
+        for Sq in AC.CROSS_QUERIES:
+            for Sk in AC.CROSS_KEYS:
+                q, k, v = bshd(B, Sq, 6, d), bshd(B, Sk, 2, d), \
+                    bshd(B, Sk, 2, d)
+                hold("flash_attention_cross",
+                     flash_attention(q, k, v, causal=False, impl=impl),
+                     attention_ref(q, k, v, causal=False),
+                     f"K7 cross Sq={Sq} Sk={Sk} d={d}")
+        for S, prefix in AC.PREFIX_CASES:
+            q, k, v = bshd(B, S, 8, d), bshd(B, S, 1, d), bshd(B, S, 1, d)
+            hold("flash_attention_prefix",
+                 prefix_attention(q, k, v, prefix, impl=impl),
+                 attention_prefix_ref(q, k, v, prefix),
+                 f"K7 prefix route S={S} prefix={prefix} d={d}")
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return {"cases": cases, "max_abs_err": errs,
@@ -2373,7 +2486,7 @@ def mla_decode_check(cfg, params, device, seed: int = 0, batch: int = 2,
     """Decode-matches-forward: prefill ``first`` of ``seq`` seeded
     tokens, then decode the rest one at a time (the absorbed form); each
     step's logits equal the full forward's (the materialised form) at
-    that position within MLA_DECODE_TOLERANCE. The capacity factor is
+    that position within DECODE_TOLERANCE. The capacity factor is
     raised to at least E / k for this check, so no expert drops a row in
     either form (which rows drop depends on the batch shape, which
     differs between the two forms), as the reference's tiny
@@ -2402,13 +2515,13 @@ def mla_decode_check(cfg, params, device, seed: int = 0, batch: int = 2,
                     cfg, params, cache, toks[:, t],
                     torch.full((batch,), t, dtype=torch.int32,
                                device=device))
-            ok = torch.isclose(lg, full[:, t], rtol=MLA_DECODE_TOLERANCE,
-                               atol=MLA_DECODE_TOLERANCE)
+            ok = torch.isclose(lg, full[:, t], rtol=DECODE_TOLERANCE,
+                               atol=DECODE_TOLERANCE)
             worst = max(worst, float((lg - full[:, t]).abs().max()))
             if not bool(ok.all()) or not bool(torch.isfinite(lg).all()):
                 raise AssertionError(
                     f"serve_mla decode-matches-forward: step {t} "
-                    f"{worst} apart, beyond {MLA_DECODE_TOLERANCE}")
+                    f"{worst} apart, beyond {DECODE_TOLERANCE}")
     L, k = cfg.num_layers, cfg.experts_per_tok
     # the forward routed (batch * seq) tokens a layer; each decode step
     # routed the batch's tokens at one position
@@ -2419,8 +2532,196 @@ def mla_decode_check(cfg, params, device, seed: int = 0, batch: int = 2,
             "prefill": first, "steps": seq - first,
             "max_abs_diff": worst,
             "max_abs_logit": float(full[:, first:].abs().max()),
-            "tolerance": f"rtol = atol = {MLA_DECODE_TOLERANCE}",
+            "tolerance": f"rtol = atol = {DECODE_TOLERANCE}",
             "router_topk_diff": router_topk_diff(dec, plain)}
+
+
+def modal_inputs(cfg, rows: int, seed: int) -> dict:
+    """The stub frontend's embeddings a family needs beside its tokens,
+    unit-normal float32 from ``seed``: ``frames`` (rows, encoder_seq, D)
+    for the encoder-decoder, ``patches`` (rows, num_image_tokens, D)
+    for the VLM, none for the token-only families."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "encdec":
+        return {"frames": rng.standard_normal(
+            (rows, cfg.encoder_seq, cfg.d_model), dtype=np.float32)}
+    if cfg.family == "vlm":
+        return {"patches": rng.standard_normal(
+            (rows, cfg.num_image_tokens, cfg.d_model), dtype=np.float32)}
+    return {}
+
+
+def _shape_launches() -> list[dict]:
+    from repro_torch.kernels import _build
+
+    return [{"kernel": name, "variant": var, "shape": list(shape),
+             "launches": n}
+            for (name, var, shape), n in sorted(
+                _build.SHAPE_LAUNCHES.items(), key=str)
+            if name in LLM_KERNELS]
+
+
+def run_multimodal(device, phase: str, tiny: bool = False,
+                   seed: int = 0) -> dict:
+    """``MULTIMODAL[phase]``'s model at full width (``tiny`` for a CPU
+    rehearsal) through its entry points, random weights from a seeded
+    generator: ``rows`` prompts of ``prompt`` tokens with frames or
+    patches from a numpy seed, ``prefill`` into ``max_seq`` positions,
+    then ``steps`` greedy ``decode_step``s from ``pos = P + prompt`` (P
+    the VLM's image positions), on the kernel path (``attn_impl=
+    "auto"``: K7 in its modes, K8 on self and cross decode) and the
+    plain path (``"ref"``) over one tree. Gates: identical greedy ids;
+    prefill logits within MULTIMODAL_LOGIT_TOLERANCE of max|logit|; the
+    kernel path's K7 and K8 launches, per layer, by mode and shape; and
+    decode-matches-forward at ``check_rows`` rows (each step's logits
+    against the forward over the prompt and the greedy ids, within
+    DECODE_TOLERANCE). Records CUDA-event ms of the encoder (the second
+    of two calls before the counted run), the prefill and each decode
+    step, and the peak memory."""
+    import torch
+
+    from repro_torch.configs import get_config, get_tiny
+    from repro_torch.kernels import _build
+    from repro_torch.models import (
+        count_params, decode_step, encode, forward, init_params, prefill)
+
+    spec = MULTIMODAL[phase]
+    cfg = (get_tiny if tiny else get_config)(spec["arch"])
+    rows, S, steps = spec["rows"], spec["prompt"], spec["steps"]
+    P = cfg.num_image_tokens
+    max_seq = spec["max_seq"] if not tiny else P + S + steps
+    cuda = device.type == "cuda"
+
+    def timed(fn):
+        """(fn(), ms): CUDA events around it on the card, the host clock
+        on the CPU."""
+        if not cuda:
+            t0 = time.perf_counter()
+            r = fn()
+            return r, 1e3 * (time.perf_counter() - t0)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        r = fn()
+        b.record()
+        b.synchronize()
+        return r, a.elapsed_time(b)
+
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device)
+                         .manual_seed(seed), device=device)
+    if cuda:
+        torch.cuda.synchronize(device)
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(1, cfg.vocab_size, (rows, S)).astype(np.int32)
+    host = {"tokens": tokens, **modal_inputs(cfg, rows, seed + 1)}
+    batch = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+    out = {"arch": cfg.name, "family": cfg.family,
+           "params": count_params(cfg),
+           "tree_params": sum(v.numel() for _, v in _items(params)),
+           "layers": cfg.num_layers, "encoder_layers": cfg.encoder_layers,
+           "d_model": cfg.d_model, "heads": cfg.num_heads,
+           "kv_heads": cfg.num_kv_heads, "head_dim": cfg.resolved_head_dim,
+           "vocab": cfg.vocab_size, "rows": rows, "prompt": S,
+           "image_tokens": P, "frames": cfg.encoder_seq, "steps": steps,
+           "max_seq": max_seq, "init_s": init_s, "paths": {}}
+    runs = {}
+    for path, impl in (("kernel", "auto"), ("plain", "ref")):
+        run = {}
+        with torch.no_grad():
+            if cfg.family == "encdec":  # a warm call, the second
+                for _ in range(2):
+                    _, run["encoder_ms"] = timed(
+                        lambda: encode(cfg, params, batch["frames"], impl))
+            if cuda:
+                torch.cuda.synchronize(device)
+                torch.cuda.reset_peak_memory_stats(device)
+            _build.reset_launches()
+            (logits, cache), run["prefill_ms"] = timed(
+                lambda: prefill(cfg, params, batch, max_seq=max_seq,
+                                attn_impl=impl))
+            ids, step_logits, step_ms = [logits.argmax(-1)], [], []
+            pos = torch.full((rows,), P + S, dtype=torch.int32,
+                             device=device)
+            for _ in range(steps):
+                (lg, cache), ms = timed(lambda: decode_step(
+                    cfg, params, cache, ids[-1], pos, attn_impl=impl))
+                step_ms.append(ms)
+                step_logits.append(lg[:spec["check_rows"]].clone())
+                ids.append(lg.argmax(-1))
+                pos += 1
+            launches = _llm_launches()
+            shapes = _shape_launches()
+        if cuda:
+            run["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+        del cache
+        run.update(decode_ms=step_ms,
+                   decode_ms_median=statistics.median(step_ms),
+                   launches=launches, shape_launches=shapes)
+        runs[path] = (logits, torch.stack(ids, 1), step_logits)
+        out["paths"][path] = run
+    (kl, kid, ksteps), (pl, pid, _) = runs["kernel"], runs["plain"]
+    if not torch.equal(kid, pid):
+        raise AssertionError(f"{phase}: greedy ids differ between the "
+                             f"kernel and plain paths in "
+                             f"{int((kid != pid).any(1).sum())} rows")
+    scale = float(pl.abs().max())
+    diff = float((kl - pl).abs().max())
+    out.update(ids_identical=True, greedy_ids=int(kid.numel()),
+               prefill_logit_diff=diff, max_abs_logit=scale,
+               prefill_logit_tolerance=MULTIMODAL_LOGIT_TOLERANCE)
+    if not diff <= MULTIMODAL_LOGIT_TOLERANCE * scale:
+        raise AssertionError(f"{phase}: prefill logits {diff} apart, "
+                             f"beyond {MULTIMODAL_LOGIT_TOLERANCE} of "
+                             f"{scale}")
+    # the kernel path's launches: K7 per layer by mode, K8 per layer and
+    # step on self (and cross) decode
+    kern = out["paths"]["kernel"]
+    k7 = {}
+    for e in kern["shape_launches"]:
+        if e["kernel"] == "flash_attention":
+            Sq, Sk = e["shape"][3], e["shape"][4]
+            mode = e["variant"] if Sq == Sk else "cross"
+            k7[mode] = k7.get(mode, 0) + e["launches"]
+    k8 = {("cross" if e["shape"][3] == cfg.encoder_seq and cfg.encoder_layers
+           else "self"): e["launches"]
+          for e in kern["shape_launches"]
+          if e["kernel"] == "decode_attention"}
+    L = cfg.num_layers
+    if cfg.family == "encdec":
+        want7 = {"bidir": cfg.encoder_layers, "causal": L, "cross": L}
+        want8 = {"self": steps * L, "cross": steps * L}
+    else:  # the prefix route: a causal call and a bidir one per layer
+        want7 = {"causal": L, "bidir": L}
+        want8 = {"self": steps * L}
+    if cuda and (k7 != want7 or k8 != want8):
+        raise AssertionError(f"{phase}: K7 launches {k7} (want {want7}), "
+                             f"K8 {k8} (want {want8})")
+    out.update(k7_by_mode=k7, k8_by_decode=k8,
+               k8_lengths={"self": P + S + steps, "cross": cfg.encoder_seq})
+    # decode-matches-forward on the kernel path: the forward over the
+    # prompt and the greedy ids
+    r = spec["check_rows"]
+    full = {k: v[:r] for k, v in batch.items()}
+    full["tokens"] = torch.cat([batch["tokens"][:r], kid[:r, :steps]], 1)
+    with torch.no_grad():
+        fl, _ = forward(cfg, params, full)
+    worst = float((kl[:r] - fl[:, P + S - 1]).abs().max())
+    for j, lg in enumerate(ksteps):
+        ref = fl[:, P + S + j]
+        worst = max(worst, float((lg - ref).abs().max()))
+        if not bool(torch.isclose(lg, ref, rtol=DECODE_TOLERANCE,
+                                  atol=DECODE_TOLERANCE).all()):
+            raise AssertionError(f"{phase} decode-matches-forward: step "
+                                 f"{j} {worst} apart, beyond "
+                                 f"{DECODE_TOLERANCE}")
+    out["decode_matches_forward"] = {
+        "rows": r, "steps": steps, "max_abs_diff": worst,
+        "max_abs_logit": float(fl[:, P + S - 1:].abs().max()),
+        "tolerance": f"rtol = atol = {DECODE_TOLERANCE}"}
+    del params, fl
+    return out
 
 
 def run_long_prefill(device, ssm_eng, hybrid_eng, ssm_shape=(2, 2048),
@@ -2660,7 +2961,9 @@ def _llm_launches() -> dict:
 
 def train_losses(device, cfg, params, steps: int, **step_kw) -> list[float]:
     """``steps`` steps of ``build_train_step`` on ``TokenStream(seed=7)``
-    at TRAIN_EQUIV's shape; the losses."""
+    at TRAIN_EQUIV's shape, with step i's frames or patches from
+    ``modal_inputs`` at seed 100 + i for the encoder-decoder and the
+    VLM; the losses."""
     import torch
 
     from repro_torch.training import (
@@ -2672,7 +2975,9 @@ def train_losses(device, cfg, params, steps: int, **step_kw) -> list[float]:
     step = build_train_step(cfg, opt, **step_kw)
     out = []
     for i in range(steps):
-        batch = {"tokens": torch.from_numpy(data[i]["tokens"]).to(device)}
+        host = {"tokens": data[i]["tokens"], **modal_inputs(
+            cfg, TRAIN_EQUIV["batch_size"], 100 + i)}
+        batch = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
         params, state, m = step(params, state, batch)
         out.append(float(m["loss"]))
     return out
@@ -3081,8 +3386,10 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
     hold the ``decode_lengths`` of a first decode round of the served
     prompts; ``llm`` adds K7 with the hybrid's window and K8 with its
     slot mask at ``serve_hybrid``'s and ``long_prefill``'s shapes, K7
-    and K8 at ``serve_moe``'s multi-head shapes (group 1), and K9 at
-    ``long_prefill``'s and ``serve_hybrid``'s; K10 from
+    and K8 at ``serve_moe``'s multi-head shapes (group 1), K7 and K8 at
+    every shape the ``encdec`` and ``vlm`` phases launched them at
+    (``llm["multimodal"]``: each phase's shape launches and decode
+    lengths), and K9 at ``long_prefill``'s and ``serve_hybrid``'s; K10 from
     ``e2e_sharded`` over ``n_shards`` buckets, with K6 at B = P and K10
     at P = 32 beside it):
     the kernel, its plain version and the library call each as
@@ -3349,38 +3656,44 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
         raise AssertionError(f"K7 at the serve shape: {err7} > {TOLERANCE}")
     pairs = B * H * S * (S + 1) // 2
 
-    def k7_at(shape, window=0, path=None):
-        """K7 at ``shape`` (B, H, K, S, S, d), causal, within ``window``
-        when it is > 0: kernel, plain and SDPA (the window as a boolean
-        mask) as graph replays, the bound over the visible pairs; with
-        ``path``, that path's launches and the device listing."""
-        B, H, K, S, _, d = shape
-        q, k, v = (torch.randn(B, S, n, d, generator=g, device=device)
-                   .transpose(1, 2) for n in (H, K, K))
+    def k7_at(shape, window=0, path=None, causal=True, launches=None):
+        """K7 at ``shape`` (B, H, K, Sq, Sk, d), causal (Sq = Sk) or
+        not, within ``window`` when it is > 0: kernel, plain and SDPA
+        (the window as a boolean mask) as graph replays, the bound over
+        the visible pairs; with ``path``, that path's launches (or
+        ``launches``, those at this shape) and the device listing."""
+        B, H, K, Sq, Sk, d = shape
+        q = torch.randn(B, Sq, H, d, generator=g,
+                        device=device).transpose(1, 2)
+        k, v = (torch.randn(B, Sk, K, d, generator=g, device=device)
+                .transpose(1, 2) for _ in range(2))
 
         def kern():
-            return flash_attention_kernel(q, k, v, causal=True,
+            return flash_attention_kernel(q, k, v, causal=causal,
                                           window=window)
 
-        err = float((kern() - attention_ref(q, k, v, causal=True,
-                                            window=window)).abs().max())
+        def plain():
+            return attention_ref(q, k, v, causal=causal, window=window)
+
+        err = float((kern() - plain()).abs().max())
         if not err <= TOLERANCE:
-            raise AssertionError(f"K7 window {window} at {shape}: {err}")
+            raise AssertionError(f"K7 causal {causal} window {window} at "
+                                 f"{shape}: {err}")
         if window:
-            dq = (torch.arange(S, device=device)[:, None]
-                  - torch.arange(S, device=device)[None, :])
+            dq = (torch.arange(Sq, device=device)[:, None]
+                  - torch.arange(Sk, device=device)[None, :])
             library = sdpa_call(q, k, v, attn_mask=(dq >= 0) & (dq < window))
         else:
-            library = sdpa_call(q, k, v, is_causal=True)
-        out = {"shape": list(shape), "window": window, "max_abs_err": err,
-               "ms": time_ms(kern),
-               "plain_ms": time_ms(lambda: attention_ref(
-                   q, k, v, causal=True, window=window)),
-               "library_ms": time_ms(library),
-               **tc_bounds(4 * (2 * B * H * S * d + 2 * B * K * S * d),
-                           4 * d * B * H * window_pairs(S, window))}
+            library = sdpa_call(q, k, v, is_causal=causal)
+        pairs = window_pairs(Sq, window) if causal else Sq * Sk
+        out = {"shape": list(shape), "causal": causal, "window": window,
+               "max_abs_err": err, "ms": time_ms(kern),
+               "plain_ms": time_ms(plain), "library_ms": time_ms(library),
+               **tc_bounds(4 * (2 * B * H * Sq * d + 2 * B * K * Sk * d),
+                           4 * d * B * H * pairs)}
         if path:
-            out.update(launches=by_path[path].get("flash_attention", 0),
+            out.update(launches=by_path[path].get("flash_attention", 0)
+                       if launches is None else launches, path=path,
                        wrapper_eager_ms=eager_ms(kern),
                        device_kernels=one_data_kernel(
                            f"K7 at {path}", kern, "flash_fwd_kernel"))
@@ -3391,6 +3704,19 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
                 for label, (shape, w) in llm.get("k7", {}).items()}
     if "k7_moe" in llm:  # multi-head (group 1): olmoe's admissions
         k7_extra["at_serve_moe"] = k7_at(llm["k7_moe"], path="serve_moe")
+    # the encoder-decoder's and the VLM's shapes, each with the launches
+    # its phase's kernel path made at it: whisper's encoder (bidir),
+    # decoder (causal) and cross-attention (bidir, Sq != Sk); paligemma's
+    # prefix route (causal over all rows, bidir over the image rows)
+    for phase, (entries, _) in llm.get("multimodal", {}).items():
+        for e in entries:
+            if e["kernel"] != "flash_attention":
+                continue
+            Sq, Sk = e["shape"][3], e["shape"][4]
+            mode = e["variant"] if Sq == Sk else "cross"
+            k7_extra[f"at_{phase}_{mode}"] = k7_at(
+                tuple(e["shape"]), causal=e["variant"] == "causal",
+                path=phase, launches=e["launches"])
     row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:97",
         lambda: flash_attention_kernel(q, k, v, causal=True),
@@ -3539,6 +3865,51 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
             "device_kernels": one_data_kernel(
                 "K8 at serve_moe", k8m, "decode_kernel", memset=True)}
         del qm, km, vm
+    # the encoder-decoder's self and cross decode and the VLM's decode:
+    # lengths, every row at its phase's last step (cross: every encoder
+    # slot)
+    for phase, (entries, lens) in llm.get("multimodal", {}).items():
+        for e in entries:
+            if e["kernel"] != "decode_attention":
+                continue
+            Bm, Hm, Km, Tm, dm = e["shape"]
+            kind = "cross" if Tm == lens["cross"] else "self"
+            lm = torch.full((Bm,), min(lens[kind], Tm), dtype=torch.int32,
+                            device=device)
+            qm = torch.randn(Bm, Hm, dm, generator=g, device=device)
+            km, vm = (torch.randn(Bm, Tm, Km, dm, generator=g,
+                                  device=device).permute(0, 2, 1, 3)
+                      for _ in range(2))
+
+            def k8m(qm=qm, km=km, vm=vm, lm=lm):
+                return decode_attention_kernel(qm, km, vm, lm)
+
+            def k8p(qm=qm, km=km, vm=vm, lm=lm):
+                return decode_attention_ref(qm, km, vm, lm)
+
+            errm = float((k8m() - k8p()).abs().max())
+            if not errm <= TOLERANCE:
+                raise AssertionError(f"K8 at {phase} {kind} {e['shape']}: "
+                                     f"{errm}")
+            live_m = int(lm.sum())
+            b_ms, b_by = bound_ms(
+                4 * (2 * Bm * Hm * dm + 2 * Km * dm * live_m + Bm),
+                4 * dm * Hm * live_m)
+            mask_m = (torch.arange(Tm, device=device)[None, :]
+                      < lm[:, None])[:, None, None, :]
+            k8_extra[f"at_{phase}_{kind}"] = {
+                "shape": list(e["shape"]), "live": live_m,
+                "lengths": lm[0].item(), "max_abs_err": errm,
+                "launches": e["launches"], "path": phase,
+                "ms": time_ms(k8m), "plain_ms": time_ms(k8p),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": time_ms(sdpa_call(qm[:, :, None], km, vm,
+                                                attn_mask=mask_m)),
+                "wrapper_eager_ms": eager_ms(k8m),
+                "device_kernels": one_data_kernel(
+                    f"K8 at {phase} {kind}", k8m, "decode_kernel",
+                    memset=True)}
+            del qm, km, vm
     row("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention/decode_attention.py:78",
         lambda: decode_attention_kernel(qd, kc, vc, lengths),
@@ -3626,6 +3997,23 @@ SHARED_CARD_NOTE = ("four shards on one card: these times measure the "
                     "interconnect")
 
 
+def ptxas_report(log: str) -> dict:
+    """nvcc's ``-Xptxas -v`` report: each source's register lines, and
+    every kernel instance that spills (its mangled name and ptxas's
+    stack and spill line)."""
+    lines, spills, fn = [], [], None
+    for ln in log.split("\n"):
+        ln = ln.strip()
+        if "registers" in ln or ln.startswith("== "):
+            lines.append(ln)
+        elif "Compiling entry function" in ln:
+            fn = ln.split("'")[1] if "'" in ln else ln
+        elif "spill stores" in ln and not ln.startswith(
+                "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill"):
+            spills.append({"function": fn, "line": ln})
+    return {"lines": lines, "spills": spills}
+
+
 def require_launched(path: str, launches: dict, names) -> None:
     missing = [k for k in names if launches.get(k, 0) == 0]
     if missing:
@@ -3663,9 +4051,8 @@ def main() -> int:
           "nvcc_seconds": _build.BUILD_INFO.get("seconds"),
           "cached": _build.BUILD_INFO.get("cached"), "gpu": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
-    ptxas = [ln.strip() for ln in _build.BUILD_INFO.get("log", "").split("\n")
-             if "registers" in ln or "== " in ln]
-    emit({"phase": "ptxas", "lines": ptxas})
+    emit({"phase": "ptxas", **ptxas_report(_build.BUILD_INFO.get("log",
+                                                                 ""))})
 
     t0 = time.perf_counter()
     cases, errs = check_kernels(device)
@@ -3863,10 +4250,24 @@ def main() -> int:
     if any(llm_mla["launches"][k] for k in LLM_KERNELS):
         raise AssertionError(f"llm_query_mla: MLA launched "
                              f"{llm_mla['launches']}")
-    # free the 54.85 GB model before training
+    # free the 54.85 GB model before the next
     del mla_engine
     gc.collect()
     torch.cuda.empty_cache()
+
+    mm = {}
+    for phase in MULTIMODAL:
+        t0 = time.perf_counter()
+        mm[phase] = run_multimodal(device, phase)
+        emit({"phase": phase, **mm[phase],
+              "seconds": time.perf_counter() - t0, "gpu": smi})
+        require_launched(phase, mm[phase]["paths"]["kernel"]["launches"],
+                         ATTN_KERNELS)
+        if any(mm[phase]["paths"]["plain"]["launches"].values()):
+            raise AssertionError(f"{phase}: the plain path launched "
+                                 f"{mm[phase]['paths']['plain']}")
+        gc.collect()
+        torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     tequiv = run_train_equiv(device)
@@ -3907,6 +4308,9 @@ def main() -> int:
         "k7_moe": moe["kernel"]["shapes"]["flash_attention"],
         "k8_moe": (moe["kernel"]["shapes"]["decode_attention"],
                    moe["decode_lengths"]),
+        "multimodal": {
+            phase: (out["paths"]["kernel"]["shape_launches"],
+                    out["k8_lengths"]) for phase, out in mm.items()},
         "k9": {"serve_hybrid": hshapes["ssd_chunk"],
                "long_prefill_ssm": long["ssm"]["shapes"]["ssd_chunk"],
                "long_prefill_hybrid": lshapes["ssd_chunk"]}}
@@ -3930,6 +4334,8 @@ def main() -> int:
                         "llm_query_moe": llm_m["launches"],
                         "serve_mla": mla["continuous"]["launches"],
                         "llm_query_mla": llm_mla["launches"],
+                        **{phase: out["paths"]["kernel"]["launches"]
+                           for phase, out in mm.items()},
                         "train_equiv": tequiv["launches"],
                         "train": train["launches"],
                         "train_backend": tback["train_launches"],

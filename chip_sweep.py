@@ -1,7 +1,8 @@
 """Time K3 (group boundaries), K5 (segmented reduction), K10 (shard
-rank) and K6 (radix rank) on one CUDA card at the shapes their main
-paths give them, for this tree's kernels, for the same sources rebuilt
-with one design choice changed, and for another tree's kernels:
+rank), K6 (radix rank) and K7 (flash attention) at head_dim 256 on one
+CUDA card at the shapes their main paths give them, for this tree's
+kernels, for the same sources rebuilt with one design choice changed,
+and for another tree's kernels:
 
     python chip_sweep.py [--root DIR ...] [--rounds 2] [--variant NAME ...]
 
@@ -13,7 +14,10 @@ histograms, (4,194,304,) int32 ones over 8-bit digits into 256 buckets
 K10 at e2e_sharded's source block, (4,194,304,) uniform destinations
 into P = 4 fixed-stride buckets, and into P = 32, each with K6 over the
 same B = P buckets beside it; K6 at e2e_hash's largest radix pass,
-(4,194,304,) uniform 8-bit digits into 256 buckets. Each time is
+(4,194,304,) uniform 8-bit digits into 256 buckets; K7 at the vlm
+phase's prefix route, (16,8,1,288,288,256) causal and (16,8,1,256,256,
+256) bidirectional (paligemma-3b's head), through the model's
+transposed views. Each time is
 ``chip_smoke.time_ms`` (the median of 30 samples of 20 CUDA-graph
 replays).
 
@@ -73,6 +77,11 @@ VARIANTS = {
     # K10's tile: rows per lane (the tile is 256 times as many rows)
     "k10_runs_16": ("shard_rank.cu", [
         ("constexpr int kRuns = 32;", "constexpr int kRuns = 16;")]),
+    # K7 above head_dim 128: the score product's 8-column steps unrolled
+    # 1, 2 or 4 at a time (8 in the tree)
+    **{f"k7_wide_unroll_{u}": ("flash_attention.cu", [
+        ("DP <= 128 ? DP / 8 : 8;", f"DP <= 128 ? DP / 8 : {u};")])
+       for u in (1, 2, 4)},
 }
 
 
@@ -102,8 +111,12 @@ def measure(src: Path, csrc: Path | None) -> dict:
     sys.path.insert(0, str(src))
     import chip_smoke
     from repro_torch.kernels import _build
+    from repro_torch.kernels import attention_cases as AC
     from repro_torch.kernels import radix_cases as RC
     from repro_torch.kernels.compact.compact import prefix_count_kernel
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_kernel)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.hash_join.hash_join import (
         radix_rank_kernel, radix_rank_torch)
     from repro_torch.kernels.hash_dedup.group_build import (
@@ -171,6 +184,16 @@ def measure(src: Path, csrc: Path | None) -> dict:
                        radix_rank_torch(digit, base)):
         raise AssertionError("K6 differs from its plain version")
     out["k6_ms"] = chip_smoke.time_ms(lambda: radix_rank_kernel(digit, base))
+    for S, causal in ((288, True), (256, False)):
+        q, k, v = (torch.randn(16, S, n, 256, generator=g, device=dev)
+                   .transpose(1, 2) for n in (8, 1, 1))
+        err = float((flash_attention_kernel(q, k, v, causal=causal)
+                     - attention_ref(q, k, v, causal=causal)).abs().max())
+        if not err <= AC.TOLERANCE:
+            raise AssertionError(f"K7 at S = {S}, d = 256: {err}")
+        out[f"k7_d256_{'causal' if causal else 'bidir'}_ms"] = \
+            chip_smoke.time_ms(lambda: flash_attention_kernel(
+                q, k, v, causal=causal))
     return out
 
 

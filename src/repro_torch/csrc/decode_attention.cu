@@ -102,9 +102,15 @@ constexpr int kChunk = 64;  // cache positions per block
 constexpr int kThreads = 384;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxGroup = 32;
-constexpr int kMaxD = 128;
+// head_dim bounds, one kernel instance each: up to 128 (every model but
+// paligemma-3b) and up to 256, so that the combine's registers (below)
+// grow only where the head does
+constexpr int kNarrowD = 128;
+constexpr int kMaxD = 256;
 // (head, float4 of columns) pairs a thread keeps in the combine
-constexpr int kPairs = (kMaxGroup * (kMaxD / 4) + kThreads - 1) / kThreads;
+__host__ __device__ constexpr int pairs_per_thread(int max_d) {
+  return (kMaxGroup * (max_d / 4) + kThreads - 1) / kThreads;
+}
 // the combine's staging room, where the main phase's region is smaller
 constexpr size_t kStageBytes = 48 * 1024;
 constexpr unsigned kFull = 0xffffffffu;
@@ -195,10 +201,10 @@ size_t smem_bytes(int group, int d, int chunks) {
                           std::max(main_floats(group, d), stage));
 }
 
-// the most any call asks for
-size_t max_smem_bytes() {
+// the most any call up to head_dim ``max_d`` asks for
+size_t max_smem_bytes(int max_d) {
   return sizeof(float) * kSmallWords +
-         std::max(main_floats(kMaxGroup, kMaxD) * sizeof(float),
+         std::max(main_floats(kMaxGroup, max_d) * sizeof(float),
                   kStageBytes);
 }
 
@@ -228,9 +234,11 @@ __device__ void mean_of_v(const Args& a, int b, int kh) {
   }
 }
 
-template <bool kVec>
+// kDMax: the head_dim bound of the instance (kNarrowD or kMaxD)
+template <bool kVec, int kDMax>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const Args a) {
+  constexpr int kPairs = pairs_per_thread(kDMax);
   extern __shared__ float4 smem4[];
   const int group = a.group, d = a.d;
   const int dp = padded_d(d), d4 = dp >> 2, ld = row_ld(d), ld4 = ld >> 2;
@@ -531,7 +539,7 @@ ScratchLayout scratch_layout(int B, int K, int group, int chunks, int d) {
   return s;
 }
 
-template <bool kVec>
+template <bool kVec, int kDMax>
 cudaError_t launch(const Args& a, int B, cudaStream_t st) {
   // allow the most dynamic shared memory a call can ask for, once per
   // instance, so a call inside a CUDA graph capture makes no attribute
@@ -539,14 +547,15 @@ cudaError_t launch(const Args& a, int B, cudaStream_t st) {
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        decode_kernel<kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(max_smem_bytes()));
+        decode_kernel<kVec, kDMax>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(max_smem_bytes(kDMax)));
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const dim3 grid(a.chunks, B * a.K);
-  decode_kernel<kVec><<<grid, kThreads, smem_bytes(a.group, a.d, a.chunks),
-                        st>>>(a);
+  decode_kernel<kVec, kDMax>
+      <<<grid, kThreads, smem_bytes(a.group, a.d, a.chunks), st>>>(a);
   return cudaGetLastError();
 }
 
@@ -575,7 +584,7 @@ extern "C" long long repro_decode_scratch_bytes(int B, int H, int K, int T,
 // strides; either lengths: (B,) int32 (slot_pos and pos null) or
 // slot_pos: (B, T) and pos: (B,) int32 with window >= 0 (lengths null),
 // contiguous; o: (B, H, d) with (b, h) strides; float32, unit stride on
-// d; H % K == 0, H / K <= 32, 1 <= d <= 128, B * K <= 65535; scratch:
+// d; H % K == 0, H / K <= 32, 1 <= d <= 256, B * K <= 65535; scratch:
 // repro_decode_scratch_bytes(B, H, K, T, d) bytes, 16-byte aligned.
 // Returns the CUDA error code of the memset and the launch (0 on
 // success).
@@ -629,6 +638,10 @@ extern "C" int repro_decode_attention(
       v_st % 4 == 0 &&
       ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
         reinterpret_cast<uintptr_t>(v)) & 15) == 0;
-  err = vec ? launch<true>(a, B, st) : launch<false>(a, B, st);
+  if (d <= kNarrowD)
+    err = vec ? launch<true, kNarrowD>(a, B, st)
+              : launch<false, kNarrowD>(a, B, st);
+  else
+    err = vec ? launch<true, kMaxD>(a, B, st) : launch<false, kMaxD>(a, B, st);
   return static_cast<int>(err);
 }

@@ -23,8 +23,11 @@
 //     memory beside the query tile: 96 KB at d = 128, so two blocks share
 //     an SM and one block's copies overlap the other's products (two
 //     64-key stages would take 160 KB, one block per SM, and leave every
-//     block's first tile exposed). Where q, k and v start on 16 bytes and
-//     their strides are multiples of 16 bytes (the model's views), the
+//     block's first tile exposed; at d = 256, paligemma-3b's head, the
+//     query tile and the ring take 194 KB, one block per SM, and a warp's
+//     16 x 256 output is 128 registers a thread). Where q, k and v start
+//     on 16 bytes and their strides are multiples of 16 bytes (the
+//     model's views), the
 //     TMA unit copies each 32-column box of a tile from a tensor map
 //     (one thread issues them), filling rows and columns outside the
 //     tensor with zeros and counting the bytes on the stage's mbarrier,
@@ -78,7 +81,7 @@ constexpr int kBK = 32;  // keys per ring stage
 constexpr int kWarps = kBQ / 16;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kStages = 2;
-constexpr int kMaxD16 = 8;    // head_dim <= 16 * kMaxD16 = 128
+constexpr int kMaxD16 = 16;   // head_dim <= 16 * kMaxD16 = 256
 constexpr int kBox = 32;      // columns per TMA box (128 bytes)
 constexpr int kAlign = 1024;  // the 128-byte swizzle repeats every 1 KB
 constexpr unsigned kFull = 0xffffffffu;
@@ -155,8 +158,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
   constexpr int KT = kv_floats(D16);
   constexpr int ND = DP / 8;  // 8-column output tiles
   // the score product's 8-column steps unrolled: all of them at d = 128
-  // (measured faster), 4 at a time at d <= 64 (fewer registers, faster)
-  constexpr int kQkUnroll = DP <= 64 ? 4 : DP / 8;
+  // (measured faster), 4 at a time at d <= 64 (fewer registers, faster),
+  // 8 at a time above 128, where the 16 x d output alone takes d / 2
+  // registers a thread
+  constexpr int kQkUnroll = DP <= 64 ? 4 : DP <= 128 ? DP / 8 : 8;
   // softmax in base 2: exp(x) = 2^(x log2 e), log2 e folded into the
   // scale (exp2f takes fewer instructions than expf, on every score)
   const float scale2 = scale * 1.4426950408889634f;
@@ -510,7 +515,7 @@ bool aligned16(const void* p) {
 
 // q: (B, H, Sq, d), k/v: (B, K, Sk, d), o: (B, H, Sq, d), all float32
 // with unit stride on d and the given (b, h, s) strides in elements;
-// H % K == 0, 1 <= d <= 128, B * H < 2^31, Sq < 2^16 * 64; window 0 is
+// H % K == 0, 1 <= d <= 256, B * H < 2^31, Sq < 2^16 * 64; window 0 is
 // none. Returns the CUDA error code of the launch (0 on success).
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, int B, int H,
@@ -541,7 +546,10 @@ extern "C" int repro_flash_attention(
   const int group = H / K;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  switch ((d + 15) / 16) {
+  // heads up to 128 take the instance of their 16-column count; wider
+  // ones (paligemma-3b's 256) the 256-column instance, columns past d
+  // zero as at d = 36
+  switch (d <= 128 ? (d + 15) / 16 : kMaxD16) {
 #define REPRO_FLASH_CASE(N)                                                 \
   case N:                                                                   \
     err = tma ? launch<N, true>(qm, km, vm, qo, ko, vo, qf, kf, vf, of, B,  \
@@ -559,6 +567,7 @@ extern "C" int repro_flash_attention(
     REPRO_FLASH_CASE(6)
     REPRO_FLASH_CASE(7)
     REPRO_FLASH_CASE(8)
+    REPRO_FLASH_CASE(kMaxD16)
 #undef REPRO_FLASH_CASE
     default:
       err = cudaErrorInvalidValue;

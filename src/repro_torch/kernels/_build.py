@@ -80,6 +80,10 @@ LAUNCHES = {"prefix_count": 0, "hash_rows": 0, "group_boundaries": 0,
             "flash_attention": 0, "decode_attention": 0, "ssd_chunk": 0,
             "shard_rank": 0}
 MAX_SHAPES: dict[str, tuple] = {}
+# (kernel name, variant, input shape) -> launches since the last
+# reset_launches(): K7's variant is its mask ("causal", "bidir", with
+# "+window"), K8's ("lengths", "slot_mask"), others' None
+SHAPE_LAUNCHES: dict[tuple, int] = {}
 
 _LIB: ctypes.CDLL | None = None
 BUILD_INFO: dict = {}
@@ -90,13 +94,17 @@ def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     MAX_SHAPES.clear()
+    SHAPE_LAUNCHES.clear()
 
 
-def count_launch(name: str, shape) -> None:
+def count_launch(name: str, shape, variant: str | None = None) -> None:
     """Record one launch of kernel ``name`` on an input of ``shape``
-    (its leading entry is the row count the largest shape is kept by)."""
+    (its leading entry is the row count the largest shape is kept by),
+    and under (name, ``variant``, shape) in ``SHAPE_LAUNCHES``."""
     LAUNCHES[name] += 1
     shape = tuple(shape)
+    key = (name, variant, shape)
+    SHAPE_LAUNCHES[key] = SHAPE_LAUNCHES.get(key, 0) + 1
     old = MAX_SHAPES.get(name)
     if old is None or shape[0] > old[0]:
         MAX_SHAPES[name] = shape

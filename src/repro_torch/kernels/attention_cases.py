@@ -21,6 +21,19 @@ GROUPS = (1, 2, 12)
 # the models' 64 and 128, and 36 and 80, which K7 zero-pads to its
 # 16-column tiles
 HEAD_DIMS = (36, 64, 80, 128)
+# paligemma-3b's head_dim, which K7 and K8 take in instances of their own,
+# at group 1 and at paligemma's group of 8 query heads over one KV head
+WIDE_HEAD_DIM = 256
+WIDE_GROUPS = (1, 8)
+# K7 with queries and keys of different lengths, not causal: the whisper
+# decoder's cross-attention (its prompt over 1500 encoder frames), at
+# query counts around K7's 64-row tile and key counts around its 32-key
+# tile and at whisper's
+CROSS_QUERIES = (1, 32, 65)
+CROSS_KEYS = (63, 1500)
+# the VLM's prefix-LM mask, (S, prefix): paligemma's 256 image tokens
+# before 32 text tokens, prefixes at and off K7's tiles, all image
+PREFIX_CASES = ((288, 256), (65, 64), (100, 37), (16, 16))
 # K8: cache lengths T (131 = the serve phase's max_seq + max_new + 1)
 CACHE_LENS = (1, 131, 1000)
 # K8's chunk: csrc/decode_attention.cu's kChunk, exported by the library

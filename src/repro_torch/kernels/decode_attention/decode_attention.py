@@ -13,7 +13,9 @@ partials in chunk order and writes the output, all in one launch after
 one memset of the arrival counters. Two masks: the first
 ``lengths[b]`` positions (the dense LM), or the reference's slot mask
 ``0 <= slot_pos <= pos`` within ``window`` (the hybrid's ring cache).
-Bound: bytes, the live cache rows.
+head_dim runs to 256 (paligemma-3b) in a second instance of the kernel,
+whose combine keeps twice the registers; heads up to 128 keep the
+narrow instance. Bound: bytes, the live cache rows.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import torch
 from .. import _build
 from ..util import refuse_autograd
 
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 MAX_GROUP = 32  # query heads per KV head
 MAX_ROW_HEADS = 65535  # rows x KV heads: the launch grid's second axis
 
@@ -93,5 +95,6 @@ def decode_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                 _build.ptr(out), B, H, K, T, d, *q.stride()[:2],
                 *k.stride()[:3], *v.stride()[:3], *out.stride()[:2],
                 1.0 / math.sqrt(d), _build.ptr(scratch), _build.stream(q))
-    _build.count_launch("decode_attention", (B, H, K, T, d))
+    _build.count_launch("decode_attention", (B, H, K, T, d),
+                        "lengths" if lengths is not None else "slot_mask")
     return out

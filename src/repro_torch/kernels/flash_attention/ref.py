@@ -31,3 +31,20 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = torch.where(mask[None, None], s, torch.full_like(s, -1e30))
     w = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", w, vv.float()).to(q.dtype)
+
+
+def attention_prefix_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         prefix: int) -> torch.Tensor:
+    """The prefix-LM mask of the reference model's ``_mask_bias`` (mode
+    "prefix") over q/k/v (B,H,S,d) / (B,K,S,d): query i sees key j iff
+    j <= i or j < ``prefix``. Returns (B,H,S,d)."""
+    B, H, S, d = q.shape
+    group = H // k.shape[1]
+    kk = torch.repeat_interleave(k, group, dim=1).float()
+    vv = torch.repeat_interleave(v, group, dim=1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) / math.sqrt(d)
+    i = torch.arange(S, device=q.device)
+    mask = (i[:, None] >= i[None, :]) | (i[None, :] < prefix)
+    s = torch.where(mask[None, None], s, torch.full_like(s, -1e30))
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", w, vv).to(q.dtype)

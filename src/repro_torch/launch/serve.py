@@ -28,6 +28,10 @@ behind the serving tier and answer prompts, on the card unless ``--device cpu``.
 Dense, MoE, SSM, hybrid and MLA configurations are served, with random
 weights or, with ``--ckpt``, the trained semantic backend
 (``training/backend.py::backend_config``) restored from its checkpoint.
+The encoder-decoder and VLM configurations (whisper-small,
+paligemma-3b) are refused: the engine feeds tokens only, as the
+reference's does, and they need frames or patches beside them (run
+them through ``repro_torch.models``' ``prefill`` / ``decode_step``).
 There is no model-parallel mesh (``--dp``/``--tp`` wait for it; the
 partitioned data tier's mesh shards tables, not a model).
 """
@@ -39,7 +43,7 @@ import torch
 
 from ..configs import get_config, get_tiny
 from ..engine.table import resolve_device
-from ..models import init_params
+from ..models import check_tokens_only, init_params
 from ..serving.engine import ServingEngine
 from ..training.backend import backend_config
 from ..training.checkpoint import CheckpointManager
@@ -74,6 +78,7 @@ def main(argv=None):
               f"on {dev}")
     else:
         cfg = get_tiny(args.arch) if args.tiny else get_config(args.arch)
+        check_tokens_only(cfg, "launch/serve")
         gen = torch.Generator(device=dev).manual_seed(0)
         params = init_params(cfg, gen, device=dev)
         print(f"[serve] random-weight {cfg.name} on {dev} (smoke mode)")

@@ -20,7 +20,11 @@ Fault tolerance: checkpoints are atomic and asynchronous
 checkpoint and replays the exact batch schedule (step-addressable data),
 so the final ``loss=`` line equals an uninterrupted run's. Weights come
 from ``init_params`` with a generator seeded 0 on the device, the data
-from ``TokenStream(seed=7)``. ``--dp``/``--tp`` (an elastic
+from ``TokenStream(seed=7)``, which holds tokens only, so the
+encoder-decoder and VLM configurations, which need frames or patches
+beside them, are refused (as the reference's ``TokenStream`` cannot
+feed them; ``build_train_step`` trains them from a batch that carries
+them). ``--dp``/``--tp`` (an elastic
 model-parallel mesh) wait for the mesh slice and are refused.
 """
 from __future__ import annotations
@@ -33,7 +37,7 @@ import torch
 
 from ..configs import get_config, get_tiny
 from ..engine.table import resolve_device
-from ..models import init_params
+from ..models import check_tokens_only, init_params
 from ..training.checkpoint import CheckpointManager
 from ..training.data import TokenStream
 from ..training.optimizer import MOMENT_DTYPES, AdamWConfig, init_state
@@ -70,6 +74,7 @@ def main(argv=None):
                  "ported; train on one device")
 
     cfg = get_tiny(args.arch) if args.tiny else get_config(args.arch)
+    check_tokens_only(cfg, "launch/train (TokenStream)")
     dev = resolve_device(args.device)
     opt_cfg = AdamWConfig(lr=args.lr, moment_dtype=args.moment_dtype)
     data = TokenStream(vocab_size=cfg.vocab_size, batch_size=args.batch,

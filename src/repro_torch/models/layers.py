@@ -1,8 +1,9 @@
-"""Building blocks of the decoder-only LM, the subset of the reference's
-``src/repro/models/layers.py`` that the dense, MoE, SSM (Mamba-2) and
-hybrid families run: ``rms_norm``, ``rope`` (halves concatenated, not
-interleaved), ``mlp``, ``_qkv``, ``_mask_bias``, ``gqa_attention``, the
-prefill / decode attention blocks (with the hybrid's sliding window),
+"""Building blocks of the LM, the reference's
+``src/repro/models/layers.py`` on one device: ``rms_norm``, ``rope``
+(halves concatenated, not interleaved), ``mlp``, ``_qkv``,
+``_mask_bias`` (causal, bidirectional and prefix-LM, with the hybrid's
+sliding window), ``gqa_attention``, the prefill / decode attention
+blocks (self-attention, and the encoder-decoder's cross-attention),
 the mixture of experts on one device (``moe_block`` with its routing
 and capacity dispatch ``moe_route``, and the dense oracle
 ``moe_reference``), and
@@ -19,14 +20,33 @@ the plain path on a CPU one):
 * "ref" — the reference's grouped einsum ``gqa_attention`` with its
   additive mask, the plain path.
 
-Both compute the same function: prefill is causal over positions
-``arange(S)`` on every row, within ``window`` when one is given, which
-is all K7 masks. Without a window a decode row's cache holds position
-``t`` at slot ``t`` for every ``t <= pos`` (prefill writes
-``arange(S)``, decode writes slot ``pos``, admission replaces the whole
-row), so K8's ``lengths = pos + 1`` masks what ``slot_pos`` masks; the
-hybrid's ring cache (slot ``pos % window``) breaks that, so there K8
-takes the reference's slot mask itself.
+Both compute the same function. Prefill runs over positions
+``arange(S)`` on every row in one of the reference's three modes, each
+a route through K7:
+
+* "causal" (the decoder-only LMs, the whisper decoder's
+  self-attention): K7 ``causal=True``, within ``window`` when one is
+  given;
+* "bidir" (the whisper encoder, and the decoder's cross-attention over
+  the encoder's keys, where the query and key counts differ): K7
+  ``causal=False``;
+* "prefix" (the VLM: image tokens first, then text): K7 ``causal=True``
+  over all S rows, then K7 ``causal=False`` over the first ``prefix``
+  queries against the first ``prefix`` keys, written into those rows
+  of the same output through K7's output strides
+  (``kernels/flash_attention/ops.py::prefix_attention``). Exact: for a
+  text row the prefix mask ``(d >= 0) | (k < prefix)`` is ``d >= 0``,
+  since every image key lies before it, and an image row sees exactly
+  the image keys.
+
+Without a window a decode row's cache holds position ``t`` at slot
+``t`` for every ``t <= pos`` (prefill writes ``arange(S)``, the VLM's
+image positions included, decode writes slot ``pos``, admission
+replaces the whole row), so K8's ``lengths = pos + 1`` masks what
+``slot_pos`` masks; the hybrid's ring cache (slot ``pos % window``)
+breaks that, so there K8 takes the reference's slot mask itself. Cross
+decode (``cross=True``) reads the encoder's keys, every slot live: K8
+with ``lengths = encoder_seq`` on every row.
 
 MLA has one path: the reference computes it with einsums outside any
 Pallas kernel, so there is no kernel to port; "auto" and "ref" both
@@ -46,7 +66,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.decode_attention.ops import decode_attention
-from ..kernels.flash_attention.ops import flash_attention
+from ..kernels.flash_attention.ops import flash_attention, prefix_attention
 from ..kernels.ssd import ops as ssd_ops
 from ..kernels.ssd.ref import ssd_reference  # noqa: F401  (re-export)
 from ..kernels.util import resolve_impl
@@ -120,14 +140,28 @@ def _qkv(cfg, p, x):
     return q, k, v
 
 
-def _mask_bias(q_pos, k_pos, window: int = 0):
-    """Causal additive bias from position comparisons, with the
-    sliding-window bound when ``window`` > 0. q_pos: (B, S); k_pos: (T,)
-    or (B, T). Returns (B, S, T) float32."""
+MODES = ("causal", "bidir", "prefix")
+
+
+def _mask_bias(q_pos, k_pos, window: int = 0, mode: str = "causal",
+               prefix: int = 0):
+    """Additive bias from position comparisons (the reference's
+    ``_mask_bias(mode, q_pos, k_pos, window, prefix)``): ``mode``
+    "causal" keeps keys at or before the query, "bidir" every key,
+    "prefix" those and every key before position ``prefix``; the
+    sliding-window bound too when ``window`` > 0. q_pos: (B, S); k_pos:
+    (T,) or (B, T). Returns (B, S, T) float32."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if k_pos.dim() == 1:
         k_pos = k_pos[None].expand(q_pos.shape[0], k_pos.shape[0])
     d = q_pos[:, :, None] - k_pos[:, None, :]
-    ok = d >= 0
+    if mode == "bidir":
+        ok = torch.ones_like(d, dtype=torch.bool)
+    elif mode == "prefix":
+        ok = (d >= 0) | (k_pos[:, None, :] < prefix)
+    else:
+        ok = d >= 0
     if window > 0:
         ok = ok & (d < window)
     zero = torch.zeros((), dtype=torch.float32, device=d.device)
@@ -149,36 +183,70 @@ def gqa_attention(q, k, v, bias):
     return out.reshape(B, S, H, hd)
 
 
+def k7_attention(q, k, v, mode: str = "causal", prefix: int = 0,
+                 window: int = 0, impl: str = "kernel"):
+    """The K7 route of ``mode`` (module doc) over the model's (B,S,H,hd)
+    queries and (B,T,K,hd) keys and values, which K7 reads through
+    their strides as (B,H,S,hd) views; ``impl="ref"`` runs the same
+    route on K7's plain version. Returns (B,S,H,hd)."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if mode == "prefix":
+        out = prefix_attention(qt, kt, vt, prefix, impl=impl)
+    elif mode in ("causal", "bidir"):
+        out = flash_attention(qt, kt, vt, causal=mode == "causal",
+                              window=window, impl=impl)
+    else:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    return out.transpose(1, 2)
+
+
 def attention_block(cfg: ModelConfig, p, x, attn_impl: str = "auto",
-                    window: int = 0):
-    """Causal self-attention over positions ``arange(S)`` on every row
-    (train forward / prefill), within ``window`` when it is > 0.
+                    window: int = 0, mode: str = "causal", prefix: int = 0,
+                    kv_override=None):
+    """Self-attention over positions ``arange(S)`` on every row (train
+    forward / prefill) under ``mode`` (causal, bidir, prefix with
+    ``prefix`` image positions), within ``window`` when it is > 0.
     Returns (out (B,S,D), k, v) with the roped keys and values
-    (B,S,K,hd) the decode cache stores."""
+    (B,S,K,hd) the decode cache stores. With ``kv_override`` = (k, v),
+    the encoder's (B,T,K,hd) keys and values (``_cross_kv``), it is the
+    whisper decoder's cross-attention: q is the bare projection (no
+    rope, no ``bq``), and k, v come back None (the cache stores them
+    apart)."""
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    q, k, v = _qkv(cfg, p, x)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    if attn_path(attn_impl, x) == "kernel":
-        # K7 reads the (B, S, H, hd) projections through their strides
-        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=True,
-                              window=window, impl="kernel").transpose(1, 2)
+    if kv_override is None:
+        q, k, v = _qkv(cfg, p, x)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        k_pos = positions
     else:
-        out = gqa_attention(q, k, v, _mask_bias(positions, positions,
-                                                window))
+        q = _proj(x, p["wq"])
+        k, v = kv_override
+        k_pos = torch.arange(k.shape[1], device=x.device)
+    if attn_path(attn_impl, x) == "kernel":
+        out = k7_attention(q, k, v, mode, prefix, window)
+    else:
+        out = gqa_attention(q, k, v, _mask_bias(positions, k_pos, window,
+                                                mode, prefix))
     o = out.reshape(B, S, -1) @ p["wo"].reshape(-1, cfg.d_model)
+    if kv_override is not None:
+        return o, None, None
     return o, k, v
 
 
 def attention_decode(cfg: ModelConfig, p, x, k_cache, v_cache, slot_pos,
-                     pos, attn_impl: str = "auto", window: int = 0):
+                     pos, attn_impl: str = "auto", window: int = 0,
+                     cross: bool = False):
     """Single-token decode. x: (B,1,D); caches (B,T,K,hd) and slot_pos
     (B,T) (-1 = empty) are updated IN PLACE at slot ``pos`` of each row,
     or ``pos % window`` when ``window`` > 0 (the hybrid's ring); pos:
-    (B,) current absolute positions. Returns (B,1,D)."""
+    (B,) current absolute positions. With ``cross`` the caches are the
+    encoder's cross K/V (``xk``/``xv``): nothing is written, q is
+    unroped (``bq`` added) and every slot is live (``slot_pos`` is not
+    read). Returns (B,1,D)."""
     B = x.shape[0]
+    if cross:
+        return _cross_decode(cfg, p, x, k_cache, v_cache, attn_impl)
     q, k_new, v_new = _qkv(cfg, p, x)
     q = rope(q, pos[:, None], cfg.rope_theta)
     k_new = rope(k_new, pos[:, None], cfg.rope_theta)
@@ -210,6 +278,26 @@ def attention_decode(cfg: ModelConfig, p, x, k_cache, v_cache, slot_pos,
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         bias = torch.where(ok, zero, torch.full_like(zero, -1e30))[:, None]
         out = gqa_attention(q, k_cache, v_cache, bias)
+    return out.reshape(B, 1, -1) @ p["wo"].reshape(-1, cfg.d_model)
+
+
+def _cross_decode(cfg: ModelConfig, p, x, xk, xv, attn_impl: str):
+    """One token's cross-attention over the encoder's (B,T,K,hd) keys
+    and values, every slot live (the reference's ``slot_pos`` of zeros
+    with pos >= 0): K8 with ``lengths = T`` on every row, or the grouped
+    einsum with a zero bias. Returns (B,1,D)."""
+    B, T = x.shape[0], xk.shape[1]
+    q = _proj(x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"]
+    if attn_path(attn_impl, x) == "kernel":
+        lengths = torch.full((B,), T, dtype=torch.int32, device=x.device)
+        out = decode_attention(q[:, 0], xk.permute(0, 2, 1, 3),
+                               xv.permute(0, 2, 1, 3), lengths,
+                               impl="kernel")[:, None]
+    else:
+        bias = torch.zeros(B, 1, T, dtype=torch.float32, device=x.device)
+        out = gqa_attention(q, xk, xv, bias)
     return out.reshape(B, 1, -1) @ p["wo"].reshape(-1, cfg.d_model)
 
 

@@ -1,12 +1,13 @@
-"""The decoder-only LM (dense, MoE, SSM and hybrid families, MLA and
-multi-token prediction): forward, the decode cache, prefill and
-one-token decode — the subset of the reference's
-``src/repro/models/lm.py`` those families run.
+"""The LM of every family: decoder-only (dense, MoE, SSM and hybrid,
+MLA and multi-token prediction), encoder-decoder (whisper) and VLM
+(paligemma): forward, the decode cache, prefill and one-token decode —
+the reference's ``src/repro/models/lm.py`` on one device.
 
 Entry points
 ------------
 forward_loss(cfg, params, batch, remat)            -> scalar loss (training)
 forward(cfg, params, batch)                        -> (logits, h)
+encode(cfg, params, frames)                        -> encoder output
 prefill(cfg, params, batch, max_seq)               -> (logits_last, cache)
 decode_step(cfg, params, cache, tokens, pos)       -> (logits, cache)
 init_cache / build_cache_spec                      -> the reference's
@@ -15,10 +16,16 @@ init_cache / build_cache_spec                      -> the reference's
     and for the SSM/hybrid (L, B, nh, hd, ns) ``state`` and
     (L, B, cw-1, conv_dim) ``conv``; an MLA configuration stores only
     the latent: (L, B, T, kv_lora_rank) ``ckv`` and (L, B, T,
-    qk_rope_head_dim) ``krope``
+    qk_rope_head_dim) ``krope``; the encoder-decoder adds the cross K/V
+    (L, B, encoder_seq, K, hd) ``xk`` and ``xv``
 
-``batch`` is ``{"tokens": (B, S) int tensor}``. The reference's
-``lax.scan`` over stacked layers is a Python loop over
+``batch`` is ``{"tokens": (B, S) int tensor}``, plus ``"frames"`` (B,
+Senc, D) for the encoder-decoder and ``"patches"`` (B, P, D) for the
+VLM: the stub frontends' precomputed embeddings, as in the reference.
+The VLM's sequence is its P image positions, then the S text
+positions, under the prefix-LM mask: its logits cover P + S positions
+and its cache holds both, so decode starts at ``pos = P + S``. The
+reference's ``lax.scan`` over stacked layers is a Python loop over
 the layers of ``params["blocks"]`` (unbound once, so the gradients of
 the L layers land in the stacked ``(L, ...)`` leaves in one stack, and
 training keeps the reference's leaves); ``decode_step`` updates the
@@ -41,6 +48,7 @@ from torch.utils.checkpoint import (
 
 from .config import ModelConfig
 from .layers import (
+    _proj,
     attention_block,
     attention_decode,
     check_mla_impl,
@@ -52,7 +60,7 @@ from .layers import (
     ssm_block,
     ssm_decode,
 )
-from .params import check_supported, mtp_config
+from .params import check_supported, encoder_config, mtp_config
 
 
 def _layers(tree: dict, n: int) -> list[dict]:
@@ -83,21 +91,21 @@ def _window(cfg: ModelConfig) -> int:
     return cfg.attn_window if cfg.family == "hybrid" else 0
 
 
-def _mix(cfg, bp, x, attn_impl, ssd_impl):
+def _mix(cfg, bp, x, attn_impl, ssd_impl, mode="causal", prefix=0):
     """One layer's mixer over the full sequence (the reference's
-    ``_mixer_train``). Returns (out, kv, state, conv_tail): ``kv`` the
-    cache leaves of its attention by name (roped ``k`` and ``v``, or
-    MLA's latent ``ckv`` and ``krope``), the parts a family lacks as
-    None."""
+    ``_mixer_train``), its attention under ``mode`` and ``prefix``.
+    Returns (out, kv, state, conv_tail): ``kv`` the cache leaves of its
+    attention by name (roped ``k`` and ``v``, or MLA's latent ``ckv``
+    and ``krope``), the parts a family lacks as None."""
     kv = state = conv = None
     if cfg.use_mla:
         a, ckv, krope = mla_block(cfg, bp["mla"], x)
         kv = {"ckv": ckv, "krope": krope}
     elif cfg.family != "ssm":
         a, k, v = attention_block(cfg, bp["attn"], x, attn_impl,
-                                  _window(cfg))
+                                  _window(cfg), mode, prefix)
         kv = {"k": k, "v": v}
-    if cfg.family in ("dense", "moe"):
+    if cfg.family not in ("ssm", "hybrid"):
         return a, kv, state, conv
     s, state, conv = ssm_block(cfg, bp["ssm"], x, ssd_impl)
     if cfg.family == "ssm":
@@ -148,12 +156,24 @@ _SAVE_DOTS = functools.partial(
 REMATS = (None, "full", "dots")
 
 
-def _block(cfg, bp, h, attn_impl, ssd_impl, cache=None, l=0):
-    """One layer (the reference's ``_block_train``); with ``cache`` its
-    roped K/V or MLA latent (``_write_kv``) and its SSM state and conv
-    tail are written into layer ``l`` of the cache's leaves."""
+def _cross_kv(p, enc):
+    """The cross-attention's keys and values (B, Senc, K, hd) from the
+    encoder output ``enc`` (B, Senc, D): bare projections, no bias and
+    no rope, as the reference's ``_cross_kv``."""
+    return _proj(enc, p["wk"]), _proj(enc, p["wv"])
+
+
+def _block(cfg, bp, h, attn_impl, ssd_impl, cache=None, l=0,
+           mode="causal", prefix=0, enc=None):
+    """One layer (the reference's ``_block_train``), its attention under
+    ``mode`` and ``prefix``; with ``enc`` (the encoder output) the
+    whisper decoder's cross-attention residual between the mixer and
+    the FFN. With ``cache`` its roped K/V or MLA latent
+    (``_write_kv``), its SSM state and conv tail and its cross K/V are
+    written into layer ``l`` of the cache's leaves."""
     mix, kv, state, conv = _mix(
-        cfg, bp, rms_norm(h, bp["ln1"], cfg.norm_eps), attn_impl, ssd_impl)
+        cfg, bp, rms_norm(h, bp["ln1"], cfg.norm_eps), attn_impl, ssd_impl,
+        mode, prefix)
     if cache is not None:
         for name, t in (kv or {}).items():
             _write_kv(cache[name][l], t)
@@ -161,6 +181,15 @@ def _block(cfg, bp, h, attn_impl, ssd_impl, cache=None, l=0):
             cache["state"][l] = state
             cache["conv"][l] = conv
     h = h + mix
+    if enc is not None:
+        xk, xv = _cross_kv(bp["xattn"], enc)
+        if cache is not None:
+            cache["xk"][l] = xk
+            cache["xv"][l] = xv
+        xa, _, _ = attention_block(
+            cfg, bp["xattn"], rms_norm(h, bp["ln_x"], cfg.norm_eps),
+            attn_impl, mode="bidir", kv_override=(xk, xv))
+        h = h + xa
     f = _ffn(cfg, bp, h)
     if f is not None:
         h = h + f
@@ -168,23 +197,57 @@ def _block(cfg, bp, h, attn_impl, ssd_impl, cache=None, l=0):
 
 
 def _blocks(cfg, params, h, attn_impl, ssd_impl, cache=None,
-            remat: Optional[str] = None):
-    """Every layer over the full sequence (with ``cache``, see
-    ``_block``). ``remat`` recomputes each layer in the backward as the
-    reference's ``_scan_blocks`` checkpoints its scan body: "full"
-    keeps only the layer's input, "dots" also its unbatched matrix
-    products, None keeps everything."""
+            remat: Optional[str] = None, mode="causal", prefix=0,
+            enc=None):
+    """Every layer over the full sequence (with ``cache``, ``mode``,
+    ``prefix`` and ``enc``, see ``_block``). ``remat`` recomputes each
+    layer in the backward as the reference's ``_scan_blocks``
+    checkpoints its scan body: "full" keeps only the layer's input,
+    "dots" also its unbatched matrix products, None keeps
+    everything."""
     if remat not in REMATS:
         raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
     for l, bp in enumerate(_layers(params["blocks"], cfg.num_layers)):
         if remat is None:
-            h = _block(cfg, bp, h, attn_impl, ssd_impl, cache, l)
+            h = _block(cfg, bp, h, attn_impl, ssd_impl, cache, l, mode,
+                       prefix, enc)
             continue
         fn = functools.partial(_block, cfg, bp, attn_impl=attn_impl,
-                               ssd_impl=ssd_impl)
+                               ssd_impl=ssd_impl, mode=mode, prefix=prefix,
+                               enc=enc)
         extra = {"context_fn": _SAVE_DOTS} if remat == "dots" else {}
         h = checkpoint(fn, h, use_reentrant=False, **extra)
     return h
+
+
+def encode(cfg: ModelConfig, params, frames, attn_impl: str = "auto"):
+    """The whisper encoder over the stub frontend's frame embeddings
+    (B, Senc, D), Senc <= encoder_seq: the learned positions added, the
+    encoder's dense blocks in mode "bidir" (K7 ``causal=False`` on the
+    kernel path), then its final norm. Returns (B, Senc, D)."""
+    enc = params["encoder"]
+    h = frames + enc["pos_embed"][None, :frames.shape[1]]
+    ecfg = encoder_config(cfg)
+    for bp in _layers(enc["blocks"], cfg.encoder_layers):
+        h = _block(ecfg, bp, h, attn_impl, "ref", mode="bidir")
+    return rms_norm(h, enc["final_ln"], cfg.norm_eps)
+
+
+def _prepare_inputs(cfg, params, batch, attn_impl):
+    """The reference's ``_prepare_inputs``: (h, mode, prefix, enc). The
+    VLM's projected patches go before the token embeddings under the
+    prefix-LM mask (``prefix`` = P, the image positions); the
+    encoder-decoder's frames go through ``encode`` (``enc``, else
+    None)."""
+    h = _embed_tokens(params, batch["tokens"])
+    mode, prefix, enc = "causal", 0, None
+    if cfg.family == "vlm":
+        patches = batch["patches"].to(h.dtype)
+        h = torch.cat([patches @ params["img_proj"], h], dim=1)
+        mode, prefix = "prefix", patches.shape[1]
+    if cfg.family == "encdec":
+        enc = encode(cfg, params, batch["frames"], attn_impl)
+    return h, mode, prefix, enc
 
 
 def _check(cfg: ModelConfig, attn_impl: str) -> None:
@@ -195,23 +258,24 @@ def _check(cfg: ModelConfig, attn_impl: str) -> None:
 
 def forward(cfg: ModelConfig, params, batch, attn_impl: str = "auto",
             ssd_impl: str = "auto"):
-    """Full-sequence logits (B, S, V) and final hidden states (after the
-    final norm)."""
+    """Full-sequence logits (B, P + S, V) and final hidden states (after
+    the final norm); P = 0 but for the VLM's image positions."""
     _check(cfg, attn_impl)
-    h = _embed_tokens(params, batch["tokens"])
-    h = _blocks(cfg, params, h, attn_impl, ssd_impl)
+    h, mode, prefix, enc = _prepare_inputs(cfg, params, batch, attn_impl)
+    h = _blocks(cfg, params, h, attn_impl, ssd_impl, mode=mode,
+                prefix=prefix, enc=enc)
     h = rms_norm(h, params["final_ln"], cfg.norm_eps)
     return _lm_logits(cfg, params, h), h
 
 
 def forward_loss(cfg: ModelConfig, params, batch,
                  remat: Optional[str] = None):
-    """Next-token cross-entropy of ``batch["tokens"]`` (B, S): position
-    t predicts token t + 1, weighted by ``token != 0`` (padding), summed
-    in float32 and divided by max(sum of weights, 1), plus 0.3 times
-    ``_mtp_loss`` when the configuration has an MTP block: the
-    reference's ``forward_loss`` for the families without an image
-    prefix (``n_img`` = 0), which ``check_supported`` refuses.
+    """Next-token cross-entropy of ``batch["tokens"]`` (B, S): text
+    position t (hidden position P + t, after the VLM's P image
+    positions) predicts token t + 1, weighted by ``token != 0``
+    (padding), summed in float32 and divided by max(sum of weights,
+    1), plus 0.3 times ``_mtp_loss`` when the configuration has an MTP
+    block: the reference's ``forward_loss``.
 
     Attention and the SSD run their plain versions ("ref"): the grouped
     einsum and ``ssd_chunked`` are the reference's own training path
@@ -219,15 +283,17 @@ def forward_loss(cfg: ModelConfig, params, batch,
     kernels have no backward (their wrappers refuse grad mode)."""
     check_supported(cfg)
     tokens = batch["tokens"]
-    h = _embed_tokens(params, tokens)
-    h = _blocks(cfg, params, h, "ref", "ref", remat=remat)
+    h, mode, n_img, enc = _prepare_inputs(cfg, params, batch, "ref")
+    h = _blocks(cfg, params, h, "ref", "ref", remat=remat, mode=mode,
+                prefix=n_img, enc=enc)
     h = rms_norm(h, params["final_ln"], cfg.norm_eps)
     logits = _lm_logits(cfg, params, h)
     S = tokens.shape[1]
     labels = tokens[:, 1:].long()
-    loss = _xent(logits[:, :S - 1], labels, (labels != 0).float())
+    loss = _xent(logits[:, n_img:n_img + S - 1], labels,
+                 (labels != 0).float())
     if cfg.mtp_depth:
-        loss = loss + 0.3 * _mtp_loss(cfg, params, h, tokens)
+        loss = loss + 0.3 * _mtp_loss(cfg, params, h[:, n_img:], tokens)
     return loss
 
 
@@ -281,6 +347,10 @@ def build_cache_spec(cfg: ModelConfig, batch_size: int, max_seq: int
         conv_dim = cfg.ssm_d_inner + 2 * ns
         spec["state"] = (L, B, nh, shd, ns)
         spec["conv"] = (L, B, cfg.ssm_conv_width - 1, conv_dim)
+    if cfg.family == "encdec":
+        K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+        spec["xk"] = (L, B, cfg.encoder_seq, K, hd)
+        spec["xv"] = (L, B, cfg.encoder_seq, K, hd)
     return spec
 
 
@@ -301,15 +371,21 @@ def prefill(cfg: ModelConfig, params, batch,
             max_seq: Optional[int] = None, attn_impl: str = "auto",
             ssd_impl: str = "auto"):
     """Run the full prompt, build the decode cache (length ``max_seq``,
-    default S), return the logits of the last (padded) position. The
-    hybrid keeps the last ``T = min(max_seq, attn_window)`` positions in
-    ring layout (slot ``pos % T``)."""
+    default the prompt's P + S positions), return the logits of the
+    last (padded) position. The hybrid keeps the last ``T =
+    min(max_seq, attn_window)`` positions in ring layout (slot ``pos %
+    T``); the VLM's cache holds its P image positions before the text;
+    the encoder-decoder's ``xk``/``xv`` hold each layer's cross K/V of
+    the Senc frames given."""
     _check(cfg, attn_impl)
-    tokens = batch["tokens"]
-    h = _embed_tokens(params, tokens)
-    B, S = tokens.shape
+    h, mode, prefix, enc = _prepare_inputs(cfg, params, batch, attn_impl)
+    B, S = h.shape[0], h.shape[1]
     cache = init_cache(cfg, B, max_seq or S, dtype=h.dtype, device=h.device)
-    h = _blocks(cfg, params, h, attn_impl, ssd_impl, cache=cache)
+    if enc is not None:  # the frames given, as the reference's cache
+        for name in ("xk", "xv"):
+            cache[name] = cache[name][:, :, :enc.shape[1]]
+    h = _blocks(cfg, params, h, attn_impl, ssd_impl, cache=cache, mode=mode,
+                prefix=prefix, enc=enc)
     if "slot_pos" in cache:
         first, slots = _ring_slots(S, cache["slot_pos"].shape[2], h.device)
         cache["slot_pos"][:, :, slots] = torch.arange(
@@ -326,7 +402,9 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos,
     positions (each < T without a window). Writes the step's K/V (at
     slot ``pos``, or ``pos % window`` for the hybrid) or MLA latent (at
     slot ``pos``) and SSM state and conv tail into ``cache`` in place;
-    returns (logits (B, V), cache)."""
+    the encoder-decoder's layers also attend over the cache's cross
+    K/V, which stays as prefill wrote it. Returns (logits (B, V),
+    cache)."""
     if cfg.use_mla:
         check_mla_impl(attn_impl)
     h = _embed_tokens(params, tokens[:, None])
@@ -345,14 +423,19 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos,
                                    cache["conv"][l])
             cache["state"][l] = st
             cache["conv"][l] = cv
-        if cfg.family in ("dense", "moe"):
-            mix = a
-        elif cfg.family == "ssm":
+        if cfg.family == "ssm":
             mix = s
-        else:
+        elif cfg.family == "hybrid":
             mix = 0.5 * (rms_norm(a, bp["attn_norm"], cfg.norm_eps)
                          + rms_norm(s, bp["ssm_norm"], cfg.norm_eps))
+        else:
+            mix = a
         h = h + mix
+        if cfg.family == "encdec":
+            h = h + attention_decode(
+                cfg, bp["xattn"], rms_norm(h, bp["ln_x"], cfg.norm_eps),
+                cache["xk"][l], cache["xv"][l], None, pos, attn_impl,
+                cross=True)
         f = _ffn(cfg, bp, h)
         if f is not None:
             h = h + f

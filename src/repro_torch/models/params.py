@@ -1,5 +1,6 @@
-"""Parameters of the decoder-only LM (dense, MoE, SSM and hybrid
-families, and MLA with multi-token prediction).
+"""Parameters of the LM of every family: the decoder-only LM (dense,
+MoE, SSM and hybrid, and MLA with multi-token prediction), the
+encoder-decoder (whisper) and the VLM (paligemma).
 
 ``build_params(cfg, creator)`` walks the architecture and calls
 ``creator(path, shape, scale)`` for each tensor, with the reference's
@@ -14,11 +15,14 @@ the port serves on one card). Two creators:
   (``jax.tree.map(np.asarray, params)``) as tensors, unchanged in
   layout, so both packages compute the same function.
 
-The dense, mixture-of-experts (with or without shared experts), SSM
-(Mamba-2) and hybrid (parallel attention + SSM heads) families are
-ported, with DeepSeek-V3's latent attention (MLA, an ``"mla"`` subtree
+Every family is ported: dense, mixture-of-experts (with or without
+shared experts), SSM (Mamba-2), hybrid (parallel attention + SSM
+heads), with DeepSeek-V3's latent attention (MLA, an ``"mla"`` subtree
 in place of ``"attn"``) and its multi-token-prediction block (the
-``"mtp"`` subtree) (``check_supported``).
+``"mtp"`` subtree); the encoder-decoder, whose decoder blocks carry a
+cross-attention (``ln_x``, ``xattn``) beside an ``"encoder"`` subtree
+(dense blocks, ``final_ln``, ``pos_embed``); and the VLM, with its
+``img_proj`` adapter over the stub frontend's patch embeddings.
 """
 from __future__ import annotations
 
@@ -32,22 +36,45 @@ from .config import ModelConfig
 Creator = Callable[[str, tuple, float], object]
 
 
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+# the families whose batches carry more than tokens: frames (B, Senc, D)
+# beside the encoder-decoder's, patches (B, P, D) beside the VLM's
+MULTIMODAL = {"encdec": "frames", "vlm": "patches"}
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is a decoder-only LM
-    of the dense, MoE, SSM or hybrid family (MLA and MTP included): the
-    port's LLM slices. Sliding windows are ported for the hybrid only
-    (its attention heads). Encoder-decoder and VLM wait for a later
-    slice (ROADMAP)."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+    """Raise ``NotImplementedError`` unless the port builds ``cfg``:
+    every family of the reference, with sliding windows for the hybrid
+    only (its attention heads), an encoder only for the
+    encoder-decoder and an image prefix only for the VLM."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported; "
-            f"encoder-decoder and VLM wait for a later slice")
-    if ((cfg.attn_window and cfg.family != "hybrid") or cfg.encoder_layers
-            or cfg.num_image_tokens):
+            f"{cfg.name}: family {cfg.family!r} is not one of {FAMILIES}")
+    if cfg.attn_window and cfg.family != "hybrid":
         raise NotImplementedError(
-            f"{cfg.name}: sliding windows outside the hybrid family, "
-            f"encoders (encoder-decoder) and image prefixes (VLM) wait "
-            f"for a later slice")
+            f"{cfg.name}: sliding windows are ported for the hybrid "
+            f"family only")
+    if bool(cfg.encoder_layers) != (cfg.family == "encdec") or \
+            bool(cfg.num_image_tokens) != (cfg.family == "vlm"):
+        raise NotImplementedError(
+            f"{cfg.name}: an encoder belongs to the encoder-decoder and "
+            f"an image prefix to the VLM, each to it alone")
+
+
+def check_tokens_only(cfg: ModelConfig, what: str) -> None:
+    """Raise ``NotImplementedError`` for a family whose batches need
+    frames or patches beside the tokens: ``what`` (the serving engine,
+    ``launch/serve``, ``launch/train``) feeds tokens only, as the
+    reference's does (its ``_prepare_inputs`` reads ``batch["frames"]``
+    / ``batch["patches"]``, which neither its engine nor its
+    ``TokenStream`` supplies). These families run through the model's
+    entry points (``forward``, ``forward_loss``, ``prefill``,
+    ``decode_step``)."""
+    if cfg.family in MULTIMODAL:
+        raise NotImplementedError(
+            f"{cfg.name}: {what} feeds tokens only, and the {cfg.family} "
+            f"family needs {MULTIMODAL[cfg.family]!r} beside them; call "
+            f"the model's forward / prefill / decode_step instead")
 
 
 def _attn_tree(cfg: ModelConfig, L, p, prefix: str):
@@ -129,7 +156,7 @@ def _ssm_tree(cfg: ModelConfig, L, p):
     }
 
 
-def _block_tree(cfg: ModelConfig, L, p) -> dict:
+def _block_tree(cfg: ModelConfig, L, p, cross_attn: bool = False) -> dict:
     t = {"ln1": p("ln1", (*L, cfg.d_model), -1),
          "ln2": p("ln2", (*L, cfg.d_model), -1)}
     if cfg.family == "ssm":
@@ -143,6 +170,9 @@ def _block_tree(cfg: ModelConfig, L, p) -> dict:
         t["ssm"] = _ssm_tree(cfg, L, p)
         t["attn_norm"] = p("attn_norm", (*L, cfg.d_model), -1)
         t["ssm_norm"] = p("ssm_norm", (*L, cfg.d_model), -1)
+    if cross_attn:  # the encoder-decoder's decoder blocks
+        t["ln_x"] = p("ln_x", (*L, cfg.d_model), -1)
+        t["xattn"] = _attn_tree(cfg, L, p, "xattn")
     if cfg.num_experts:
         t["moe"] = _moe_tree(cfg, L, p)
     else:
@@ -162,6 +192,22 @@ def build_params(cfg: ModelConfig, creator: Creator) -> dict:
     }
     if not cfg.tie_embeddings:
         tree["lm_head"] = p("lm_head", (D, V), D)
+    if cfg.encoder_layers:
+        tree["encoder"] = {
+            "blocks": _block_tree(encoder_config(cfg),
+                                  (cfg.encoder_layers,), p),
+            "final_ln": p("enc_final_ln", (D,), -1),
+            "pos_embed": p("enc_pos", (cfg.encoder_seq, D), D),
+        }
+        # the decoder's blocks, remade with cross-attention (the
+        # reference's order of creator calls, so ``count_params`` is
+        # its count)
+        tree["blocks"] = _block_tree(cfg, (cfg.num_layers,), p,
+                                     cross_attn=True)
+    if cfg.num_image_tokens:
+        # the stub frontend's adapter: projects precomputed patch
+        # embeddings
+        tree["img_proj"] = p("img_proj", (D, D), D)
     if cfg.mtp_depth:
         tree["mtp"] = {
             "proj": p("mtp/proj", (2 * D, D), 2 * D),
@@ -169,6 +215,13 @@ def build_params(cfg: ModelConfig, creator: Creator) -> dict:
             "final_ln": p("mtp_final_ln", (D,), -1),
         }
     return tree
+
+
+def encoder_config(cfg: ModelConfig) -> ModelConfig:
+    """The configuration of the encoder's blocks: dense blocks (plain
+    attention, the MLP) at the model's widths, as the reference builds
+    them."""
+    return cfg.replace(family="dense", num_experts=0, use_mla=False)
 
 
 def mtp_config(cfg: ModelConfig) -> ModelConfig:
@@ -207,7 +260,11 @@ def params_from_numpy(tree: dict, device="cuda") -> dict:
 
 
 def count_params(cfg: ModelConfig) -> int:
-    """Elements over every leaf of ``build_params``."""
+    """Elements over every ``creator`` call of ``build_params``: the
+    reference's count. For the encoder-decoder that counts the
+    decoder's blocks twice, as the reference makes them once without
+    cross-attention before it remakes them with it (whisper-small:
+    363,998,208, where its tree holds 279,045,120)."""
     total = 0
 
     def make(path, shape, scale):

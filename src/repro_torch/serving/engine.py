@@ -37,7 +37,12 @@ import torch
 
 from ..engine.table import resolve_device
 from ..kernels.sync import HOST_SYNCS
-from ..models import check_supported, decode_step, prefill
+from ..models import (
+    check_supported,
+    check_tokens_only,
+    decode_step,
+    prefill,
+)
 from ..models.config import ModelConfig
 from ..models.layers import ATTN_IMPLS, check_mla_impl
 from ..training.data import HashTokenizer
@@ -114,6 +119,7 @@ class ServingEngine:
                  max_new_tokens: int = 2, device="cuda",
                  attn_impl: str = "auto", ssd_impl: str = "auto"):
         check_supported(cfg)
+        check_tokens_only(cfg, "ServingEngine")
         for name, impl in (("attn_impl", attn_impl), ("ssd_impl", ssd_impl)):
             if impl not in ATTN_IMPLS:
                 raise ValueError(f"{name} must be one of {ATTN_IMPLS}, got "

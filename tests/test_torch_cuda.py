@@ -683,12 +683,18 @@ def test_decode_attention_kernel_matches_plain_version(dev, T, group, d):
 def test_attention_wrappers_reject_wrong_operands(dev):
     q = torch.zeros(1, 4, 8, 16, device=dev)
     k = torch.zeros(1, 3, 8, 16, device=dev)
-    wide = torch.zeros(1, 2, 8, 129, device=dev)
+    wide = torch.zeros(1, 2, 8, 257, device=dev)
     flash = t_fa.flash_attention_kernel
     with pytest.raises(ValueError):  # 4 heads over 3 KV heads
         flash(q, k, k)
-    with pytest.raises(ValueError):  # head_dim above 128
+    with pytest.raises(ValueError):  # head_dim above 256
         flash(wide, wide[:, :1], wide[:, :1])
+    with pytest.raises(ValueError):  # head_dim above 256
+        t_dec.decode_attention_kernel(
+            wide[:, :, 0], wide[:, :1], wide[:, :1],
+            torch.ones(1, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):  # out of another shape than q
+        flash(q, q, q, out=torch.zeros(1, 4, 7, 16, device=dev))
     with pytest.raises(TypeError):
         flash(q.double(), k.double(), k.double())
     with pytest.raises(ValueError):  # unit stride on d required
@@ -957,6 +963,94 @@ def test_decode_attention_ring_matches_plain_version(dev, W, group, d):
 @pytest.mark.cuda
 def test_decode_chunk_matches_the_library(dev):
     assert _build.library().repro_decode_chunk() == AC.DECODE_CHUNK
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", AC.WIDE_GROUPS)
+@pytest.mark.parametrize("S", (1, 65, 288))
+def test_flash_attention_wide_head_matches_plain_version(dev, S, group):
+    """head_dim 256 (paligemma-3b), causal, not causal and windowed."""
+    g = torch.Generator(device=dev).manual_seed(S * 7 + group)
+    B, K, d = 2, 1, AC.WIDE_HEAD_DIM
+    q, k, v = (torch.randn(B, S, n, d, generator=g, device=dev)
+               .transpose(1, 2) for n in (group * K, K, K))
+    for causal, window in ((True, 0), (False, 0), (True, 17)):
+        _build.reset_launches()
+        got = t_fa.flash_attention_kernel(q, k, v, causal=causal,
+                                          window=window)
+        assert _build.LAUNCHES["flash_attention"] == 1
+        want = attention_ref(q, k, v, causal=causal, window=window)
+        err = float((got - want).abs().max())
+        assert err <= AC.TOLERANCE, (causal, window, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", (64, AC.WIDE_HEAD_DIM))
+@pytest.mark.parametrize("Sk", AC.CROSS_KEYS)
+@pytest.mark.parametrize("Sq", AC.CROSS_QUERIES)
+def test_flash_attention_cross_matches_plain_version(dev, Sq, Sk, d):
+    """Sq != Sk without the causal mask: the whisper decoder's
+    cross-attention over the encoder's frames."""
+    g = torch.Generator(device=dev).manual_seed(Sq * 11 + Sk + d)
+    B, K, group = 2, 2, 3
+    q = torch.randn(B, Sq, group * K, d, generator=g,
+                    device=dev).transpose(1, 2)
+    k, v = (torch.randn(B, Sk, K, d, generator=g, device=dev)
+            .transpose(1, 2) for _ in range(2))
+    _build.reset_launches()
+    got = t_fa.flash_attention_kernel(q, k, v, causal=False)
+    assert _build.LAUNCHES["flash_attention"] == 1
+    want = attention_ref(q, k, v, causal=False)
+    assert float((got - want).abs().max()) <= AC.TOLERANCE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", (64, AC.WIDE_HEAD_DIM))
+@pytest.mark.parametrize("S,prefix", AC.PREFIX_CASES)
+def test_flash_attention_prefix_composition(dev, S, prefix, d):
+    """The VLM's prefix-LM mask as two K7 calls, the second writing the
+    prefix rows of the first's output through its strides."""
+    from repro_torch.kernels.flash_attention.ops import prefix_attention
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_prefix_ref)
+
+    g = torch.Generator(device=dev).manual_seed(S + prefix + d)
+    B, K, group = 2, 1, 8
+    q, k, v = (torch.randn(B, S, n, d, generator=g, device=dev)
+               .transpose(1, 2) for n in (group * K, K, K))
+    _build.reset_launches()
+    got = prefix_attention(q, k, v, prefix, impl="kernel")
+    assert _build.LAUNCHES["flash_attention"] == 2
+    want = attention_prefix_ref(q, k, v, prefix)
+    assert float((got - want).abs().max()) <= AC.TOLERANCE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", AC.WIDE_GROUPS)
+@pytest.mark.parametrize("T", (131, 304, 1500))
+def test_decode_attention_wide_head_matches_plain_version(dev, T, group):
+    """head_dim 256 (paligemma-3b) under lengths (whisper's cross decode
+    at T = 1500 has every slot live) and under the slot mask."""
+    g = torch.Generator(device=dev).manual_seed(T + group)
+    K, d = 1, AC.WIDE_HEAD_DIM
+    lengths = torch.tensor(AC.chunk_lengths(T), dtype=torch.int32,
+                           device=dev)
+    q, k, v = _decode_operands(g, lengths.shape[0], group * K, K, T, d, dev)
+    _build.reset_launches()
+    got = t_dec.decode_attention_kernel(q, k, v, lengths)
+    assert _build.LAUNCHES["decode_attention"] == 1
+    err = float((got - decode_attention_ref(q, k, v, lengths)).abs().max())
+    assert err <= AC.TOLERANCE, err
+    W = 64
+    rows = AC.ring_rows(W)
+    sp = torch.tensor(AC.ring_slot_pos(W, rows), dtype=torch.int32,
+                      device=dev)
+    pos = torch.tensor([p for _, p in rows], dtype=torch.int32, device=dev)
+    q, k, v = _decode_operands(g, len(rows), group * K, K, W, d, dev)
+    got = t_dec.decode_attention_kernel(q, k, v, slot_pos=sp, pos=pos,
+                                        window=W)
+    want = decode_attention_ref(q, k, v, slot_pos=sp, pos=pos, window=W)
+    assert float((got - want).abs().max()) <= AC.TOLERANCE
 
 
 def _decode_operands(g, B, H, K, T, d, dev):

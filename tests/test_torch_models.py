@@ -9,7 +9,9 @@ than its window, so that the ring wraps. Tolerance: 1e-4 absolute and
 relative on float32 logits, K/V, the MLA latent and SSM state (the two
 frameworks sum and round matrix products and the SSD's chunk sums in
 different orders; logits here are O(1–10)); ``slot_pos`` exact. The
-encoder-decoder and VLM families raise ``NotImplementedError``."""
+encoder-decoder and VLM families are held in their own files
+(``test_torch_encdec.py``, ``test_torch_vlm.py``); here only the
+token-only entry points' refusal of them."""
 import dataclasses
 
 import jax
@@ -193,13 +195,39 @@ def test_hybrid_ring_wraps(S, max_seq):
         pos = pos + 1
 
 
-@pytest.mark.parametrize("arch", sorted(set(all_arch_ids()) - set(ARCHS)))
-def test_other_families_raise(arch):
-    for cfg in (port_config(arch), port_tiny(arch)):
-        with pytest.raises(NotImplementedError):
-            pm.build_params(cfg, lambda *a: None)
-        with pytest.raises(NotImplementedError):
-            pm.init_cache(cfg, 1, 4, device="cpu")
+MULTIMODAL = ("whisper-small", "paligemma-3b")
+
+
+def test_every_configuration_builds():
+    """Every configuration of the repo builds in the port; the
+    encoder-decoder and VLM families are held in
+    ``test_torch_encdec.py`` and ``test_torch_vlm.py``."""
+    assert set(all_arch_ids()) == set(ARCHS) | set(MULTIMODAL)
+    for arch in all_arch_ids():
+        for cfg in (port_config(arch), port_tiny(arch)):
+            pm.check_supported(cfg)
+            pm.build_cache_spec(cfg, 1, 4)
+
+
+@pytest.mark.parametrize("arch", MULTIMODAL)
+def test_token_only_entry_points_refuse_multimodal_families(arch):
+    """``ServingEngine``, ``launch/serve`` and ``launch/train`` feed
+    tokens only, as the reference's, which cannot run these families
+    (its ``_prepare_inputs`` reads frames / patches): each refuses them
+    with its own error before building any weights."""
+    from repro_torch.launch import serve, train
+    from repro_torch.serving import ServingEngine
+
+    cfg = port_tiny(arch)
+    want = "frames" if cfg.family == "encdec" else "patches"
+    with pytest.raises(NotImplementedError, match=f"ServingEngine.*{want}"):
+        ServingEngine(cfg, None, device="cpu")
+    with pytest.raises(NotImplementedError, match=f"launch/serve.*{want}"):
+        serve.main(["--arch", arch, "--tiny", "--device", "cpu",
+                    "--prompts", "x"])
+    with pytest.raises(NotImplementedError, match=f"launch/train.*{want}"):
+        train.main(["--arch", arch, "--tiny", "--device", "cpu",
+                    "--steps", "1"])
 
 
 def test_full_configs_are_the_references():
