@@ -124,6 +124,16 @@ Phases, each printing one JSON line:
    order, ``llm_calls``, ``cache_hits``, ``pipeline_syncs``,
    ``serving_syncs``, backend calls and the token ids the model emitted
    for every prompt must be equal;
+12b. ``serve_tp_dense`` — the starcoder2-3b weights laid out over a
+   (1, 4) model mesh whose positions all lie on the card
+   (``launch/mesh.py::make_mesh(1, 4, devices=[card] * 4)``,
+   ``models/params.py::shard_params``: 6 query heads a rank over the
+   one KV head they read), a kernel-path and a plain engine over it,
+   128 prompts and the two-wave 64: answers and token ids identical
+   between the paths and to a single-device engine's; K7/K8 once per
+   layer per position per admission / round; prefill logits against
+   the single-device prefill within TP_LOGIT_TOLERANCE of max|logit|;
+   admission and round ms (eager) and peak memory;
 13. ``serve_ssm`` and ``serve_hybrid`` — the same serving checks with
    mamba2-370m (48 SSM layers, d_model 1024, 32 heads x 64, state 128,
    chunk 128) and hymba-1.5b (32 layers, d_model 1600, attention of 25
@@ -155,6 +165,15 @@ Phases, each printing one JSON line:
    gated);
 17. ``llm_query_moe`` — Q13 and q8 through ``ModelBackend`` on the
    olmoe-1b-7b engines, held as ``llm_query`` holds its queries;
+17b. ``serve_tp`` — ``serve_tp_dense``'s checks with the olmoe-1b-7b
+   weights over a (1, 2) mesh (experts and heads over two
+   tensor-parallel ranks, the single-device capacity: answers held to
+   ``serve_moe``'s) and a (2, 2) mesh (the token chunks over two data
+   ranks, so capacity is per chunk and answers may differ from one
+   device's: counted; prefill logits held to one device's at capacity
+   factor E/k, where no row drops), each tree freed before the next;
+17c. ``llm_query_tp`` — Q13 and q8 through ``ModelBackend`` on the
+   (2, 2) engines, held as ``llm_query`` holds its queries;
 18. ``serve_mla`` — deepseek-v3-671b at full width with its depth cut to
    one layer (``reduced``: 61 -> 1; d_model 7168, MLA over 128 heads
    with q/kv latent ranks 1536/512 and head widths 128 + 64 / 128, 256
@@ -251,7 +270,9 @@ Phases, each printing one JSON line:
    K7 also with the hybrid's window and K8 with its slot mask at
    ``serve_hybrid``'s shapes (and both at ``long_prefill``'s: K8 over
    its 2048-slot ring with every slot live), K7 and K8 also at
-   ``serve_moe``'s multi-head shapes (group 1), K7 and K8 also at every
+   ``serve_moe``'s multi-head shapes (group 1), K7 and K8 also at each
+   model mesh's shard shapes (``serve_tp_dense_1x4``, ``serve_tp_1x2``,
+   ``serve_tp_2x2``, with those runs' launches), K7 and K8 also at every
    shape the ``encdec`` and ``vlm`` phases launched them at (with those
    launches: whisper's encoder, decoder and cross-attention, paligemma's
    prefix route at head_dim 256, and their decodes), K9 also at
@@ -308,6 +329,15 @@ MOE_PROMPTS = SSM_PROMPTS
 # deepseek-v3-671b at full width with its depth cut to one layer:
 # 13,712,994,304 float32 parameters (54.85 GB); two layers (100.9 GB)
 # do not fit on one card
+# the model-parallel meshes served, (dp, tp) over shards of the card:
+# olmoe at the single-device capacity (dp = 1) and split over two data
+# ranks; starcoder2's 2 KV heads read by 4 tensor-parallel ranks
+TP_MESHES = {MOE_ARCH: ((1, 2), (2, 2)), SERVE_ARCH: ((1, 4),)}
+TP_LOGIT_TOLERANCE = 1e-4  # of max|logit|, mesh against one device
+# a top-k router gap at most this is a near tie: the kernel path's and
+# the plain path's float32 attention differ by ~1e-6 (relative), so
+# such a tie may route a token to other experts on the two paths
+ROUTE_TIE = 1e-6
 MLA_ARCH = "deepseek-v3-671b"
 MLA_REDUCED = {"num_layers": "61 -> 1"}
 MLA_PROMPTS = SSM_PROMPTS
@@ -436,7 +466,9 @@ def time_ms(fn, reps: int = 30, inner: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-PAD_SPINS = 8  # device_kernels' throwaway spins (~50 us each)
+# device_kernels' throwaway spins (~50 us each): late in a long run the
+# profiler leaves out a window's first ~0.8 ms of device records
+PAD_SPINS = 64
 
 
 def device_kernels(fn, calls: int = 20) -> dict:
@@ -2152,7 +2184,222 @@ def run_serve(device, arch: str = SERVE_ARCH, n_prompts: int = 256,
                              prompts[:serve["batch_size"]]]
     out["cache_len"] = kern.cache_len
     out["answer_sample"] = answers["kernel"][:4]
+    out["answers"] = answers["kernel"]
     out["engines"] = (kern, plain)
+    return out
+
+
+def first_flip(engines, prompt: str, steps: int) -> dict:
+    """Where greedy ids part between ``engines`` on ``prompt`` alone:
+    each engine prefills a batch of it and decodes ``steps`` steps
+    (feeding the first engine's token); at the first step whose argmax
+    differs, each engine's top-2 logit gap."""
+    import torch
+
+    ref = engines[0]
+    b = ref.batch_size  # a full batch of it, so any mesh splits it
+    toks = torch.from_numpy(np.stack([ref.encode_row(prompt)[0]] * b)
+                            ).to(ref.device)
+    n = ref.encode_row(prompt)[1]
+    runs = []
+    for eng in engines:
+        _, cache = eng._prefill(toks)
+        runs.append([cache, toks[:, n - 1].clone(),
+                     torch.full((b,), n - 1, dtype=torch.int32,
+                                device=ref.device)])
+    for step in range(steps):
+        top = []
+        for eng, run in zip(engines, runs):
+            logits, _ = eng._decode(run[0], runs[0][1], run[2])
+            top.append(torch.topk(logits[0].float(), 2))
+        ids = [int(t.indices[0]) for t in top]
+        if len(set(ids)) > 1:
+            return {"step": step, "ids": ids,
+                    "top2_gap": [float(t.values[0] - t.values[1])
+                                 for t in top]}
+        for run in runs:
+            run[1] = top[0].indices[:1].to(torch.int32).expand(b)
+            run[2] = run[2] + 1
+    return {"step": None}
+
+
+def tp_launches(cfg, shards: int, admissions: int, rounds: int) -> dict:
+    """K7 once per layer per shard per admission, K8 once per layer per
+    shard per round (every (data, model) position attends over its
+    rows and heads)."""
+    want = path_launches(cfg, admissions, rounds)
+    return {k: v * shards for k, v in want.items()}
+
+
+def run_serve_tp(device, arch: str = MOE_ARCH, meshes=TP_MESHES[MOE_ARCH],
+                 params=None, single=None, n_prompts: int = MOE_PROMPTS,
+                 seed: int = 0, tiny: bool = False, serve=SERVE) -> dict:
+    """The serving path over model-parallel meshes whose positions all
+    lie on ``device`` (``make_mesh(dp, tp, devices=[device] * n)``):
+    the weights ``params`` (made from ``seed`` when None) laid out by
+    ``shard_params`` over each (dp, tp) mesh in turn, a kernel-path and
+    a plain engine over the sharded tree, ``n_prompts`` prompts and the
+    two-wave 64 on both: answers and token ids identical between the
+    paths; at dp = 1 (the single-device capacity) also identical to
+    ``single`` (the single-device kernel engine's answers, served here
+    when None), else their differences counted (capacity is per data
+    rank's token chunk); K7/K8 launches per shard, layer and admission
+    or round; the mesh's prefill logits against the single-device
+    prefill at capacity factor E/k (no drops) within
+    TP_LOGIT_TOLERANCE of max|logit|; admission and round ms (CUDA
+    events, eager: the round is a host loop over the shards) and peak
+    memory. Each mesh's tree is freed before the next but the last,
+    whose engines come back under ``"engines"``."""
+    import torch
+
+    from repro_torch.configs import get_config, get_tiny
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params, prefill
+    from repro_torch.models.params import shard_params
+    from repro_torch.serving import ServingEngine
+    from repro_torch.sharding.model import local_config, mesh_grid
+    from repro_torch.sharding.policy import ShardingPolicy
+
+    cfg = get_tiny(arch) if tiny else get_config(arch)
+    cuda = device.type == "cuda"
+    if params is None:
+        params = init_params(cfg, torch.Generator(device=device)
+                             .manual_seed(seed), device=device)
+    prompts = serve_prompts(n_prompts, seed)
+    if single is None:
+        single = ServingEngine(cfg, params, device=device,
+                               **serve).answer(prompts)
+    b = serve["batch_size"]
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "prompts": n_prompts,
+           **serve, "meshes": {}}
+    engines = None
+    for dp, tp in meshes:
+        label = f"{dp}x{tp}"
+        n = dp * tp
+        pol = ShardingPolicy.for_mesh(make_mesh(dp, tp,
+                                                devices=[device] * n))
+        if cuda:
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        sp = shard_params(cfg, params, pol)
+        if cuda:
+            torch.cuda.synchronize(device)
+        loc = local_config(cfg, mesh_grid(pol))
+        mem = {"sharded": torch.cuda.memory_allocated(device)
+               if cuda else None}
+        res = {"dp": dp, "tp": tp, "shard_s": time.perf_counter() - t0,
+               "allocated_bytes": mem,
+               "local": {k: getattr(loc, k) for k in (
+                   "num_heads", "num_kv_heads", "d_ff", "num_experts")}}
+        engs = tuple(ServingEngine(cfg, sp, device=device, attn_impl=i,
+                                   ssd_impl=i, policy=pol, **serve)
+                     for i in ("auto", "ref"))
+        answers, routes = {}, {}
+        for path, eng in zip(("kernel", "plain"), engs):  # noqa: B007
+            if cuda:
+                torch.cuda.synchronize(device)
+                torch.cuda.reset_peak_memory_stats(device)
+            _build.reset_launches()
+            with pinned_routes(record=routes.setdefault(path, [])):
+                answers[path], t = timed_serve(eng, prompts)
+            st = eng.stats
+            res[path] = {
+                "wall_s": t["wall_s"], "prefill_s": t["prefill_s"],
+                "decode_s": t["decode_s"], "admissions": st.batches,
+                "decode_rounds": st.decode_steps,
+                "admission_eager_ms": t["prefill_s"] / st.batches * 1e3,
+                "round_eager_ms": t["decode_s"] / st.decode_steps * 1e3,
+                "launches": {k: _build.LAUNCHES[k] for k in LLM_KERNELS},
+                "shapes": {k: list(v) for k, v in _build.MAX_SHAPES.items()
+                           if k in LLM_KERNELS},
+                "peak_device_bytes": (torch.cuda.max_memory_allocated(
+                    device) if cuda else None)}
+        kern, plain = engs
+        if cuda:
+            mem["served"] = torch.cuda.memory_allocated(device)
+
+        def replayed(run, routes_):
+            with pinned_routes(replay=routes_["kernel"]):
+                return run()
+
+        res["route_tie"] = hold_paths(
+            f"serve_tp {cfg.name} {label}", engs, prompts, answers, routes,
+            lambda: replayed(lambda: plain.answer(prompts), routes))
+        diff = sum(a != c for a, c in zip(answers["kernel"], single))
+        res["answers_differing_from_single_device"] = diff
+        if dp == 1 and diff:
+            i = next(j for j, (a, c) in enumerate(zip(answers["kernel"],
+                                                      single)) if a != c)
+            raise AssertionError(
+                f"serve_tp {cfg.name} {label}: {diff} answers differ from "
+                f"the single-device engine's at the same capacity (prompt "
+                f"{i}; the mesh alone: "
+                f"{first_flip((kern,), prompts[i], 1)})")
+        k = res["kernel"]
+        if cuda:
+            want = tp_launches(cfg, n, k["admissions"], k["decode_rounds"])
+            got = {n_: k["launches"][n_] for n_ in want}
+            if got != want:
+                raise AssertionError(f"serve_tp {cfg.name} {label}: "
+                                     f"launches {got} != {want}")
+            if any(res["plain"]["launches"].values()):
+                raise AssertionError(f"serve_tp {label}: the plain engine "
+                                     f"launched {res['plain']['launches']}")
+        # the two waves a round apart, both paths
+        waves, stag, sroutes = prompts[:4 * b], {}, {}
+        for path, eng in zip(("kernel", "plain"), engs):
+            with pinned_routes(record=sroutes.setdefault(path, [])):
+                stag[path] = staggered_serve(eng, waves, b // 2)
+        (ka, kr), (pa, _) = stag["kernel"], stag["plain"]
+        res["staggered_route_tie"] = hold_paths(
+            f"serve_tp {cfg.name} {label} (staggered)", engs, waves,
+            {"kernel": ka, "plain": pa}, sroutes,
+            lambda: replayed(lambda: staggered_serve(plain, waves,
+                                                     b // 2)[0], sroutes))
+        if not kr["mid_decode_admissions"]:
+            raise AssertionError(f"serve_tp {label} (staggered): no slot "
+                                 f"was refilled mid-decode")
+        res["staggered"] = {"prompts": 4 * b, "tokens_compared": sum(
+            map(len, kr["ids"])), "mid_decode_admissions":
+            kr["mid_decode_admissions"]}
+        # one admission's prefill logits against one device's, where no
+        # row drops (capacity factor E/k for the MoE)
+        nd = (cfg.replace(moe_capacity_factor=cfg.num_experts
+                          / cfg.experts_per_tok) if cfg.num_experts
+              else cfg)
+        toks = torch.from_numpy(np.stack([kern.encode_row(p_)[0]
+                                          for p_ in prompts[:b]])
+                                ).to(device)
+        with torch.no_grad():
+            lm, cm = prefill(nd, sp, {"tokens": toks},
+                             max_seq=kern.cache_len, attn_impl="auto",
+                             policy=pol)
+            ls, _ = prefill(nd, params, {"tokens": toks},
+                            max_seq=kern.cache_len, attn_impl="auto")
+        scale = float(ls.abs().max())
+        err = float((lm - ls).abs().max())
+        if not (torch.isfinite(lm).all() and err <= TP_LOGIT_TOLERANCE
+                * scale):
+            raise AssertionError(f"serve_tp {cfg.name} {label}: prefill "
+                                 f"logits {err} from one device's "
+                                 f"(max|logit| {scale})")
+        res["prefill_logit_max_abs_diff"] = err
+        res["prefill_logit_max_abs"] = scale
+        res["decode_lengths"] = [kern.encode_row(p_)[1]
+                                 for p_ in prompts[:b // dp]]
+        del lm, cm, ls
+        out["meshes"][label] = res
+        if (dp, tp) == meshes[-1]:
+            engines = engs
+        else:
+            del engs, kern, plain, eng, sp
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+    out["tolerance"] = TP_LOGIT_TOLERANCE
+    out["answer_sample"] = answers["kernel"][:4]
+    out["engines"] = engines
     return out
 
 
@@ -2214,6 +2461,87 @@ def moe_predictions(cfg, serve) -> dict:
 
 
 @contextlib.contextmanager
+def pinned_routes(record: list | None = None, replay: list | None = None):
+    """Within the block every routing of ``moe_route`` (its ``top_k``)
+    is recorded into ``record`` (the ids and the gap between the k-th
+    and (k+1)-th router probability, per token) or, with ``replay``,
+    takes the ids of ``replay``'s calls in order, their probabilities
+    gathered from this call's: the same expert choices on another
+    path."""
+    from repro_torch.models import layers
+
+    top_k = layers.top_k
+    calls = iter(replay or ())
+
+    def routed(probs, k):
+        if replay is not None:
+            ids = next(calls)[0]
+            if tuple(ids.shape) != (*probs.shape[:-1], k):
+                raise AssertionError("replayed routes do not align")
+            return probs.gather(-1, ids), ids
+        vals, ids = top_k(probs, min(k + 1, probs.shape[-1]))
+        record.append((ids[..., :k], vals[..., k - 1] - vals[..., -1]))
+        return vals[..., :k], ids[..., :k]
+
+    layers.top_k = routed
+    try:
+        yield
+    finally:
+        layers.top_k = top_k
+
+
+def route_split(a: list, b: list) -> dict | None:
+    """The first routing call whose top-k expert sets differ between two
+    recorded runs, with the smallest k-th/(k+1)-th gap of the tokens
+    that differ there (either run's), or None. Two near-equal
+    probabilities inside the top k may swap places; that changes no
+    set, so no expert's rows (an expert's rows keep token order)."""
+    import torch
+
+    for n, ((ia, ga), (ib, gb)) in enumerate(zip(a, b)):
+        if ia.shape != ib.shape:
+            return {"call": n, "gap": None}
+        d = (ia.sort(dim=-1).values != ib.sort(dim=-1).values).any(dim=-1)
+        if bool(d.any()):
+            return {"call": n, "tokens": int(d.sum()),
+                    "gap": float(torch.minimum(ga, gb)[d].min())}
+    return None
+
+
+def hold_paths(label: str, engines, prompts, answers: dict, routes: dict,
+               rerun) -> dict | None:
+    """The kernel-path and plain-path answers (``answers``, by path) of
+    one run of ``prompts`` must be identical. Where they differ, the
+    first routing that differs (``routes``, recorded by
+    ``pinned_routes``) must be a top-k near tie, a k-th/(k+1)-th router
+    gap of at most ROUTE_TIE, and ``rerun()`` (the plain path again with
+    the kernel path's routes replayed) must give the kernel path's
+    answers exactly; else the phase fails with the top-2 logit gaps
+    where the ids part (``first_flip``). Returns None, or the record of
+    the tie."""
+    if answers["kernel"] == answers["plain"]:
+        return None
+    diff = [i for i, (a, b) in enumerate(zip(answers["kernel"],
+                                             answers["plain"])) if a != b]
+    split = route_split(routes["kernel"], routes["plain"])
+    if split is None or split["gap"] is None or split["gap"] > ROUTE_TIE:
+        try:  # a diagnosis only: never hide the failure behind its own
+            alone = (first_flip(engines, prompts[diff[0]],
+                                engines[0].max_new) if prompts else None)
+        except Exception as e:  # noqa: BLE001
+            alone = repr(e)[:300]
+        raise AssertionError(
+            f"{label}: {len(diff)} answers differ between the kernel and "
+            f"plain paths (first routing split: {split}); alone: {alone}")
+    if rerun() != answers["kernel"]:
+        raise AssertionError(
+            f"{label}: with the kernel path's routes replayed the plain "
+            f"path still differs (routing split {split})")
+    return {"answers_differing": len(diff), "first_route_split": split,
+            "identical_with_routes_replayed": True}
+
+
+@contextlib.contextmanager
 def record_routes(calls: list):
     """Within the block, every ``moe_route`` call of the model records
     its tokens' top-k expert sets (sorted) and the gap between their
@@ -2225,12 +2553,12 @@ def record_routes(calls: list):
 
     route = layers.moe_route
 
-    def recorded(x, router, cap, k):
+    def recorded(x, router, cap, k, *window):
         probs = torch.softmax(x.float() @ router, dim=-1)
         vals, ids = layers.top_k(probs, min(k + 1, probs.shape[-1]))
         calls.append((ids[:, :k].sort(dim=-1).values,
                       vals[:, k - 1] - vals[:, -1]))
-        return route(x, router, cap, k)
+        return route(x, router, cap, k, *window)
 
     layers.moe_route = recorded
     try:
@@ -2848,7 +3176,7 @@ def run_long_prefill(device, ssm_eng, hybrid_eng, ssm_shape=(2, 2048),
 
 
 def run_llm_query(device, engines, scale: float = 0.15, qids=None,
-                  second: str = "plain") -> dict:
+                  second: str = "plain", route_ties: bool = False) -> dict:
     """Five corpus queries (one per schema; or those of ``qids``) through
     per-schema ``FrontDoor``s sharing one runner over
     ``ModelBackend.from_engine``, once per engine of ``engines`` (kernel
@@ -2856,7 +3184,11 @@ def run_llm_query(device, engines, scale: float = 0.15, qids=None,
     the model has one path); everything the queries report must agree,
     and so must the token ids the model emitted for every backend prompt
     (with random weights the verdicts parse to False on both paths, so
-    the ids are what holds the kernels to the plain path here)."""
+    the ids are what holds the kernels to the plain path here). With
+    ``route_ties`` (a mixture of experts over a model mesh, whose
+    per-chunk capacity drops rows), ids that part at a router near tie
+    are held as ``hold_paths`` holds them: the plain run again on the
+    kernel run's routes must then agree in everything."""
     import torch
 
     from repro_torch.core import CostParams, Q, col, optimize
@@ -2871,8 +3203,7 @@ def run_llm_query(device, engines, scale: float = 0.15, qids=None,
              if (sp[0] in qids if qids else sp[0] != "Q25")]
     fields = ("llm_calls", "cache_hits", "null_skipped", "probe_rows",
               "pipeline_syncs", "serving_syncs")
-    runs = []
-    for eng in engines:
+    def run(eng) -> dict:
         # fresh tables per run: a table caches what its first run fetched
         dbs = {sp[1]: SCHEMAS[sp[1]](seed=0, scale=scale, device=device)
                for sp in specs}
@@ -2906,10 +3237,31 @@ def run_llm_query(device, engines, scale: float = 0.15, qids=None,
                           "materialize_s": t3 - t2}}
         wall = time.perf_counter() - t_all
         unrecord_serving(eng)
-        runs.append({"queries": queries, "calls": backend.calls,
-                     "wall_s": wall, "launches": dict(_build.LAUNCHES),
-                     "serving": eng.stats.snapshot(), **rec})
-    kern, plain = runs
+        return {"queries": queries, "calls": backend.calls,
+                "wall_s": wall, "launches": dict(_build.LAUNCHES),
+                "serving": eng.stats.snapshot(), **rec}
+
+    routes: dict = {"kernel": [], "plain": []}
+    with pinned_routes(record=routes["kernel"]):
+        kern = run(engines[0])
+    with pinned_routes(record=routes["plain"]):
+        plain = run(engines[1])
+    tie = None
+    if kern["ids"] != plain["ids"] and route_ties:
+        # a mixture of experts may route a near tie differently on the
+        # two paths (hold_paths); the plain run again on the kernel
+        # run's routes must then agree in everything below
+        replay = {}
+
+        def rerun():
+            with pinned_routes(replay=routes["kernel"]):
+                replay["run"] = run(engines[1])
+            return replay["run"]["ids"]
+
+        tie = hold_paths(f"llm_query {engines[0].cfg.name}", engines,
+                         [], {"kernel": kern["ids"], "plain": plain["ids"]},
+                         routes, rerun)
+        plain = replay["run"]
     runs_of = f"the first and {second} runs"
     for qid, q in kern["queries"].items():
         p = plain["queries"][qid]
@@ -2939,7 +3291,7 @@ def run_llm_query(device, engines, scale: float = 0.15, qids=None,
             "wall_s": kern["wall_s"], f"{second}_wall_s": plain["wall_s"],
             "split": split, "serving": kern["serving"],
             "launches": kern["launches"],
-            f"{second}_launches": plain["launches"],
+            f"{second}_launches": plain["launches"], "route_tie": tie,
             "queries": {qid: {"rows": len(q["rows"]), **q["stats"],
                               "split": q["split"]}
                         for qid, q in kern["queries"].items()}}
@@ -3704,6 +4056,9 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
                 for label, (shape, w) in llm.get("k7", {}).items()}
     if "k7_moe" in llm:  # multi-head (group 1): olmoe's admissions
         k7_extra["at_serve_moe"] = k7_at(llm["k7_moe"], path="serve_moe")
+    # each shard's local heads over a model mesh of the card
+    for path, (k7s, _, _) in llm.get("tp", {}).items():
+        k7_extra[f"at_{path}"] = k7_at(tuple(k7s), path=path)
     # the encoder-decoder's and the VLM's shapes, each with the launches
     # its phase's kernel path made at it: whisper's encoder (bidir),
     # decoder (causal) and cross-attention (bidir, Sq != Sk); paligemma's
@@ -3829,9 +4184,9 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
             "device_kernels": one_data_kernel(
                 "K8 long_prefill ring", k8l, "decode_kernel", memset=True)}
         del ql, kl, vl
-    if "k8_moe" in llm:
-        # multi-head (group 1): olmoe's first decode round, lengths
-        shape, lens = llm["k8_moe"]
+    def k8_at(shape, lens, path, label):
+        """K8 at ``shape`` (B, H, K, T, d) with ``lens`` (a first decode
+        round's pos + 1, each row's), that path's launches."""
         Bm, Hm, Km, Tm, dm = shape
         lm = torch.tensor(list(lens)[:Bm], dtype=torch.int32, device=device)
         qm = torch.randn(Bm, Hm, dm, generator=g, device=device)
@@ -3844,18 +4199,18 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
         errm = float((k8m() - decode_attention_ref(qm, km, vm, lm))
                      .abs().max())
         if not errm <= TOLERANCE:
-            raise AssertionError(f"K8 at the serve_moe shape: {errm}")
+            raise AssertionError(f"K8 at the {label} shape: {errm}")
         live_m = int(lm.clamp(max=Tm).sum())
         b_ms, b_by = bound_ms(
             4 * (2 * Bm * Hm * dm + 2 * Km * dm * live_m + Bm),
             4 * dm * Hm * live_m)
         mask_m = (torch.arange(Tm, device=device)[None, :]
                   < lm[:, None])[:, None, None, :]
-        k8_extra["at_serve_moe"] = {
+        row_ = {
             "shape": list(shape), "live": live_m,
             "lengths": lm.tolist(), "max_abs_err": errm,
-            "launches": by_path["serve_moe"].get("decode_attention", 0),
-            "ms": time_ms(k8m),
+            "launches": by_path[path].get("decode_attention", 0),
+            "path": path, "ms": time_ms(k8m),
             "plain_ms": time_ms(lambda: decode_attention_ref(qm, km, vm,
                                                              lm)),
             "bound_ms": b_ms, "bound_by": b_by,
@@ -3863,8 +4218,18 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
                                             attn_mask=mask_m)),
             "wrapper_eager_ms": eager_ms(k8m),
             "device_kernels": one_data_kernel(
-                "K8 at serve_moe", k8m, "decode_kernel", memset=True)}
+                f"K8 at {label}", k8m, "decode_kernel", memset=True)}
         del qm, km, vm
+        return row_
+
+    if "k8_moe" in llm:
+        # multi-head (group 1): olmoe's first decode round, lengths
+        shape, lens = llm["k8_moe"]
+        k8_extra["at_serve_moe"] = k8_at(shape, lens, "serve_moe",
+                                         "serve_moe")
+    # each shard's local heads over a model mesh of the card
+    for path, (k7s, k8s, lens) in llm.get("tp", {}).items():
+        k8_extra[f"at_{path}"] = k8_at(tuple(k8s), lens, path, path)
     # the encoder-decoder's self and cross decode and the VLM's decode:
     # lengths, every row at its phase's last step (cross: every encoder
     # slot)
@@ -3992,6 +4357,10 @@ HASH_KERNELS = ("prefix_count", "running_segment_ids", "segment_reduce",
 ATTN_KERNELS = ("flash_attention", "decode_attention")
 SHARDED_KERNELS = ("prefix_count", "hash_rows", "shard_rank",
                    "segment_reduce")
+TP_CARD_NOTE = ("every position of the model mesh lies on the one card: "
+                "the shards run one after another and every collective "
+                "is a copy on the card, so these times measure the "
+                "sharded code path, not a multi-card interconnect")
 SHARED_CARD_NOTE = ("four shards on one card: these times measure the "
                     "tier's kernels, layout and host merges, not an "
                     "interconnect")
@@ -4178,6 +4547,7 @@ def main() -> int:
     t0 = time.perf_counter()
     serve = run_serve(device)
     engines = serve.pop("engines")
+    serve.pop("answers")
     emit({"phase": "serve", **serve, "seconds": time.perf_counter() - t0,
           "gpu": smi})
     require_launched("serve", serve["kernel"]["launches"], ATTN_KERNELS)
@@ -4187,8 +4557,21 @@ def main() -> int:
     emit({"phase": "llm_query", **llm, "seconds": time.perf_counter() - t0,
           "gpu": smi})
     require_launched("llm_query", llm["launches"], ATTN_KERNELS)
+
+    # starcoder2-3b's weights over a (1, 4) mesh of the card
+    t0 = time.perf_counter()
+    tp_dense = run_serve_tp(device, SERVE_ARCH, TP_MESHES[SERVE_ARCH],
+                            params=engines[0].params)
     del engines
+    tp_dense.pop("engines")
     gc.collect()  # an engine and its scheduler refer to each other
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_tp_dense", **tp_dense,
+          "seconds": time.perf_counter() - t0, "gpu": smi,
+          "note": TP_CARD_NOTE})
+    for label, res in tp_dense["meshes"].items():
+        require_launched(f"serve_tp_dense {label}",
+                         res["kernel"]["launches"], ATTN_KERNELS)
 
     served = {}
     for phase, arch, need in (("serve_ssm", SSM_ARCH, ("ssd_chunk",)),
@@ -4196,7 +4579,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         served[phase] = run_serve(device, arch=arch, n_prompts=SSM_PROMPTS)
-        out = {k: v for k, v in served[phase].items() if k != "engines"}
+        out = {k: v for k, v in served[phase].items()
+               if k not in ("engines", "answers")}
         emit({"phase": phase, **out, "seconds": time.perf_counter() - t0,
               "gpu": smi})
         require_launched(phase, out["kernel"]["launches"], need)
@@ -4224,6 +4608,7 @@ def main() -> int:
     t0 = time.perf_counter()
     moe = run_serve(device, arch=MOE_ARCH, n_prompts=MOE_PROMPTS)
     moe_engines = moe.pop("engines")
+    moe_answers = moe.pop("answers")
     emit({"phase": "serve_moe", **moe, "seconds": time.perf_counter() - t0,
           "gpu": smi})
     require_launched("serve_moe", moe["kernel"]["launches"], ATTN_KERNELS)
@@ -4232,7 +4617,26 @@ def main() -> int:
     emit({"phase": "llm_query_moe", **llm_m,
           "seconds": time.perf_counter() - t0, "gpu": smi})
     require_launched("llm_query_moe", llm_m["launches"], ATTN_KERNELS)
-    del moe_engines
+
+    # olmoe-1b-7b's weights over (1, 2) and (2, 2) meshes of the card,
+    # held to serve_moe's answers at dp = 1
+    t0 = time.perf_counter()
+    tp = run_serve_tp(device, MOE_ARCH, TP_MESHES[MOE_ARCH],
+                      params=moe_engines[0].params, single=moe_answers)
+    tp_engines = tp.pop("engines")
+    emit({"phase": "serve_tp", **tp, "seconds": time.perf_counter() - t0,
+          "gpu": smi, "note": TP_CARD_NOTE})
+    for label, res in tp["meshes"].items():
+        require_launched(f"serve_tp {label}", res["kernel"]["launches"],
+                         ATTN_KERNELS)
+    t0 = time.perf_counter()
+    llm_tp = run_llm_query(device, tp_engines, qids=HYBRID_QIDS,
+                           route_ties=True)
+    emit({"phase": "llm_query_tp", **llm_tp,
+          "seconds": time.perf_counter() - t0, "gpu": smi,
+          "note": TP_CARD_NOTE})
+    require_launched("llm_query_tp", llm_tp["launches"], ATTN_KERNELS)
+    del moe_engines, tp_engines
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4308,6 +4712,12 @@ def main() -> int:
         "k7_moe": moe["kernel"]["shapes"]["flash_attention"],
         "k8_moe": (moe["kernel"]["shapes"]["decode_attention"],
                    moe["decode_lengths"]),
+        "tp": {f"{phase}_{label}": (res["kernel"]["shapes"][
+            "flash_attention"], res["kernel"]["shapes"]["decode_attention"],
+            res["decode_lengths"])
+            for phase, run in (("serve_tp_dense", tp_dense),
+                               ("serve_tp", tp))
+            for label, res in run["meshes"].items()},
         "multimodal": {
             phase: (out["paths"]["kernel"]["shape_launches"],
                     out["k8_lengths"]) for phase, out in mm.items()},
@@ -4332,6 +4742,11 @@ def main() -> int:
                         "llm_query_hybrid": llm_h["launches"],
                         "serve_moe": moe["kernel"]["launches"],
                         "llm_query_moe": llm_m["launches"],
+                        **{f"{phase}_{label}": res["kernel"]["launches"]
+                           for phase, run in (("serve_tp_dense", tp_dense),
+                                              ("serve_tp", tp))
+                           for label, res in run["meshes"].items()},
+                        "llm_query_tp": llm_tp["launches"],
                         "serve_mla": mla["continuous"]["launches"],
                         "llm_query_mla": llm_mla["launches"],
                         **{phase: out["paths"]["kernel"]["launches"]

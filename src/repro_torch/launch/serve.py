@@ -25,6 +25,11 @@ behind the serving tier and answer prompts, on the card unless ``--device cpu``.
         --ckpt artifacts/torch_backend_ckpt \\
         --prompts "is product 3 electronics?"
 
+    # tensor- and expert-parallel over a (dp, tp) mesh of distinct cards
+    # (dense and MoE configurations; --device cpu repeats the CPU)
+    PYTHONPATH=src python -m repro_torch.launch.serve --dp 2 --tp 2 \\
+        --prompts "is product 3 electronics?"
+
 Dense, MoE, SSM, hybrid and MLA configurations are served, with random
 weights or, with ``--ckpt``, the trained semantic backend
 (``training/backend.py::backend_config``) restored from its checkpoint.
@@ -32,8 +37,11 @@ The encoder-decoder and VLM configurations (whisper-small,
 paligemma-3b) are refused: the engine feeds tokens only, as the
 reference's does, and they need frames or patches beside them (run
 them through ``repro_torch.models``' ``prefill`` / ``decode_step``).
-There is no model-parallel mesh (``--dp``/``--tp`` wait for it; the
-partitioned data tier's mesh shards tables, not a model).
+``--dp``/``--tp`` serve over a model mesh (``launch/mesh.py``) under
+``ShardingPolicy.for_mesh`` when it has more than one position (the
+dense and MoE families; others raise): on the card the mesh takes
+dp·tp distinct cards and refuses with fewer, with ``--device cpu`` it
+repeats the CPU.
 """
 from __future__ import annotations
 
@@ -44,18 +52,22 @@ import torch
 from ..configs import get_config, get_tiny
 from ..engine.table import resolve_device
 from ..models import check_tokens_only, init_params
+from ..models.params import shard_params
 from ..serving.engine import ServingEngine
+from ..sharding import model as sm
+from ..sharding.policy import ShardingPolicy
 from ..training.backend import backend_config
 from ..training.checkpoint import CheckpointManager
 from ..training.data import HashTokenizer
+from .mesh import make_mesh
 
 
 def main(argv=None):
     """Parse ``argv``, stand up the engine and print its answers."""
     ap = argparse.ArgumentParser(
         description="Serve a dense, MoE, SSM, hybrid or MLA LM with random "
-                    "weights (seed 0), or the trained backend (--ckpt). "
-                    "Not ported: --dp/--tp (the model-parallel mesh).")
+                    "weights (seed 0), or the trained backend (--ckpt), "
+                    "on one device or over a (dp, tp) model mesh.")
     ap.add_argument("--arch", default="olmoe-1b-7b",
                     help="a dense, MoE, SSM, hybrid or MLA configuration "
                          "(default olmoe-1b-7b)")
@@ -66,10 +78,21 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--max-seq", type=int, default=64)
+    ap.add_argument("--dp", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--prompts", nargs="+", required=True)
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    n = args.dp * args.tp
+    # on the card one distinct card a position (make_mesh raises with
+    # fewer); on the CPU the positions share it
+    mesh = make_mesh(args.dp, args.tp, devices=[dev] * n
+                     if dev.type == "cpu" else None) if n > 1 else None
+    policy = (ShardingPolicy.for_mesh(mesh) if mesh is not None
+              else ShardingPolicy.single())
+    if mesh is not None:
+        dev = sm.home_device(policy)
     if args.ckpt:
         cfg = backend_config()
         tree, manifest = CheckpointManager(args.ckpt).restore(device=dev)
@@ -82,10 +105,13 @@ def main(argv=None):
         gen = torch.Generator(device=dev).manual_seed(0)
         params = init_params(cfg, gen, device=dev)
         print(f"[serve] random-weight {cfg.name} on {dev} (smoke mode)")
+    if policy.active:
+        params = shard_params(cfg, params, policy)
+        print(f"[serve] sharded over {mesh}")
     engine = ServingEngine(cfg, params,
                            tokenizer=HashTokenizer(cfg.vocab_size),
                            batch_size=args.batch, max_seq=args.max_seq,
-                           device=dev)
+                           device=dev, policy=policy)
     answers = engine.answer(args.prompts)
     for p, a in zip(args.prompts, answers):
         print(f"  {p!r} -> {a}")

@@ -1,11 +1,11 @@
 """Building blocks of the LM, the reference's
-``src/repro/models/layers.py`` on one device: ``rms_norm``, ``rope``
+``src/repro/models/layers.py``: ``rms_norm``, ``rope``
 (halves concatenated, not interleaved), ``mlp``, ``_qkv``,
 ``_mask_bias`` (causal, bidirectional and prefix-LM, with the hybrid's
 sliding window), ``gqa_attention``, the prefill / decode attention
 blocks (self-attention, and the encoder-decoder's cross-attention),
-the mixture of experts on one device (``moe_block`` with its routing
-and capacity dispatch ``moe_route``, and the dense oracle
+the mixture of experts (``moe_block`` with its routing and capacity
+dispatch ``moe_route`` over an expert window, and the dense oracle
 ``moe_reference``), and
 the SSM block: ``causal_conv1d``, ``ssd_chunked``, ``ssd_reference``,
 ``ssm_block`` and ``ssm_decode``, and DeepSeek-V3's latent attention
@@ -48,6 +48,14 @@ breaks that, so there K8 takes the reference's slot mask itself. Cross
 decode (``cross=True``) reads the encoder's keys, every slot live: K8
 with ``lengths = encoder_seq`` on every row.
 
+Over a model-parallel mesh (``policy=``, dense and MoE families;
+``sharding/model.py``) ``mlp``, ``attention_block`` and
+``attention_decode`` run tensor-parallel on each rank's local weights
+(its query heads, the KV heads they read, its ``d_ff`` slice; K7/K8 at
+those local shapes), their partial ``w_out``/``wo`` products
+all-reduced, and ``moe_block`` runs the reference's two
+expert-parallel branches (``_moe_mesh``).
+
 MLA has one path: the reference computes it with einsums outside any
 Pallas kernel, so there is no kernel to port; "auto" and "ref" both
 run it, and "kernel" raises (``check_mla_impl``).
@@ -61,6 +69,7 @@ has no decode kernel for it).
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -70,6 +79,7 @@ from ..kernels.flash_attention.ops import flash_attention, prefix_attention
 from ..kernels.ssd import ops as ssd_ops
 from ..kernels.ssd.ref import ssd_reference  # noqa: F401  (re-export)
 from ..kernels.util import resolve_impl
+from ..sharding import model as sm
 from .config import ModelConfig
 
 ATTN_IMPLS = ("auto", "kernel", "ref")
@@ -115,7 +125,15 @@ def _proj(x, w):
     return (x @ w.reshape(D, -1)).reshape(*x.shape[:-1], *w.shape[1:])
 
 
-def mlp(cfg: ModelConfig, p, x):
+def mlp(cfg: ModelConfig, p, x, policy=None):
+    """The (gated) MLP. Under an active ``policy`` (``p`` sharded,
+    ``x`` ``Rows``) each tensor-parallel rank runs its ``d_ff`` slice
+    and the partial ``w_out`` products are all-reduced (no bias, so
+    the partial sums add up to the product)."""
+    if sm.on_mesh(policy):
+        g = sm.mesh_grid(policy)
+        return sm.all_reduce(sm.gmap(lambda pl, xl: mlp(cfg, pl, xl),
+                                     sm.local_grid(p, g), x), g)
     h = _proj(x, p["w_in"])
     if "w_gate" in p:
         h = F.silu(_proj(x, p["w_gate"])) * h
@@ -202,7 +220,7 @@ def k7_attention(q, k, v, mode: str = "causal", prefix: int = 0,
 
 def attention_block(cfg: ModelConfig, p, x, attn_impl: str = "auto",
                     window: int = 0, mode: str = "causal", prefix: int = 0,
-                    kv_override=None):
+                    kv_override=None, policy=None):
     """Self-attention over positions ``arange(S)`` on every row (train
     forward / prefill) under ``mode`` (causal, bidir, prefix with
     ``prefix`` image positions), within ``window`` when it is > 0.
@@ -211,7 +229,24 @@ def attention_block(cfg: ModelConfig, p, x, attn_impl: str = "auto",
     the encoder's (B,T,K,hd) keys and values (``_cross_kv``), it is the
     whisper decoder's cross-attention: q is the bare projection (no
     rope, no ``bq``), and k, v come back None (the cache stores them
-    apart)."""
+    apart).
+
+    Under an active ``policy`` (``p`` sharded, ``x`` ``Rows``; causal
+    self-attention only) each position attends over its rows with its
+    rank's query heads and the KV heads they read (K7 at those local
+    shapes on the kernel path); the partial ``wo`` products are
+    all-reduced over the tensor-parallel ranks, and k, v come back as
+    grids of each position's local keys and values."""
+    if sm.on_mesh(policy):
+        if kv_override is not None or mode != "causal" or window:
+            raise sm.MeshNotPorted("attention under a mesh: causal "
+                                   "self-attention without a window only")
+        g = sm.mesh_grid(policy)
+        out = sm.gmap(lambda pl, xl: attention_block(cfg, pl, xl,
+                                                     attn_impl),
+                      sm.local_grid(p, g), x)
+        o, k, v = sm.unzip(out.grid, 3)
+        return sm.all_reduce(sm.Rows(o, x.n), g), k, v
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     if kv_override is None:
@@ -236,14 +271,29 @@ def attention_block(cfg: ModelConfig, p, x, attn_impl: str = "auto",
 
 def attention_decode(cfg: ModelConfig, p, x, k_cache, v_cache, slot_pos,
                      pos, attn_impl: str = "auto", window: int = 0,
-                     cross: bool = False):
+                     cross: bool = False, policy=None):
     """Single-token decode. x: (B,1,D); caches (B,T,K,hd) and slot_pos
     (B,T) (-1 = empty) are updated IN PLACE at slot ``pos`` of each row,
     or ``pos % window`` when ``window`` > 0 (the hybrid's ring); pos:
     (B,) current absolute positions. With ``cross`` the caches are the
     encoder's cross K/V (``xk``/``xv``): nothing is written, q is
     unroped (``bq`` added) and every slot is live (``slot_pos`` is not
-    read). Returns (B,1,D)."""
+    read). Returns (B,1,D).
+
+    Under an active ``policy`` (``p`` sharded, ``x`` and ``pos``
+    ``Rows``, the caches grids of each position's layer views) each
+    position decodes its rows over its local heads and cache (K8 at
+    those shapes on the kernel path), and the partial ``wo`` products
+    are all-reduced over the tensor-parallel ranks."""
+    if sm.on_mesh(policy):
+        if cross or window:
+            raise sm.MeshNotPorted("decode under a mesh: self-attention "
+                                   "without a window only")
+        g = sm.mesh_grid(policy)
+        return sm.all_reduce(sm.gmap(
+            lambda pl, xl, kc, vc, sp, ps: attention_decode(
+                cfg, pl, xl, kc, vc, sp, ps, attn_impl),
+            sm.local_grid(p, g), x, k_cache, v_cache, slot_pos, pos), g)
     B = x.shape[0]
     if cross:
         return _cross_decode(cfg, p, x, k_cache, v_cache, attn_impl)
@@ -415,24 +465,32 @@ def top_k(probs, k: int):
     return vals[..., :k], ids[..., :k]
 
 
-def moe_route(x, router, cap: int, k: int):
+def moe_route(x, router, cap: int, k: int, lo: int = 0,
+              e_loc: Optional[int] = None):
     """The reference's routing and capacity dispatch (``_moe_local``'s
-    first half) with every expert local; the expert-parallel slices wait
-    for the model-parallel mesh. x: (T, D). Returns (gate (T·k,), rows,
-    valid, toks), the last three (E, cap): slot c of expert e holds the
-    flattened (token, choice) row ``rows[e, c]`` of token ``toks[e, c]``
-    where ``valid``. An expert keeps the first ``cap`` rows routed to
-    it, in token order; the rest are dropped."""
+    first half) over the expert window [lo, lo + e_loc) (every expert
+    by default). x: (T, D); routing reads the full ``router``. Returns
+    (gate (T·k,), rows, valid, toks), the last three (e_loc, cap): slot
+    c of local expert e holds the flattened (token, choice) row
+    ``rows[e, c]`` of token ``toks[e, c]`` where ``valid``. An expert
+    keeps the first ``cap`` rows routed to it, in token order; the rest
+    are dropped, and rows routed outside the window go to the overflow
+    bucket ``e_loc``, which no slot reads."""
     T = x.shape[0]
     E = router.shape[-1]
+    e_loc = E if e_loc is None else e_loc
     probs = torch.softmax(x.float() @ router, dim=-1)
     gate, ids = top_k(probs, k)  # (T, k)
     gate = gate / gate.sum(dim=-1, keepdim=True)
     flat_ids = ids.reshape(-1)
+    if lo or e_loc != E:
+        local = (flat_ids >= lo) & (flat_ids < lo + e_loc)
+        flat_ids = torch.where(local, flat_ids - lo,
+                               torch.full_like(flat_ids, e_loc))
     # stable, as jnp.argsort: an expert's rows stay in token order, which
     # decides the rows its capacity keeps
     order = torch.argsort(flat_ids, stable=True)
-    experts = torch.arange(E, device=x.device)
+    experts = torch.arange(e_loc, device=x.device)
     sorted_ids = flat_ids[order]
     starts = torch.searchsorted(sorted_ids, experts)
     ends = torch.searchsorted(sorted_ids, experts, right=True)
@@ -442,10 +500,13 @@ def moe_route(x, router, cap: int, k: int):
     return gate.reshape(-1).to(x.dtype), rows, valid, rows // k
 
 
-def _moe_local(x, p, cap: int, k: int, gated: bool):
-    """The reference's ``_moe_local`` on one device. x: (T, D)."""
+def _moe_local(x, p, lo: int, e_loc: int, cap: int, k: int, gated: bool):
+    """The reference's ``_moe_local``: the contribution of the local
+    experts [lo, lo + e_loc) (``p``'s expert weights are that slice,
+    its router the full one) to each of the (T, D) tokens ``x``."""
     T, D = x.shape
-    flat_gate, rows, valid, toks = moe_route(x, p["router"], cap, k)
+    flat_gate, rows, valid, toks = moe_route(x, p["router"], cap, k, lo,
+                                             e_loc)
     xg = x[toks] * valid[..., None].to(x.dtype)  # (E, cap, D)
     h = torch.bmm(xg, p["w_in"])
     if gated:
@@ -464,16 +525,71 @@ def _moe_local(x, p, cap: int, k: int, gated: bool):
     return out[:T * k].view(T, k, D).sum(dim=1)
 
 
-def moe_block(cfg: ModelConfig, p, x):
-    """x: (B, S, D). The reference's single-device ``moe_block``: every
-    row of the batch routes, padding and empty decode slots included,
-    against ``moe_capacity(cfg, B·S)`` rows per expert, plus the shared
-    experts' MLP when the configuration has them."""
+def moe_block(cfg: ModelConfig, p, x, policy=None):
+    """x: (B, S, D). Off a mesh, the reference's single-device
+    ``moe_block``: every row of the batch routes, padding and empty
+    decode slots included, against ``moe_capacity(cfg, B·S)`` rows per
+    expert, plus the shared experts' MLP when the configuration has
+    them. Under an active ``policy`` (``p`` sharded by
+    ``shard_params``, ``x`` a ``sharding.model.Rows``), the
+    reference's expert-parallel branches (``_moe_mesh``)."""
+    if sm.on_mesh(policy):
+        return _moe_mesh(cfg, p, x, policy)
     B, S, D = x.shape
-    y = _moe_local(x.reshape(B * S, D), p, moe_capacity(cfg, B * S),
+    E = cfg.num_experts
+    y = _moe_local(x.reshape(B * S, D), p, 0, E, moe_capacity(cfg, B * S),
                    cfg.experts_per_tok, cfg.gated_mlp).reshape(B, S, D)
     if "shared" in p:
         y = y + mlp(cfg, p["shared"], x)
+    return y
+
+
+def _moe_mesh(cfg: ModelConfig, p, x, policy):
+    """The reference's two expert-parallel branches of ``moe_block``.
+
+    * default: the n·S tokens, flattened, split into DP contiguous
+      chunks of t_loc = n·S / DP (raises unless DP divides n·S, where
+      the reference's ``shard_map`` raises); capacity
+      ``moe_capacity(cfg, t_loc)``; TP rank t computes experts
+      [t·E/TP, (t+1)·E/TP) for its chunk, and the partial sums are
+      all-reduced over the TP ranks;
+    * ``ep_over_dp`` (when DP > 1 and DP·TP divides E): every position
+      sees every token (capacity ``moe_capacity(cfg, n·S)``), position
+      (i, t) computes experts [(i·TP + t)·e, ...) of e = E / (DP·TP),
+      and the partial sums are all-reduced over every position.
+
+    The shared experts' MLP runs tensor-parallel on the rows."""
+    g = sm.mesh_grid(policy)
+    E, k, gated = cfg.num_experts, cfg.experts_per_tok, cfg.gated_mlp
+    T = x.n * x.grid[0, 0].shape[1]
+    locs = sm.local_grid({n: p[n] for n in p if n != "shared"}, g)
+    everywhere = (policy.ep_over_dp and g.dp > 1
+                  and E % (g.dp * g.tp) == 0)
+    if everywhere:
+        e_loc = E // (g.dp * g.tp)
+        cap = moe_capacity(cfg, T)
+
+        def lo(i, t):
+            return (i * g.tp + t) * e_loc
+    else:
+        if T % g.dp:
+            raise ValueError(f"moe_block: {T} tokens do not split over "
+                             f"{g.dp} data-parallel ranks")
+        if E % g.tp:
+            raise ValueError(f"moe_block: {E} experts over tp={g.tp}")
+        e_loc = E // g.tp
+        cap = moe_capacity(cfg, T // g.dp)
+
+        def lo(i, t):
+            return t * e_loc
+    xs = sm.token_chunks(x, g, everywhere)
+    y = sm.gmap(lambda it, pl, xt: _moe_local(xt, pl, lo(*it), e_loc, cap,
+                                              k, gated),
+                sm.positions(g), locs, xs)
+    y = sm.tokens_to_rows(sm.all_reduce(y, g, "all" if everywhere
+                                        else "tp"), x, g, everywhere)
+    if "shared" in p:
+        y = sm.gmap(torch.add, y, mlp(cfg, p["shared"], x, policy))
     return y
 
 

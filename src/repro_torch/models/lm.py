@@ -1,7 +1,10 @@
 """The LM of every family: decoder-only (dense, MoE, SSM and hybrid,
 MLA and multi-token prediction), encoder-decoder (whisper) and VLM
 (paligemma): forward, the decode cache, prefill and one-token decode —
-the reference's ``src/repro/models/lm.py`` on one device.
+the reference's ``src/repro/models/lm.py``, on one device and, for the
+dense and MoE families, over a model-parallel mesh (``policy=``, the
+reference's sharded ``jit``; ``abstract_cache`` and ``cache_specs``
+give the cache's shapes and specs).
 
 Entry points
 ------------
@@ -33,12 +36,23 @@ cache in place (the reference returns a new one, which its engine
 donates) and returns the same dict. ``attn_impl`` picks the attention
 path and ``ssd_impl`` the SSD path of every layer (see ``layers.py``;
 MLA has one path, and "kernel" raises on an MLA configuration).
+
+Under an active ``ShardingPolicy`` (``params`` from
+``models.params.shard_params``) ``forward``, ``prefill`` and
+``decode_step`` run every layer over the mesh's positions
+(``sharding/model.py``): the embedding and the logits sharded over the
+vocabulary (an all-reduce of the lookups, an all-gather of the
+logits), attention, the MLP and the mixture of experts as
+``models/layers.py`` shards them; the cache is per shard
+(``init_cache``) and the logits come back whole on the mesh's first
+device.
 """
 from __future__ import annotations
 
 import functools
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import (
@@ -46,6 +60,8 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from ..sharding import model as sm
+from ..sharding.policy import ShardingPolicy
 from .config import ModelConfig
 from .layers import (
     _proj,
@@ -69,7 +85,12 @@ def _layers(tree: dict, n: int) -> list[dict]:
     ``n`` slices would each build a zero (L, ...) gradient)."""
     out: list[dict] = [{} for _ in range(n)]
     for k, v in tree.items():
-        parts = _layers(v, n) if isinstance(v, dict) else torch.unbind(v)
+        if isinstance(v, dict):
+            parts = _layers(v, n)
+        elif isinstance(v, sm.Sharded):
+            parts = v.layers(n)
+        else:
+            parts = torch.unbind(v)
         for layer, part in zip(out, parts):
             layer[k] = part
     return out
@@ -257,9 +278,16 @@ def _check(cfg: ModelConfig, attn_impl: str) -> None:
 
 
 def forward(cfg: ModelConfig, params, batch, attn_impl: str = "auto",
-            ssd_impl: str = "auto"):
+            ssd_impl: str = "auto", *,
+            policy: Optional[ShardingPolicy] = None):
     """Full-sequence logits (B, P + S, V) and final hidden states (after
-    the final norm); P = 0 but for the VLM's image positions."""
+    the final norm); P = 0 but for the VLM's image positions. Under an
+    active ``policy`` (``params`` from ``shard_params``) the model runs
+    over the mesh (``_forward_mesh``) and both come back whole on the
+    mesh's first device."""
+    if sm.on_mesh(policy):
+        return _forward_mesh(cfg, params, batch["tokens"], attn_impl,
+                             policy)
     _check(cfg, attn_impl)
     h, mode, prefix, enc = _prepare_inputs(cfg, params, batch, attn_impl)
     h = _blocks(cfg, params, h, attn_impl, ssd_impl, mode=mode,
@@ -354,9 +382,61 @@ def build_cache_spec(cfg: ModelConfig, batch_size: int, max_seq: int
     return spec
 
 
+# the reference's logical axes of each cache leaf
+CACHE_AXES = {
+    "k": ("layers", "batch", "kv_seq", "kv_heads", None),
+    "v": ("layers", "batch", "kv_seq", "kv_heads", None),
+    "slot_pos": ("layers", "batch", "kv_seq"),
+    "ckv": ("layers", "batch", "kv_seq", None),
+    "krope": ("layers", "batch", "kv_seq", None),
+    "state": ("layers", "batch", None, None, None),
+    "conv": ("layers", "batch", None, None),
+    "xk": ("layers", "batch", None, "kv_heads", None),
+    "xv": ("layers", "batch", None, "kv_heads", None),
+}
+
+
+def abstract_cache(cfg, batch_size, max_seq, dtype=torch.bfloat16) -> dict:
+    """The cache as ``device="meta"`` tensors (``slot_pos`` int32)."""
+    return {name: torch.empty(shape, dtype=torch.int32 if name == "slot_pos"
+                              else dtype, device="meta")
+            for name, shape in build_cache_spec(cfg, batch_size,
+                                                max_seq).items()}
+
+
+def cache_specs(cfg, batch_size, max_seq, policy: ShardingPolicy) -> dict:
+    """PartitionSpecs per cache leaf; if two logical axes map to the
+    same mesh axis (e.g. kv_seq AND kv_heads -> 'model'), the later one
+    is dropped, so opting into shard_cache_seq overrides KV-head
+    sharding, as in the reference."""
+    return {name: sm.dedupe_spec(policy.spec(*CACHE_AXES[name]))
+            for name in build_cache_spec(cfg, batch_size, max_seq)}
+
+
 def init_cache(cfg, batch_size, max_seq, dtype=torch.float32,
-               device="cuda") -> dict:
-    """Zero K/V and ``slot_pos`` -1 (empty) on ``device``."""
+               device="cuda", policy: Optional[ShardingPolicy] = None
+               ) -> dict:
+    """Zero K/V and ``slot_pos`` -1 (empty) on ``device``. Under an
+    active ``policy`` every leaf is a ``sharding.model.Sharded`` over
+    the mesh (``device`` unused): rows over the data-parallel ranks in
+    chunks of ceil(batch_size / DP) (the batch padded to DP chunks,
+    as ``Rows`` pads activations), each tensor-parallel rank holding
+    the KV heads its query heads read."""
+    if sm.on_mesh(policy):
+        _check_mesh(cfg, policy)
+        g = sm.mesh_grid(policy)
+        batch_size = -(-batch_size // g.dp) * g.dp
+        specs = cache_specs(cfg, batch_size, max_seq, policy)
+        heads_tp = g.tp > 1 and policy.spec("heads")[0] == policy.tp_axis
+
+        def kv(t):
+            return sm.kv_range(cfg.num_heads, cfg.num_kv_heads, g.tp, t)
+        return {name: sm.zeros(
+            shape, torch.int32 if name == "slot_pos" else dtype, g,
+            specs[name], kv, (3,) if heads_tp and name in ("k", "v")
+            else (), fill=-1 if name == "slot_pos" else 0)
+            for name, shape in build_cache_spec(cfg, batch_size,
+                                                max_seq).items()}
     out = {}
     for name, shape in build_cache_spec(cfg, batch_size, max_seq).items():
         if name == "slot_pos":
@@ -369,14 +449,20 @@ def init_cache(cfg, batch_size, max_seq, dtype=torch.float32,
 
 def prefill(cfg: ModelConfig, params, batch,
             max_seq: Optional[int] = None, attn_impl: str = "auto",
-            ssd_impl: str = "auto"):
+            ssd_impl: str = "auto", *,
+            policy: Optional[ShardingPolicy] = None):
     """Run the full prompt, build the decode cache (length ``max_seq``,
     default the prompt's P + S positions), return the logits of the
     last (padded) position. The hybrid keeps the last ``T =
     min(max_seq, attn_window)`` positions in ring layout (slot ``pos %
     T``); the VLM's cache holds its P image positions before the text;
     the encoder-decoder's ``xk``/``xv`` hold each layer's cross K/V of
-    the Senc frames given."""
+    the Senc frames given. Under an active ``policy`` the logits come
+    back whole on the mesh's first device and the cache per shard
+    (``init_cache``)."""
+    if sm.on_mesh(policy):
+        return _prefill_mesh(cfg, params, batch["tokens"], max_seq,
+                             attn_impl, policy)
     _check(cfg, attn_impl)
     h, mode, prefix, enc = _prepare_inputs(cfg, params, batch, attn_impl)
     B, S = h.shape[0], h.shape[1]
@@ -397,14 +483,19 @@ def prefill(cfg: ModelConfig, params, batch,
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos,
-                attn_impl: str = "auto"):
+                attn_impl: str = "auto", *,
+                policy: Optional[ShardingPolicy] = None):
     """One decode step. tokens: (B,) int, pos: (B,) int32 absolute
     positions (each < T without a window). Writes the step's K/V (at
     slot ``pos``, or ``pos % window`` for the hybrid) or MLA latent (at
     slot ``pos``) and SSM state and conv tail into ``cache`` in place;
     the encoder-decoder's layers also attend over the cache's cross
     K/V, which stays as prefill wrote it. Returns (logits (B, V),
-    cache)."""
+    cache); under an active ``policy`` the cache is per shard and the
+    logits come back whole on the mesh's first device."""
+    if sm.on_mesh(policy):
+        return _decode_mesh(cfg, params, cache, tokens, pos, attn_impl,
+                            policy), cache
     if cfg.use_mla:
         check_mla_impl(attn_impl)
     h = _embed_tokens(params, tokens[:, None])
@@ -441,3 +532,123 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos,
             h = h + f
     h = rms_norm(h, params["final_ln"], cfg.norm_eps)
     return _lm_logits(cfg, params, h)[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# the model over a model-parallel mesh (dense and MoE families)
+# ---------------------------------------------------------------------------
+
+
+def _check_mesh(cfg: ModelConfig, policy: ShardingPolicy) -> None:
+    """The families the model-parallel port runs: dense and MoE, with
+    plain grouped-query attention. Training under a mesh comes with the
+    next slice, then the SSM, hybrid, MLA, encoder-decoder and VLM
+    families."""
+    check_supported(cfg)
+    sm.check_policy(policy)
+    if cfg.family not in ("dense", "moe") or cfg.use_mla:
+        kind = "mla" if cfg.use_mla else cfg.family
+        raise sm.MeshNotPorted(
+            f"{cfg.name}: the {kind} family under a model-parallel mesh "
+            f"comes in a later slice (training under a mesh first, then "
+            f"the SSM, hybrid, MLA, encoder-decoder and VLM families); "
+            f"the dense and MoE families run")
+
+
+def _norm_mesh(cfg, h: "sm.Rows", w: "sm.Sharded", last: bool = False):
+    return sm.gmap(lambda hh, ww: rms_norm(hh[:, -1:] if last else hh, ww,
+                                           cfg.norm_eps), h, w.parts)
+
+
+def _embed_mesh(params, toks: "sm.Rows", g) -> "sm.Rows":
+    """The vocab-sharded lookup: each tensor-parallel rank embeds the
+    tokens of its vocabulary slice (zero elsewhere); the sum over the
+    ranks is the embedding."""
+    emb = params["embed"]
+
+    def one(it, pl, tk):
+        w = pl["embed"]
+        ids = tk.long() - (emb.index[it][0].start or 0)
+        ok = (ids >= 0) & (ids < w.shape[0])
+        h = F.embedding(ids.clamp(0, max(w.shape[0] - 1, 0)), w)
+        return torch.where(ok[..., None], h, h.new_zeros(()))
+
+    return sm.all_reduce(sm.gmap(one, sm.positions(g),
+                                 sm.local_grid({"embed": emb}, g), toks), g)
+
+
+def _logits_mesh(cfg, params, h: "sm.Rows", g) -> "sm.Rows":
+    """Each rank's vocabulary slice of the logits, gathered over the
+    tensor-parallel ranks."""
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    loc = sm.local_grid({name: params[name]}, g)
+    part = sm.gmap(lambda hh, pl: hh @ (pl[name].T if cfg.tie_embeddings
+                                        else pl[name]), h, loc)
+    return sm.all_gather(part, g, dim=-1)
+
+
+def _blocks_mesh(cfg, params, h, attn_impl, policy, cache=None):
+    """Every layer over the mesh; with ``cache`` each position's keys
+    and values are written into its shard of layer l."""
+    g = sm.mesh_grid(policy)
+    for l, bp in enumerate(_layers(params["blocks"], cfg.num_layers)):
+        a, k, v = attention_block(cfg, bp["attn"], _norm_mesh(
+            cfg, h, bp["ln1"]), attn_impl, policy=policy)
+        if cache is not None:
+            for name, grid in (("k", k), ("v", v)):
+                for (i, t), kv in np.ndenumerate(grid):
+                    _write_kv(cache[name].parts[i, t][l], kv)
+        h = sm.gmap(torch.add, h, a)
+        x = _norm_mesh(cfg, h, bp["ln2"])
+        f = (moe_block(cfg, bp["moe"], x, policy) if cfg.num_experts
+             else mlp(cfg, bp["mlp"], x, policy))
+        h = sm.gmap(torch.add, h, f)
+    return h
+
+
+def _forward_mesh(cfg, params, tokens, attn_impl, policy):
+    _check_mesh(cfg, policy)
+    g = sm.mesh_grid(policy)
+    h = _embed_mesh(params, sm.scatter_rows(tokens, g), g)
+    h = _norm_mesh(cfg, _blocks_mesh(cfg, params, h, attn_impl, policy),
+                   params["final_ln"])
+    home = sm.home_device(policy)
+    return _logits_mesh(cfg, params, h, g).gather(home), h.gather(home)
+
+
+def _prefill_mesh(cfg, params, tokens, max_seq, attn_impl, policy):
+    _check_mesh(cfg, policy)
+    g = sm.mesh_grid(policy)
+    B, S = tokens.shape
+    h = _embed_mesh(params, sm.scatter_rows(tokens, g), g)
+    cache = init_cache(cfg, B, max_seq or S, dtype=h.grid[0, 0].dtype,
+                       policy=policy)
+    h = _blocks_mesh(cfg, params, h, attn_impl, policy, cache)
+    for part in {id(p): p for p in cache["slot_pos"].parts.flat}.values():
+        part[:, :, :S] = torch.arange(S, dtype=torch.int32,
+                                      device=part.device)
+    h = _norm_mesh(cfg, h, params["final_ln"], last=True)
+    logits = _logits_mesh(cfg, params, h, g).gather(sm.home_device(policy))
+    return logits[:, 0], cache
+
+
+def _decode_mesh(cfg, params, cache, tokens, pos, attn_impl, policy):
+    g = sm.mesh_grid(policy)
+    L = cfg.num_layers
+    h = _embed_mesh(params, sm.scatter_rows(tokens[:, None], g), g)
+    posr = sm.scatter_rows(pos, g)
+    layers = {n: [c.parts for c in cache[n].layers(L)]
+              for n in ("k", "v", "slot_pos")}
+    for l, bp in enumerate(_layers(params["blocks"], L)):
+        a = attention_decode(cfg, bp["attn"], _norm_mesh(cfg, h, bp["ln1"]),
+                             layers["k"][l], layers["v"][l],
+                             layers["slot_pos"][l], posr, attn_impl,
+                             policy=policy)
+        h = sm.gmap(torch.add, h, a)
+        x = _norm_mesh(cfg, h, bp["ln2"])
+        f = (moe_block(cfg, bp["moe"], x, policy) if cfg.num_experts
+             else mlp(cfg, bp["mlp"], x, policy))
+        h = sm.gmap(torch.add, h, f)
+    h = _norm_mesh(cfg, h, params["final_ln"])
+    return _logits_mesh(cfg, params, h, g).gather(
+        sm.home_device(policy))[:, 0]

@@ -2,11 +2,15 @@
 MoE, SSM and hybrid, and MLA with multi-token prediction), the
 encoder-decoder (whisper) and the VLM (paligemma).
 
-``build_params(cfg, creator)`` walks the architecture and calls
-``creator(path, shape, scale)`` for each tensor, with the reference's
-paths, shapes and stacked ``(L, ...)`` layer layout
-(``src/repro/models/params.py``; the logical sharding axes are dropped:
-the port serves on one card). Two creators:
+``build_axes_params(cfg, creator)`` walks the architecture and calls
+``creator(path, shape, axes, scale)`` for each tensor, with the
+reference's paths, shapes, logical sharding axes and stacked
+``(L, ...)`` layer layout (``src/repro/models/params.py``);
+``build_params(cfg, creator)`` calls ``creator(path, shape, scale)``.
+The creators of the model-parallel mesh: ``abstract_params`` (meta
+tensors), ``param_axes``, ``param_specs`` and ``param_shardings``
+(``sharding/policy.py``), and ``shard_params``, which lays a tree out
+over the mesh (``sharding/model.py``). Two creators of weights:
 
 * ``init_params(cfg, generator, device)`` — random weights drawn from a
   ``torch.Generator`` at the reference's scales (norm gains 1, biases 0,
@@ -31,9 +35,18 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..sharding.model import (
+    check_policy,
+    dedupe_spec,
+    kv_range,
+    mesh_grid,
+    split,
+)
+from ..sharding.policy import Placement, ShardingPolicy
 from .config import ModelConfig
 
 Creator = Callable[[str, tuple, float], object]
+AxesCreator = Callable[[str, tuple, tuple, float], object]
 
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
@@ -81,15 +94,21 @@ def _attn_tree(cfg: ModelConfig, L, p, prefix: str):
     D = cfg.d_model
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     t = {
-        "wq": p(f"{prefix}/wq", (*L, D, H, hd), D),
-        "wk": p(f"{prefix}/wk", (*L, D, K, hd), D),
-        "wv": p(f"{prefix}/wv", (*L, D, K, hd), D),
-        "wo": p(f"{prefix}/wo", (*L, H, hd, D), H * hd),
+        "wq": p(f"{prefix}/wq", (*L, D, H, hd),
+                ("layers", "embed", "heads", None), D),
+        "wk": p(f"{prefix}/wk", (*L, D, K, hd),
+                ("layers", "embed", "kv_heads", None), D),
+        "wv": p(f"{prefix}/wv", (*L, D, K, hd),
+                ("layers", "embed", "kv_heads", None), D),
+        "wo": p(f"{prefix}/wo", (*L, H, hd, D),
+                ("layers", "heads", None, "embed"), H * hd),
     }
     if cfg.qkv_bias:
-        t["bq"] = p(f"{prefix}/bq", (*L, H, hd), 0)
-        t["bk"] = p(f"{prefix}/bk", (*L, K, hd), 0)
-        t["bv"] = p(f"{prefix}/bv", (*L, K, hd), 0)
+        t["bq"] = p(f"{prefix}/bq", (*L, H, hd), ("layers", "heads", None), 0)
+        t["bk"] = p(f"{prefix}/bk", (*L, K, hd),
+                    ("layers", "kv_heads", None), 0)
+        t["bv"] = p(f"{prefix}/bv", (*L, K, hd),
+                    ("layers", "kv_heads", None), 0)
     return t
 
 
@@ -98,14 +117,19 @@ def _mla_tree(cfg: ModelConfig, L, p):
     qlr, kvlr = cfg.q_lora_rank, cfg.kv_lora_rank
     qk_n, qk_r, vh = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     return {
-        "wdq": p("mla/wdq", (*L, D, qlr), D),
-        "q_ln": p("mla/q_ln", (*L, qlr), -1),
-        "wuq": p("mla/wuq", (*L, qlr, H, qk_n + qk_r), qlr),
-        "wdkv": p("mla/wdkv", (*L, D, kvlr + qk_r), D),
-        "kv_ln": p("mla/kv_ln", (*L, kvlr), -1),
-        "wuk": p("mla/wuk", (*L, kvlr, H, qk_n), kvlr),
-        "wuv": p("mla/wuv", (*L, kvlr, H, vh), kvlr),
-        "wo": p("mla/wo", (*L, H, vh, D), H * vh),
+        "wdq": p("mla/wdq", (*L, D, qlr), ("layers", "embed", None), D),
+        "q_ln": p("mla/q_ln", (*L, qlr), ("layers", None), -1),
+        "wuq": p("mla/wuq", (*L, qlr, H, qk_n + qk_r),
+                 ("layers", None, "heads", None), qlr),
+        "wdkv": p("mla/wdkv", (*L, D, kvlr + qk_r),
+                  ("layers", "embed", None), D),
+        "kv_ln": p("mla/kv_ln", (*L, kvlr), ("layers", None), -1),
+        "wuk": p("mla/wuk", (*L, kvlr, H, qk_n),
+                 ("layers", None, "heads", None), kvlr),
+        "wuv": p("mla/wuv", (*L, kvlr, H, vh),
+                 ("layers", None, "heads", None), kvlr),
+        "wo": p("mla/wo", (*L, H, vh, D),
+                ("layers", "heads", None, "embed"), H * vh),
     }
 
 
@@ -113,11 +137,13 @@ def _mlp_tree(cfg: ModelConfig, L, p, d_ff=None, prefix="mlp"):
     D = cfg.d_model
     F = d_ff or cfg.d_ff
     t = {
-        "w_in": p(f"{prefix}/w_in", (*L, D, F), D),
-        "w_out": p(f"{prefix}/w_out", (*L, F, D), F),
+        "w_in": p(f"{prefix}/w_in", (*L, D, F), ("layers", "embed", "mlp"), D),
+        "w_out": p(f"{prefix}/w_out", (*L, F, D),
+                   ("layers", "mlp", "embed"), F),
     }
     if cfg.gated_mlp:
-        t["w_gate"] = p(f"{prefix}/w_gate", (*L, D, F), D)
+        t["w_gate"] = p(f"{prefix}/w_gate", (*L, D, F),
+                        ("layers", "embed", "mlp"), D)
     return t
 
 
@@ -125,12 +151,15 @@ def _moe_tree(cfg: ModelConfig, L, p):
     D, E = cfg.d_model, cfg.num_experts
     Fe = cfg.moe_d_ff or cfg.d_ff
     t = {
-        "router": p("moe/router", (*L, D, E), D),
-        "w_in": p("moe/w_in", (*L, E, D, Fe), D),
-        "w_out": p("moe/w_out", (*L, E, Fe, D), Fe),
+        "router": p("moe/router", (*L, D, E), ("layers", "embed", None), D),
+        "w_in": p("moe/w_in", (*L, E, D, Fe),
+                  ("layers", "expert", "embed", None), D),
+        "w_out": p("moe/w_out", (*L, E, Fe, D),
+                   ("layers", "expert", None, "embed"), Fe),
     }
     if cfg.gated_mlp:
-        t["w_gate"] = p("moe/w_gate", (*L, E, D, Fe), D)
+        t["w_gate"] = p("moe/w_gate", (*L, E, D, Fe),
+                        ("layers", "expert", "embed", None), D)
     if cfg.num_shared_experts:
         t["shared"] = _mlp_tree(cfg, L, p, d_ff=Fe * cfg.num_shared_experts,
                                 prefix="moe/shared")
@@ -145,20 +174,22 @@ def _ssm_tree(cfg: ModelConfig, L, p):
     conv_dim = di + 2 * ns
     return {
         # in_proj emits [z, x, B, C, dt]
-        "w_in": p("ssm/w_in", (*L, D, 2 * di + 2 * ns + nh), D),
-        "conv_w": p("ssm/conv_w", (*L, cw, conv_dim), cw),
-        "conv_b": p("ssm/conv_b", (*L, conv_dim), 0),
-        "A_log": p("ssm/A_log", (*L, nh), -2),
-        "D": p("ssm/D", (*L, nh), -1),
-        "dt_bias": p("ssm/dt_bias", (*L, nh), 0),
-        "norm": p("ssm/norm", (*L, di), -1),
-        "w_out": p("ssm/w_out", (*L, di, D), di),
+        "w_in": p("ssm/w_in", (*L, D, 2 * di + 2 * ns + nh),
+                  ("layers", "embed", None), D),
+        "conv_w": p("ssm/conv_w", (*L, cw, conv_dim),
+                    ("layers", None, None), cw),
+        "conv_b": p("ssm/conv_b", (*L, conv_dim), ("layers", None), 0),
+        "A_log": p("ssm/A_log", (*L, nh), ("layers", None), -2),
+        "D": p("ssm/D", (*L, nh), ("layers", None), -1),
+        "dt_bias": p("ssm/dt_bias", (*L, nh), ("layers", None), 0),
+        "norm": p("ssm/norm", (*L, di), ("layers", None), -1),
+        "w_out": p("ssm/w_out", (*L, di, D), ("layers", None, "embed"), di),
     }
 
 
 def _block_tree(cfg: ModelConfig, L, p, cross_attn: bool = False) -> dict:
-    t = {"ln1": p("ln1", (*L, cfg.d_model), -1),
-         "ln2": p("ln2", (*L, cfg.d_model), -1)}
+    t = {"ln1": p("ln1", (*L, cfg.d_model), ("layers", None), -1),
+         "ln2": p("ln2", (*L, cfg.d_model), ("layers", None), -1)}
     if cfg.family == "ssm":
         t["ssm"] = _ssm_tree(cfg, L, p)
         return t  # no FFN: ln2 exists but feeds nothing
@@ -168,10 +199,11 @@ def _block_tree(cfg: ModelConfig, L, p, cross_attn: bool = False) -> dict:
         t["attn"] = _attn_tree(cfg, L, p, "attn")
     if cfg.family == "hybrid":
         t["ssm"] = _ssm_tree(cfg, L, p)
-        t["attn_norm"] = p("attn_norm", (*L, cfg.d_model), -1)
-        t["ssm_norm"] = p("ssm_norm", (*L, cfg.d_model), -1)
+        t["attn_norm"] = p("attn_norm", (*L, cfg.d_model),
+                           ("layers", None), -1)
+        t["ssm_norm"] = p("ssm_norm", (*L, cfg.d_model), ("layers", None), -1)
     if cross_attn:  # the encoder-decoder's decoder blocks
-        t["ln_x"] = p("ln_x", (*L, cfg.d_model), -1)
+        t["ln_x"] = p("ln_x", (*L, cfg.d_model), ("layers", None), -1)
         t["xattn"] = _attn_tree(cfg, L, p, "xattn")
     if cfg.num_experts:
         t["moe"] = _moe_tree(cfg, L, p)
@@ -181,23 +213,33 @@ def _block_tree(cfg: ModelConfig, L, p, cross_attn: bool = False) -> dict:
 
 
 def build_params(cfg: ModelConfig, creator: Creator) -> dict:
-    """The LM's parameter tree, one ``creator`` call per leaf."""
+    """The LM's parameter tree, one ``creator(path, shape, scale)`` call
+    per leaf."""
+    return build_axes_params(
+        cfg, lambda path, shape, axes, scale: creator(path, shape, scale))
+
+
+def build_axes_params(cfg: ModelConfig, creator: AxesCreator) -> dict:
+    """The LM's parameter tree, one ``creator(path, shape, axes,
+    scale)`` call per leaf, ``axes`` the leaf's logical sharding axes
+    (the reference's ``build_params``)."""
     check_supported(cfg)
     p = creator
     D, V = cfg.d_model, cfg.vocab_size
     tree: dict = {
-        "embed": p("embed", (V, D), D),
+        "embed": p("embed", (V, D), ("vocab", "embed"), D),
         "blocks": _block_tree(cfg, (cfg.num_layers,), p),
-        "final_ln": p("final_ln", (D,), -1),
+        "final_ln": p("final_ln", (D,), (None,), -1),
     }
     if not cfg.tie_embeddings:
-        tree["lm_head"] = p("lm_head", (D, V), D)
+        tree["lm_head"] = p("lm_head", (D, V), ("embed", "vocab"), D)
     if cfg.encoder_layers:
         tree["encoder"] = {
             "blocks": _block_tree(encoder_config(cfg),
                                   (cfg.encoder_layers,), p),
-            "final_ln": p("enc_final_ln", (D,), -1),
-            "pos_embed": p("enc_pos", (cfg.encoder_seq, D), D),
+            "final_ln": p("enc_final_ln", (D,), (None,), -1),
+            "pos_embed": p("enc_pos", (cfg.encoder_seq, D),
+                           (None, "embed"), D),
         }
         # the decoder's blocks, remade with cross-attention (the
         # reference's order of creator calls, so ``count_params`` is
@@ -207,12 +249,12 @@ def build_params(cfg: ModelConfig, creator: Creator) -> dict:
     if cfg.num_image_tokens:
         # the stub frontend's adapter: projects precomputed patch
         # embeddings
-        tree["img_proj"] = p("img_proj", (D, D), D)
+        tree["img_proj"] = p("img_proj", (D, D), ("embed", None), D)
     if cfg.mtp_depth:
         tree["mtp"] = {
-            "proj": p("mtp/proj", (2 * D, D), 2 * D),
+            "proj": p("mtp/proj", (2 * D, D), (None, "embed"), 2 * D),
             "blocks": _block_tree(mtp_config(cfg), (cfg.mtp_depth,), p),
-            "final_ln": p("mtp_final_ln", (D,), -1),
+            "final_ln": p("mtp_final_ln", (D,), (None,), -1),
         }
     return tree
 
@@ -257,6 +299,67 @@ def params_from_numpy(tree: dict, device="cuda") -> dict:
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return torch.tensor(np.asarray(tree), device=device)
+
+
+def abstract_params(cfg: ModelConfig, dtype=torch.bfloat16) -> dict:
+    """The tree as ``device="meta"`` tensors: shapes and dtypes, no
+    memory (the reference's ``ShapeDtypeStruct`` tree)."""
+    return build_params(cfg, lambda path, shape, scale: torch.empty(
+        shape, dtype=dtype, device="meta"))
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """Each leaf's logical sharding axes."""
+    return build_axes_params(cfg, lambda path, shape, axes, scale:
+                             tuple(axes))
+
+
+def param_specs(cfg: ModelConfig, policy: ShardingPolicy) -> dict:
+    """Each leaf's ``PartitionSpec`` under ``policy``."""
+    return build_axes_params(cfg, lambda path, shape, axes, scale:
+                             policy.spec(*axes))
+
+
+def param_shardings(cfg: ModelConfig, policy: ShardingPolicy) -> dict:
+    """Each leaf's ``Placement`` (mesh and spec) under ``policy``."""
+    return build_axes_params(cfg, lambda path, shape, axes, scale:
+                             Placement(policy.mesh, policy.spec(*axes)))
+
+
+def shard_params(cfg: ModelConfig, params: dict,
+                 policy: ShardingPolicy) -> dict:
+    """``params`` laid out over ``policy``'s mesh, the counterpart of the
+    reference's ``jax.device_put(params, param_shardings(cfg,
+    policy))``: every leaf a ``sharding.model.Sharded`` split along
+    each mesh axis its spec names (an axis named twice keeps its first
+    use: ``dedupe_spec``), each part a copy on its position's device.
+    Under tensor parallelism the KV heads follow ``kv_range`` (each
+    rank holds the heads its query heads read), and a leaf's FSDP
+    (``embed``) dimension is gathered over the data-parallel ranks when
+    a layer uses it (``local_grid``). Off a mesh the tree comes back
+    as it is."""
+    if not policy.active:
+        return params
+    check_policy(policy)
+    g = mesh_grid(policy)
+    heads_tp = g.tp > 1 and policy.spec("heads")[0] == policy.tp_axis
+    fsdp = set(policy.fsdp_axes)
+
+    def kv(t):
+        return kv_range(cfg.num_heads, cfg.num_kv_heads, g.tp, t)
+
+    def walk(leaf, axes):
+        if isinstance(leaf, dict):
+            return {k: walk(v, axes[k]) for k, v in leaf.items()}
+        spec = dedupe_spec(policy.spec(*axes))
+        kv_dims = tuple(d for d, a in enumerate(axes)
+                        if a == "kv_heads") if heads_tp else ()
+        fsdp_dims = tuple(
+            d for d, e in enumerate(spec) if g.dp > 1 and e is not None
+            and set(e if isinstance(e, tuple) else (e,)) <= fsdp)
+        return split(leaf, g, spec, kv, kv_dims, fsdp_dims)
+
+    return walk(params, param_axes(cfg))
 
 
 def count_params(cfg: ModelConfig) -> int:

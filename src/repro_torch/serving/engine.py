@@ -25,6 +25,15 @@ the K7/K8 and K9 kernels, "ref" the plain grouped einsum and
 configuration (deepseek-v3-671b) has one attention path, which "auto"
 and "ref" both run (the reference computes MLA outside any Pallas
 kernel); "kernel" is refused at construction.
+
+Over a model-parallel mesh (``policy``, the dense and MoE families):
+the parameters come from ``models.params.shard_params``, the decode
+cache is per shard (``init_cache(..., policy=)``: slots over the
+data-parallel ranks, KV heads over the tensor-parallel ranks), each
+admission's prefill rows go into the shards that hold their slots
+(``sharding.model.insert_rows``), and the slot state and the gathered
+logits stay on the mesh's first device, so the scheduler and the
+semantic tier (``ModelBackend.from_engine``) run unchanged.
 """
 from __future__ import annotations
 
@@ -45,6 +54,9 @@ from ..models import (
 )
 from ..models.config import ModelConfig
 from ..models.layers import ATTN_IMPLS, check_mla_impl
+from ..models.lm import _check_mesh as check_mesh
+from ..sharding import model as sm
+from ..sharding.policy import ShardingPolicy
 from ..training.data import HashTokenizer
 from .scheduler import SlotScheduler, Ticket
 
@@ -117,7 +129,8 @@ class ServingEngine:
                  tokenizer: Optional[HashTokenizer] = None,
                  batch_size: int = 16, max_seq: int = 128,
                  max_new_tokens: int = 2, device="cuda",
-                 attn_impl: str = "auto", ssd_impl: str = "auto"):
+                 attn_impl: str = "auto", ssd_impl: str = "auto",
+                 policy: Optional[ShardingPolicy] = None):
         check_supported(cfg)
         check_tokens_only(cfg, "ServingEngine")
         for name, impl in (("attn_impl", attn_impl), ("ssd_impl", ssd_impl)):
@@ -128,7 +141,15 @@ class ServingEngine:
             check_mla_impl(attn_impl)
         self.cfg = cfg
         self.params = params
-        self.device = resolve_device(device)
+        self.policy = policy if sm.on_mesh(policy) else None
+        if self.policy is not None:
+            check_mesh(cfg, self.policy)
+            if not isinstance(params.get("embed"), sm.Sharded):
+                raise ValueError("ServingEngine: under a mesh policy the "
+                                 "parameters must come from shard_params")
+            self.device = sm.home_device(self.policy)
+        else:
+            self.device = resolve_device(device)
         self.attn_impl = attn_impl
         self.ssd_impl = ssd_impl
         self.tok = tokenizer or HashTokenizer(cfg.vocab_size)
@@ -150,12 +171,12 @@ class ServingEngine:
     def _prefill(self, tokens: torch.Tensor):
         return prefill(self.cfg, self.params, {"tokens": tokens},
                        max_seq=self.cache_len, attn_impl=self.attn_impl,
-                       ssd_impl=self.ssd_impl)
+                       ssd_impl=self.ssd_impl, policy=self.policy)
 
     @torch.no_grad()
     def _decode(self, cache, tok, pos):
         return decode_step(self.cfg, self.params, cache, tok, pos,
-                           attn_impl=self.attn_impl)
+                           attn_impl=self.attn_impl, policy=self.policy)
 
     def _prefill_insert(self, cache, cur, pos, live, rem,
                         adm: torch.Tensor) -> None:
@@ -166,9 +187,13 @@ class ServingEngine:
         index and real length in the last two columns."""
         toks, slots, lens = adm[:, :-2], adm[:, -2].long(), adm[:, -1]
         _, new = self._prefill(toks)
-        for k, v in cache.items():
-            v.index_copy_(1, slots, new[k])
         width = toks.shape[0]
+        for k, v in cache.items():
+            if self.policy is None:
+                v.index_copy_(1, slots, new[k])
+            else:  # into the shards that hold the slots
+                sm.insert_rows(v, new[k], slots, width,
+                               sm.mesh_grid(self.policy))
         last = torch.clamp(lens - 1, min=0)
         first = toks[torch.arange(width, device=toks.device), last.long()]
         cur.index_copy_(0, slots, first)

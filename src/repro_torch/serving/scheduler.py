@@ -96,7 +96,8 @@ class SlotScheduler:
         self._reqs: dict[int, Request] = {}
         self._next_rid = 0
         self._cache = init_cache(engine.cfg, b, engine.cache_len,
-                                 device=dev)
+                                 device=dev,
+                                 policy=getattr(engine, "policy", None))
         self._cur = torch.zeros(b, dtype=torch.int32, device=dev)
         self._pos = torch.zeros(b, dtype=torch.int32, device=dev)
         self._live = torch.zeros(b, dtype=torch.bool, device=dev)

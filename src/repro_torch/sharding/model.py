@@ -1,0 +1,550 @@
+"""Tensor-, expert- and data-parallel execution of the model over a
+``ModelMesh`` (no reference counterpart: this is what GSPMD and
+``shard_map`` do for the reference's sharded ``jit``).
+
+The mesh is read as a (DP, TP) grid: DP data-parallel ranks (the
+policy's ``dp_axes``, 'pod' and 'data', flattened row-major in mesh
+order) by TP tensor-parallel ranks (its ``tp_axis``, 'model').
+Position (i, t) of the grid is a device of the mesh, and every loop of
+the port's sharded model runs over these positions, each on its own
+device, so the same code serves distinct cards and shards that share
+one card.
+
+* ``Sharded`` — one tensor laid out over the grid: ``parts[i, t]`` is
+  the local tensor on the device of (i, t), ``index[i, t]`` the slices
+  of the global tensor it holds. A dimension split over mesh axes of
+  total size n is cut into chunks of ceil(size / n), row-major over
+  the named axes (a trailing chunk may be shorter or empty, where
+  GSPMD pads). The grouped-query KV heads are the exception: rank t
+  holds the KV heads its query heads read (``kv_range``), so a KV
+  head count that does not divide TP (starcoder2-3b's 2 over 4) or a
+  replicated KV spec (``shard_kv_heads=False``) gives each rank one
+  consistent group. Positions on one device that hold the same slice
+  share one tensor, so a tree sharded over one card holds each weight
+  once. ``unshard`` writes the parts back into one global tensor.
+* ``Rows`` — activations: a global batch of ``n`` rows, data-parallel
+  rank i holding rows [i·c, (i+1)·c), c = ceil(n / DP), the last
+  chunk padded with zero rows (GSPMD's padding), replicated over the
+  TP ranks.
+* ``gmap`` runs a function at every position; positions whose
+  arguments are the same objects (replicated work on a shared device)
+  run it once and share the result.
+* ``all_reduce`` sums over the TP ranks (or over every rank) in rank
+  order on each receiving device; ``all_gather`` concatenates over
+  the TP ranks in rank order.
+* ``local_grid`` hands each position its parameters, the FSDP
+  (``embed``) dimension gathered over the data-parallel ranks at use.
+
+No ``torch.distributed``: one process drives every position, as the
+partitioned data tier does (``sharding/data.py``), so a mesh over
+shards of one card needs no process group.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from .policy import PartitionSpec, ShardingPolicy
+
+
+class MeshNotPorted(NotImplementedError):
+    """A model family or policy knob the model-parallel port does not
+    run yet (training under a mesh, and the SSM, hybrid, MLA,
+    encoder-decoder and VLM families, come in later slices)."""
+
+
+# ---------------------------------------------------------------------------
+# the (DP, TP) grid of a policy's mesh
+# ---------------------------------------------------------------------------
+
+
+class MeshGrid:
+    """A policy's mesh as a (DP, TP) grid of devices (module doc)."""
+
+    def __init__(self, policy: ShardingPolicy):
+        mesh = policy.mesh
+        names = mesh.axis_names
+        shape = mesh.shape
+        dp_axes = tuple(a for a in names if a in policy.dp_axes)
+        if set(dp_axes) != set(policy.dp_axes):
+            raise ValueError(f"dp_axes {policy.dp_axes} not on the mesh "
+                             f"{names}")
+        tp_axes = (policy.tp_axis,) if policy.tp_axis else ()
+        rest = [a for a in names if a not in dp_axes + tp_axes
+                and shape[a] > 1]
+        if rest:
+            raise MeshNotPorted(f"mesh axes {rest} are neither data- nor "
+                                f"tensor-parallel under this policy")
+        order = [names.index(a) for a in dp_axes + tp_axes] + [
+            names.index(a) for a in names if a not in dp_axes + tp_axes]
+        self.dp_axes, self.tp_axis = dp_axes, policy.tp_axis
+        self.dp = int(np.prod([shape[a] for a in dp_axes]))
+        self.tp = shape[policy.tp_axis] if policy.tp_axis else 1
+        self.sizes = shape
+        self.devices = mesh.devices.transpose(order).reshape(self.dp,
+                                                             self.tp)
+
+    def coords(self):
+        return [(i, t) for i in range(self.dp) for t in range(self.tp)]
+
+    def axis_coord(self, i: int, t: int) -> dict:
+        """Each mesh axis's coordinate at grid position (i, t)."""
+        out = {}
+        for a in reversed(self.dp_axes):
+            out[a] = i % self.sizes[a]
+            i //= self.sizes[a]
+        if self.tp_axis:
+            out[self.tp_axis] = t
+        return out
+
+
+def on_mesh(policy: Optional[ShardingPolicy]) -> bool:
+    """True when ``policy`` spreads the model over more than one mesh
+    position (the sharded code paths run)."""
+    return policy is not None and policy.active
+
+
+@functools.lru_cache(maxsize=32)
+def mesh_grid(policy: ShardingPolicy) -> MeshGrid:
+    return MeshGrid(policy)
+
+
+def home_device(policy: ShardingPolicy) -> torch.device:
+    """Where a mesh engine keeps its slot state and gathered logits:
+    the device of grid position (0, 0)."""
+    return mesh_grid(policy).devices[0, 0]
+
+
+def check_policy(policy: ShardingPolicy) -> None:
+    """The policy knobs the sharded model runs: batch over the data
+    axes, heads/mlp/vocab/expert over the model axis (experts over
+    both with ``ep_over_dp``), KV heads sharded or not, FSDP on or
+    off. Pure data parallelism over both axes, sequence parallelism
+    and a sequence-sharded cache raise."""
+    for knob in ("dp_over_tp", "seq_parallel", "shard_cache_seq"):
+        if getattr(policy, knob):
+            raise MeshNotPorted(f"ShardingPolicy.{knob} is not run by the "
+                                f"model-parallel port")
+    if policy.fsdp_params and tuple(policy.fsdp_axes) != tuple(
+            policy.dp_axes):
+        raise MeshNotPorted("FSDP over axes other than the data axes")
+
+
+def _grid(g: MeshGrid) -> np.ndarray:
+    return np.empty((g.dp, g.tp), dtype=object)
+
+
+# ---------------------------------------------------------------------------
+# sharded tensors
+# ---------------------------------------------------------------------------
+
+
+def kv_range(num_heads: int, num_kv_heads: int, tp: int, t: int
+             ) -> tuple[int, int]:
+    """The KV heads [lo, hi) that tensor-parallel rank ``t`` of ``tp``
+    reads: its query heads are [t·H/tp, (t+1)·H/tp), and query head h
+    reads KV head h // (H / K). A rank holds whole groups (H/tp a
+    multiple of the group) or lies inside one (the group a multiple of
+    H/tp); other layouts raise."""
+    H, K = num_heads, num_kv_heads
+    if H % tp:
+        raise MeshNotPorted(f"{H} heads over tp={tp}")
+    h_loc, group = H // tp, H // K
+    if h_loc % group and group % h_loc:
+        raise MeshNotPorted(f"{h_loc} query heads a rank straddle groups "
+                            f"of {group}")
+    lo = t * h_loc // group
+    return lo, (t * h_loc + h_loc - 1) // group + 1
+
+
+def dedupe_spec(spec) -> PartitionSpec:
+    """Drop an entry that names a mesh axis an earlier entry already
+    used (the reference's ``cache_specs`` rule; a parameter spec meets
+    it under ``ep_over_dp``, whose experts take the data axis that
+    FSDP also names)."""
+    out, seen = [], set()
+    for a in spec:
+        names = a if isinstance(a, tuple) else (a,)
+        out.append(None if any(n in seen for n in names if n) else a)
+        seen.update(n for n in names if n)
+    return PartitionSpec(*out)
+
+
+def _names(entry) -> tuple:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def leaf_index(g: MeshGrid, shape, spec, i: int, t: int,
+               kv: Optional[tuple[int, int]] = None,
+               kv_dims: tuple = ()) -> tuple:
+    """The slices of a global tensor of ``shape`` under ``spec`` that
+    grid position (i, t) holds (module doc); dimensions in ``kv_dims``
+    take the KV heads [lo, hi) = ``kv`` of rank t."""
+    coord = g.axis_coord(i, t)
+    idx = []
+    for dim, (size, entry) in enumerate(zip(shape, spec)):
+        if dim in kv_dims:
+            idx.append(slice(*kv))
+            continue
+        names = _names(entry)
+        if not names:
+            idx.append(slice(None))
+            continue
+        n, r = 1, 0
+        for a in names:
+            n *= g.sizes[a]
+            r = r * g.sizes[a] + coord[a]
+        c = -(-size // n)
+        lo = min(r * c, size)
+        idx.append(slice(lo, min(lo + c, size)))
+    return tuple(idx)
+
+
+class Sharded:
+    """One tensor laid out over a policy's grid (module doc)."""
+
+    def __init__(self, shape, dtype, spec, parts: np.ndarray,
+                 index: np.ndarray, fsdp_dims: tuple = ()):
+        self.shape = tuple(shape)
+        self.dtype = dtype
+        self.spec = PartitionSpec(*spec)
+        self.parts = parts
+        self.index = index
+        self.fsdp_dims = fsdp_dims
+
+    def __repr__(self) -> str:
+        return (f"Sharded({self.shape}, {self.spec}, grid "
+                f"{self.parts.shape})")
+
+    def unshard(self, device=None) -> torch.Tensor:
+        """The global tensor, every part written at its slices (parts
+        holding the same slice agree)."""
+        dev = device if device is not None else self.parts[0, 0].device
+        out = torch.empty(self.shape, dtype=self.dtype, device=dev)
+        for (i, t), part in np.ndenumerate(self.parts):
+            out[self.index[i, t]] = part.to(dev)
+        return out
+
+    def layers(self, n: int) -> list["Sharded"]:
+        """The ``n`` slices of a stacked (L, ...) leaf, views of the
+        parts; a part shared by several positions gives them one view
+        per layer."""
+        views: dict = {}
+        out = []
+        for l in range(n):
+            parts = np.empty(self.parts.shape, dtype=object)
+            index = np.empty(self.parts.shape, dtype=object)
+            for (i, t), part in np.ndenumerate(self.parts):
+                key = (id(part), l)
+                if key not in views:
+                    views[key] = part[l]
+                parts[i, t] = views[key]
+                index[i, t] = self.index[i, t][1:]
+            out.append(Sharded(self.shape[1:], self.dtype, self.spec[1:],
+                               parts, index,
+                               tuple(d - 1 for d in self.fsdp_dims)))
+        return out
+
+
+def _lay_out(shape, g: MeshGrid, spec, kv, kv_dims, make):
+    """(parts, index) of a tensor of ``shape`` under ``spec``, each part
+    ``make(idx, device)``; positions on one device holding the same
+    slice share one part."""
+    parts, index, made = _grid(g), _grid(g), {}
+    for i, t in g.coords():
+        idx = leaf_index(g, shape, spec, i, t, kv(t) if kv_dims else None,
+                         kv_dims)
+        dev = g.devices[i, t]
+        key = (str(dev), tuple((s.start, s.stop) for s in idx))
+        if key not in made:
+            made[key] = make(idx, dev)
+        parts[i, t], index[i, t] = made[key], idx
+    return parts, index
+
+
+def split(x: torch.Tensor, g: MeshGrid, spec, kv=None, kv_dims=(),
+          fsdp_dims=()) -> Sharded:
+    """``x`` laid out over ``g`` under ``spec`` (``kv(t)`` the KV range
+    of rank t for the dimensions ``kv_dims``), each part a contiguous
+    copy on its position's device."""
+    def copy(idx, dev):
+        src = x[idx]
+        return torch.empty(src.shape, dtype=x.dtype, device=dev).copy_(src)
+
+    parts, index = _lay_out(x.shape, g, spec, kv, kv_dims, copy)
+    return Sharded(x.shape, x.dtype, spec, parts, index, fsdp_dims)
+
+
+def zeros(shape, dtype, g: MeshGrid, spec, kv=None, kv_dims=(),
+          fill=0) -> Sharded:
+    """A ``Sharded`` of ``fill`` without a global tensor."""
+    def full(idx, dev):
+        local = tuple(len(range(*s.indices(n))) for s, n in zip(idx, shape))
+        return torch.full(local, fill, dtype=dtype, device=dev)
+
+    parts, index = _lay_out(shape, g, spec, kv, kv_dims, full)
+    return Sharded(shape, dtype, spec, parts, index)
+
+
+def unshard(tree, device=None):
+    """A tree of ``Sharded`` leaves as global tensors (on ``device``,
+    default each leaf's first part's)."""
+    if isinstance(tree, dict):
+        return {k: unshard(v, device) for k, v in tree.items()}
+    if isinstance(tree, Sharded):
+        return tree.unshard(device)
+    return tree
+
+
+def local_grid(tree: dict, g: MeshGrid) -> np.ndarray:
+    """A grid of per-position parameter dicts: each leaf's part, with its
+    FSDP dimension gathered (concatenated in data-parallel rank order)
+    onto the position's device. Positions on one device with the same
+    parts share one gathered tensor. (No nested recursive closure: it
+    would hold the gathered tensors in a reference cycle until the
+    cycle collector ran, every layer's at once.)"""
+    out, made = _grid(g), {}
+    for i, t in g.coords():
+        out[i, t] = _local_tree(tree, g, i, t, made)
+    return out
+
+
+def _local_tree(node, g: MeshGrid, i: int, t: int, made: dict):
+    if isinstance(node, dict):
+        return {k: _local_tree(v, g, i, t, made) for k, v in node.items()}
+    if not node.fsdp_dims:
+        return node.parts[i, t]
+    dev = g.devices[i, t]
+    parts = [node.parts[j, t] for j in range(g.dp)]
+    key = (str(dev), tuple(id(p) for p in parts))
+    if key not in made:
+        (dim,) = node.fsdp_dims
+        made[key] = torch.cat([p.to(dev) for p in parts], dim=dim)
+    return made[key]
+
+
+def local_config(cfg, g: MeshGrid):
+    """``cfg`` at one tensor-parallel rank's widths: its query heads,
+    the KV heads it reads (``kv_range``), its share of ``d_ff`` and of
+    the experts (``head_dim`` pinned to the model's)."""
+    lo, hi = kv_range(cfg.num_heads, cfg.num_kv_heads, g.tp, 0)
+    return cfg.replace(
+        num_heads=cfg.num_heads // g.tp, num_kv_heads=hi - lo,
+        head_dim=cfg.resolved_head_dim, d_ff=-(-cfg.d_ff // g.tp),
+        num_experts=cfg.num_experts // g.tp)
+
+
+# ---------------------------------------------------------------------------
+# activations
+# ---------------------------------------------------------------------------
+
+
+class Rows:
+    """A global batch of ``n`` rows over a grid (module doc)."""
+
+    def __init__(self, grid: np.ndarray, n: int):
+        self.grid = grid
+        self.n = n
+
+    @property
+    def chunk(self) -> int:
+        return self.grid[0, 0].shape[0]
+
+    @property
+    def padded(self) -> bool:
+        return self.chunk * self.grid.shape[0] != self.n
+
+    def gather(self, device=None) -> torch.Tensor:
+        """The global (n, ...) tensor on ``device`` (default (0, 0)'s)."""
+        dev = device if device is not None else self.grid[0, 0].device
+        return torch.cat([self.grid[i, 0].to(dev)
+                          for i in range(self.grid.shape[0])])[:self.n]
+
+
+def scatter_rows(x: torch.Tensor, g: MeshGrid) -> Rows:
+    """``x`` (n, ...) as ``Rows``: chunk i of ceil(n / DP) rows (zero
+    rows after the last) on every device of data-parallel rank i."""
+    n = x.shape[0]
+    c = -(-n // g.dp)
+    if c * g.dp != n:
+        x = torch.cat([x, x.new_zeros((c * g.dp - n, *x.shape[1:]))])
+    grid, made = _grid(g), {}
+    for i, t in g.coords():
+        dev = g.devices[i, t]
+        key = (str(dev), i)
+        if key not in made:
+            made[key] = x[i * c:(i + 1) * c].to(dev)
+        grid[i, t] = made[key]
+    return Rows(grid, n)
+
+
+def gmap(fn: Callable, *args):
+    """``fn`` at every grid position over the positions' values of
+    ``args`` (``Rows``, grids, or values passed whole); positions with
+    identical argument objects share one call. Returns ``Rows`` (with
+    the first ``Rows`` argument's ``n``) or a grid."""
+    grids = [a.grid if isinstance(a, Rows) else a for a in args]
+    shape = next(a.shape for a in grids if isinstance(a, np.ndarray))
+    out, made = np.empty(shape, dtype=object), {}
+    for i, t in np.ndindex(*shape):
+        vals = [a[i, t] if isinstance(a, np.ndarray) else a for a in grids]
+        key = tuple(id(v) for v in vals)
+        if key not in made:
+            made[key] = fn(*vals)
+        out[i, t] = made[key]
+    rows = next((a for a in args if isinstance(a, Rows)), None)
+    return Rows(out, rows.n) if rows is not None else out
+
+
+def unzip(grid: np.ndarray, n: int) -> list[np.ndarray]:
+    """A grid of n-tuples as n grids."""
+    outs = [np.empty(grid.shape, dtype=object) for _ in range(n)]
+    for idx, val in np.ndenumerate(grid):
+        for o, v in zip(outs, val):
+            o[idx] = v
+    return outs
+
+
+def positions(g: MeshGrid) -> np.ndarray:
+    """A grid holding each position's (i, t)."""
+    out = _grid(g)
+    for i, t in g.coords():
+        out[i, t] = (i, t)
+    return out
+
+
+def _collect(x, g: MeshGrid, ranks: Callable, combine: Callable):
+    """Each position receives ``combine`` of the values of ``ranks(i,
+    t)``, in that order, moved to its device (one result per distinct
+    device and source set)."""
+    grid = x.grid if isinstance(x, Rows) else x
+    out, made = _grid(g), {}
+    for i, t in g.coords():
+        dev = g.devices[i, t]
+        src = [grid[r] for r in ranks(i, t)]
+        key = (str(dev), tuple(id(s) for s in src))
+        if key not in made:
+            made[key] = combine([s.to(dev) for s in src])
+        out[i, t] = made[key]
+    return Rows(out, x.n) if isinstance(x, Rows) else out
+
+
+def all_reduce(x, g: MeshGrid, over: str = "tp"):
+    """Sum the positions' partial values over the TP ranks of each
+    data-parallel rank (``over="tp"``) or over every rank in rank
+    order i·TP + t (``over="all"``), on each position's device."""
+    def ranks(i, t):
+        return [(j, u) for j in (range(g.dp) if over == "all" else (i,))
+                for u in range(g.tp)]
+    return _collect(x, g, ranks, lambda ts: functools.reduce(torch.add, ts))
+
+
+def all_gather(x, g: MeshGrid, dim: int):
+    """Concatenate the positions' values over the TP ranks, in rank
+    order, along ``dim``, onto each position's device."""
+    return _collect(x, g, lambda i, t: [(i, u) for u in range(g.tp)],
+                    lambda ts: torch.cat(ts, dim=dim))
+
+
+def insert_rows(dst: Sharded, src: Sharded, slots: torch.Tensor, n: int,
+                g: MeshGrid) -> None:
+    """Write rows [0, n) of ``src`` (a cache leaf of an admission's
+    prefill, rows along axis 1) into rows ``slots`` (a device tensor of
+    n global slot indices) of ``dst`` (the shared decode cache), in
+    place, each into the shard that holds its slot. Without a host
+    sync: a shard of several data-parallel ranks maps each of its
+    local slots to a source row on the device and merges them."""
+    done = set()
+    for (i, t), part in np.ndenumerate(dst.parts):
+        if id(part) in done:
+            continue
+        done.add(id(part))
+        dev = part.device
+        rows = torch.cat([src.parts[j, t].to(dev) for j in range(g.dp)],
+                         dim=1)[:, :n]
+        idx = slots.to(dev).long()
+        if g.dp == 1:
+            part.index_copy_(1, idx, rows)
+            continue
+        cd = part.shape[1]
+        loc = idx - i * cd
+        ok = (loc >= 0) & (loc < cd)
+        src_of = torch.full((cd + 1,), -1, dtype=torch.long, device=dev)
+        src_of.scatter_(0, torch.where(ok, loc, cd),
+                        torch.arange(n, device=dev))
+        src_of = src_of[:cd]
+        keep = (src_of >= 0).view(1, cd, *([1] * (part.dim() - 2)))
+        part.copy_(torch.where(keep, rows.index_select(
+            1, src_of.clamp(min=0)), part))
+
+
+# ---------------------------------------------------------------------------
+# token layouts of the mixture of experts
+# ---------------------------------------------------------------------------
+
+
+def _all_tokens(x: Rows, g: MeshGrid, i: int, t: int, made: dict):
+    """Every real row of ``x``, flattened to (n·S, D), on (i, t)'s
+    device."""
+    dev = g.devices[i, t]
+    key = (str(dev), tuple(id(x.grid[j, t]) for j in range(g.dp)))
+    if key not in made:
+        rows = torch.cat([x.grid[j, t].to(dev) for j in range(g.dp)])
+        made[key] = rows[:x.n].reshape(-1, rows.shape[-1])
+    return made[key]
+
+
+def token_chunks(x: Rows, g: MeshGrid, everywhere: bool = False):
+    """The reference's expert-parallel token layouts of the flattened
+    (n·S, D) tokens: data-parallel rank i's contiguous chunk of
+    n·S / DP tokens (its own rows flattened, when the rows split
+    evenly), or with ``everywhere`` every token on every position."""
+    out, made = _grid(g), {}
+    T = x.n * x.grid[0, 0].shape[1]
+    for i, t in g.coords():
+        if everywhere:
+            out[i, t] = _all_tokens(x, g, i, t, made)
+        elif not x.padded:
+            xl = x.grid[i, t]
+            out[i, t] = xl.reshape(-1, xl.shape[-1])
+        else:
+            c = T // g.dp
+            out[i, t] = _all_tokens(x, g, i, t, made)[i * c:(i + 1) * c]
+    return out
+
+
+def tokens_to_rows(y: np.ndarray, x: Rows, g: MeshGrid,
+                   everywhere: bool = False) -> Rows:
+    """``token_chunks``'s inverse for the outputs ``y`` of each
+    position's tokens: back to ``x``'s rows (padding rows zero)."""
+    out, made = _grid(g), {}
+    S, D = x.grid[0, 0].shape[1], y[0, 0].shape[-1]
+    c = x.chunk
+    for i, t in g.coords():
+        if not everywhere and not x.padded:
+            out[i, t] = y[i, t].reshape(c, S, D)
+            continue
+        dev = g.devices[i, t]
+        src = [y[i, t]] if everywhere else [y[j, t] for j in range(g.dp)]
+        key = (str(dev), tuple(id(s) for s in src), i)
+        if key not in made:
+            full = torch.cat([s.to(dev) for s in src]).reshape(x.n, S, D)
+            pad = c * g.dp - x.n
+            if pad:
+                full = torch.cat([full, full.new_zeros((pad, S, D))])
+            made[key] = full[i * c:(i + 1) * c]
+        out[i, t] = made[key]
+    return Rows(out, x.n)
+
+
+__all__ = ["MeshGrid", "MeshNotPorted", "Rows", "Sharded", "all_gather",
+           "all_reduce", "check_policy", "dedupe_spec", "gmap",
+           "home_device", "insert_rows", "kv_range", "leaf_index",
+           "local_config", "local_grid", "mesh_grid", "on_mesh", "positions",
+           "scatter_rows", "split", "token_chunks", "tokens_to_rows",
+           "unshard", "unzip", "zeros"]

@@ -773,6 +773,70 @@ def test_moe_serving_kernel_path_matches_plain_path(dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("arch,mesh", (("olmoe-1b-7b", (2, 2)),
+                                       ("olmoe-1b-7b", (1, 2)),
+                                       ("starcoder2-3b", (1, 4))))
+def test_mesh_serving_kernel_path_matches_plain_path(dev, arch, mesh):
+    """A model mesh whose positions all lie on the card (olmoe-tiny at
+    capacity factor 0.5, so experts drop rows; starcoder2-tiny's 2 KV
+    heads read by 4 ranks): K7/K8 on every shard's local heads against
+    the plain attention, the same answers, K7 once per layer per
+    position per admission, K8 once per layer per position per round;
+    the mesh's prefill logits within 1e-4 of the same mesh on the
+    CPU."""
+    from repro_torch.configs import get_tiny
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params, prefill
+    from repro_torch.models.params import shard_params
+    from repro_torch.serving import ServingEngine
+    from repro_torch.sharding.policy import ShardingPolicy
+
+    cfg = get_tiny(arch).replace(vocab_size=512)
+    if cfg.num_experts:
+        cfg = cfg.replace(moe_capacity_factor=0.5)
+    n = mesh[0] * mesh[1]
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         device="cpu")
+    pols = {d: ShardingPolicy.for_mesh(make_mesh(*mesh, devices=[d] * n))
+            for d in (dev, torch.device("cpu"))}
+    sp = shard_params(cfg, _tree_to(params, dev), pols[dev])
+    prompts = [f"card mesh probe {i} " + "word " * (i % 11)
+               for i in range(13)]
+    out = {}
+    for impl in ("auto", "ref"):
+        eng = ServingEngine(cfg, sp, batch_size=4, max_seq=24,
+                            max_new_tokens=3, attn_impl=impl,
+                            policy=pols[dev])
+        _build.reset_launches()
+        out[impl] = eng.answer(prompts)
+        launches = dict(_build.LAUNCHES)
+        want = dict.fromkeys(launches, 0)
+        if impl == "auto":
+            want.update(
+                flash_attention=cfg.num_layers * n * eng.stats.batches,
+                decode_attention=cfg.num_layers * n
+                * eng.stats.decode_steps)
+        assert launches == want
+    assert out["auto"] == out["ref"]
+    toks = torch.randint(1, cfg.vocab_size, (4, 24),
+                         generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        got, _ = prefill(cfg, sp, {"tokens": toks.to(dev)}, max_seq=28,
+                         policy=pols[dev])
+        cpu = torch.device("cpu")
+        want, _ = prefill(cfg, shard_params(cfg, params, pols[cpu]),
+                          {"tokens": toks}, max_seq=28, attn_impl="ref",
+                          policy=pols[cpu])
+    assert float((got.cpu() - want).abs().max()) <= \
+        1e-4 * float(want.abs().max())
+
+
+def _tree_to(tree, device):
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+@pytest.mark.cuda
 def test_moe_block_on_the_card_is_deterministic(dev):
     """``moe_block`` on the card (stable sort, the scatter as distinct
     row writes): two calls equal bit for bit, and within 1e-4 of the

@@ -55,7 +55,8 @@ def test_port_files_exist():
                 "kernels/partition/ops.py", "kernels/partition_cases.py",
                 "training/optimizer.py", "training/train_step.py",
                 "training/checkpoint.py", "training/backend.py",
-                "launch/train.py"):
+                "launch/train.py", "launch/mesh.py", "sharding/policy.py",
+                "sharding/model.py"):
         assert PORT / rel in files, rel
     for example in ("torch_train_backend.py",
                     "torch_serve_semantic_queries.py"):
