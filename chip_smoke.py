@@ -235,7 +235,24 @@ Phases, each printing one JSON line:
    step times, tokens/s, model FLOP/s, ``apply_updates`` ms and peak
    memory; no checkpoint. Training runs the plain attention (the
    kernels have no backward), so it launches no kernel;
-24. ``train_backend`` — ``examples/torch_train_backend.py`` on the card
+24. ``train_tp`` — training over the model mesh, every position on the
+   card: qwen2.5-tiny at (2, 4) with replicated KV heads and olmoe-tiny
+   at (2, 2), 3 fp32 steps on ``TokenStream(seed=7)`` at TRAIN_EQUIV,
+   held to the same mesh on the CPU (and qwen to the card's one-device
+   run) within TRAIN_TP_LOSS_TOLERANCE (losses) and
+   TRAIN_TP_PARAM_TOLERANCE (every parameter); stablelm-3b at full width
+   over (1, 2) and (2, 2): 3 steps on ``train``'s batches (batch 0,
+   then batch 1 twice; 2 microbatches, remat "full", fp32 moments), each
+   loss within TRAIN_TOLERANCE of ``train``'s, with step times, tokens/s,
+   peak memory and the device's busy share of one more step under
+   ``torch.profiler`` (``device_busy``; one device's step beside); the
+   elastic
+   restore: qwen-tiny trained 6 steps at (2, 2), checkpointed, restored
+   at (1, 4) by ``CheckpointManager.restore(policy=, cfg=)`` and trained
+   to step 9, its loss within TRAIN_TP_LOSS_TOLERANCE of an
+   uninterrupted (2, 2) run's. No kernel launches (training runs the
+   plain attention);
+25. ``train_backend`` — ``examples/torch_train_backend.py`` on the card
    (backend-13m, 300 steps on ``make_ecommerce(seed=4)``'s labelled
    prompts), held-out accuracy above the majority class, a checkpoint
    in a temporary directory restored through ``CheckpointManager``, and
@@ -244,7 +261,7 @@ Phases, each printing one JSON line:
    ``ModelBackend`` on a K7/K8 engine and a plain one: answers, token
    ids, rows, ``llm_calls`` and ``cache_hits`` identical; F1 against
    the oracle and the YES share of the verdicts recorded;
-25. the ``kernels`` line: per kernel, its launches in the run of the
+26. the ``kernels`` line: per kernel, its launches in the run of the
    path it belongs to (``e2e`` for K1-K4, ``e2e_hash`` for K5 and K6,
    ``serve`` for K7 and K8, ``serve_ssm`` for K9, the cold
    ``e2e_sharded`` run for K10; every path's counts
@@ -395,6 +412,17 @@ TRAIN_TOLERANCE = 1e-4  # a loss on the card against the CPU's, relative
 MICROBATCH_TOLERANCE = 1e-5  # 2 microbatches against 1 (the reference's)
 REMAT_TOLERANCE = 1e-4  # grad norm under remat "full" against none
 BACKEND_STEPS = 300
+# training over the model mesh: the tiny meshes (arch -> (dp, tp),
+# for_mesh keywords), the full-width meshes of TRAIN_ARCH, the elastic
+# restore's (mesh, mesh resumed on, step saved, last step)
+TRAIN_TP_TINY = {"qwen2.5-32b": ((2, 4), {"shard_kv_heads": False}),
+                 "olmoe-1b-7b": ((2, 2), {})}
+TRAIN_TP_MESHES = ((1, 2), (2, 2))
+TRAIN_TP_ELASTIC = ((2, 2), (1, 4), 6, 9)
+TRAIN_TP_LOSS_TOLERANCE = 1e-5  # absolute, mesh against one device/CPU
+# absolute, every parameter after 3 steps: Adam's first step turns float
+# noise in a gradient of a few eps into a move of part of lr
+TRAIN_TP_PARAM_TOLERANCE = 1e-4
 
 
 def emit(obj) -> None:
@@ -467,8 +495,39 @@ def time_ms(fn, reps: int = 30, inner: int = 20, warmup: int = 3) -> float:
 
 
 # device_kernels' throwaway spins (~50 us each): late in a long run the
-# profiler leaves out a window's first ~0.8 ms of device records
+# profiler leaves out a window's first device records (~0.8 ms by PR 25's
+# length, the whole window once): a window counts only if it kept at least
+# one of its spins, so that nothing after them was left out; else it is run
+# again with PAD_GROWTH times the spins, at most PAD_TRIES times in all
 PAD_SPINS = 64
+PAD_GROWTH = 4
+PAD_TRIES = 4
+
+
+def profiled_window(body) -> tuple:
+    """``body()`` under ``torch.profiler`` (device activity only), after
+    ``PAD_SPINS`` spin kernels, run again with more spins until the
+    profiler kept one of them: returns the profiler, ``body``'s result
+    and ``{"pad_spins", "spins_listed", "windows"}``. Raises if no window
+    kept a spin."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    pad = PAD_SPINS
+    for window in range(1, PAD_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(pad):
+                torch.cuda._sleep(100_000)
+            result = body()
+            torch.cuda.synchronize()
+        spins = sum(e.count for e in prof.key_averages()
+                    if "spin_kernel" in e.key)
+        if spins:
+            return prof, result, {"pad_spins": pad, "spins_listed": spins,
+                                  "windows": window}
+        pad *= PAD_GROWTH
+    raise AssertionError(f"the profiler kept none of {pad // PAD_GROWTH} "
+                         f"spins in {PAD_TRIES} windows")
 
 
 def device_kernels(fn, calls: int = 20) -> dict:
@@ -476,31 +535,32 @@ def device_kernels(fn, calls: int = 20) -> dict:
     ``torch.profiler`` (kernels and memsets by name), with its listed
     count and its device time per listed launch, the longest first,
     beside the launches the wrappers counted (``_build.LAUNCHES``) in
-    the same calls. The window opens with ``PAD_SPINS`` short spin
-    kernels, left out of the listing: late in this script the profiler
+    the same calls. The window opens with spin kernels, left out of the
+    listing (``profiled_window``): late in this script the profiler
     leaves out the first device records of each window, however long
     the host waits before them and however many calls follow."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import _build
 
     fn()
     torch.cuda.synchronize()
-    before = sum(_build.LAUNCHES.values())
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(PAD_SPINS):
-            torch.cuda._sleep(100_000)
+
+    def body():
+        before = sum(_build.LAUNCHES.values())
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    counted = sum(_build.LAUNCHES.values()) - before
+        return sum(_build.LAUNCHES.values()) - before
+
+    prof, counted, pad = profiled_window(body)
     rows = [{"name": e.key, "count": e.count,
              "us_per_launch": e.self_device_time_total / e.count}
             for e in prof.key_averages() if e.self_device_time_total > 0
             and "spin_kernel" not in e.key]
     return {"calls": calls, "launches_counted": counted,
-            "activities": sorted(rows, key=lambda r: -r["us_per_launch"])}
+            "activities": sorted(rows, key=lambda r: -r["us_per_launch"]),
+            **pad}
 
 
 def one_data_kernel(label: str, fn, name: str, calls: int = 20,
@@ -3573,6 +3633,220 @@ def run_train(device, arch: str = TRAIN_ARCH, tiny: bool = False,
     return out
 
 
+def _mesh_policy(device, dp: int, tp: int, **kw):
+    """``ShardingPolicy.for_mesh`` over a (dp, tp) mesh of ``device``
+    repeated."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding.policy import ShardingPolicy
+
+    return ShardingPolicy.for_mesh(
+        make_mesh(dp, tp, devices=[device] * (dp * tp)), **kw)
+
+
+def _mesh_train(cfg, params, policy, batches, opt, **step_kw):
+    """``params`` (laid out over ``policy``'s mesh unless it is None)
+    trained one step on each of ``batches``; (losses, params, state)."""
+    from repro_torch.models.params import shard_params
+    from repro_torch.training import build_train_step, init_state
+
+    if policy is not None:
+        params = shard_params(cfg, params, policy)
+    state = init_state(params, opt)
+    step = build_train_step(cfg, opt, policy=policy, **step_kw)
+    losses = []
+    for b in batches:
+        params, state, m = step(params, state, b)
+        losses.append(float(m["loss"]))
+    return losses, params, state
+
+
+def device_busy(fn, top: int = 8) -> dict:
+    """One ``fn()`` under ``torch.profiler``: the device time of every
+    kernel, memset and copy it ran, summed (one stream, so the device's
+    busy time), beside the call's wall time and the busy share, the
+    count of device activities and the ``top`` ones by device time
+    (name, count, ms). The window opens with spin kernels, left out
+    (``profiled_window``)."""
+    import torch
+
+    def body():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    prof, wall, pad = profiled_window(body)
+    acts = sorted((e for e in prof.key_averages()
+                   if e.self_device_time_total > 0
+                   and "spin_kernel" not in e.key),
+                  key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in acts) / 1e6
+    return {"device_busy_s": busy, "profiled_wall_s": wall,
+            "busy_share": busy / wall,
+            "activities": sum(e.count for e in acts),
+            "top": [[e.key[:80], e.count, e.self_device_time_total / 1e3]
+                    for e in acts[:top]], **pad}
+
+
+def _max_param_diff(a: dict, b: dict) -> float:
+    return max(float((x.cpu() - y.cpu()).abs().max())
+               for (_, x), (_, y) in zip(_items(a), _items(b)))
+
+
+def run_train_tp(device, single: dict, tiny: bool = False,
+                 shape=TRAIN, meshes=TRAIN_TP_MESHES) -> dict:
+    """Training over the model mesh (phase 24 of the module doc):
+    ``single`` is the ``train`` phase's output, whose losses the
+    full-width meshes are held to; ``tiny`` runs TRAIN_ARCH's tiny
+    configuration in place of the full width (a CPU rehearsal)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config, get_tiny
+    from repro_torch.kernels import _build
+    from repro_torch.models import init_params
+    from repro_torch.models.params import shard_params
+    from repro_torch.sharding import model as sm
+    from repro_torch.sharding.policy import ShardingPolicy
+    from repro_torch.training import (
+        AdamWConfig, CheckpointManager, TokenStream, build_train_step,
+        init_state)
+
+    cpu = torch.device("cpu")
+    cuda = device.type == "cuda"
+    fp32 = AdamWConfig(lr=1e-3)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(device)
+
+    def batches(cfg, steps, dev, shape=TRAIN_EQUIV):
+        data = TokenStream(cfg.vocab_size, seed=7, **shape)
+        return [{"tokens": torch.from_numpy(data[i]["tokens"]).to(dev)}
+                for i in steps]
+
+    _build.reset_launches()
+    out = {"tiny": {}, "full_width": {}}
+    for arch, ((dp, tp), kw) in TRAIN_TP_TINY.items():
+        cfg = get_tiny(arch)
+        host = init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+        runs = {}
+        for name, dev, pol in (
+                ("card_mesh", device, _mesh_policy(device, dp, tp, **kw)),
+                ("cpu_mesh", cpu, _mesh_policy(cpu, dp, tp, **kw)),
+                ("card_one", device, None)):
+            if name == "card_one" and cfg.num_experts:
+                continue  # capacity per data-parallel chunk: no match
+            losses, params, _ = _mesh_train(
+                cfg, _tree_to(host, dev), pol, batches(cfg, range(3), dev),
+                fp32, remat=None)
+            runs[name] = (losses, sm.unshard(params, "cpu"))
+        got = runs["card_mesh"]
+        res = {"mesh": [dp, tp], **kw, "losses": got[0]}
+        for name in ("cpu_mesh", "card_one"):
+            if name not in runs:
+                continue
+            dl = max(abs(a - b) for a, b in zip(got[0], runs[name][0]))
+            dparam = _max_param_diff(got[1], runs[name][1])
+            res[f"vs_{name}"] = {"max_loss_diff": dl,
+                                 "max_param_diff": dparam}
+            if not (dl <= TRAIN_TP_LOSS_TOLERANCE
+                    and dparam <= TRAIN_TP_PARAM_TOLERANCE):
+                raise AssertionError(f"train_tp {arch} {dp}x{tp}: losses "
+                                     f"{got[0]} vs {name} {runs[name][0]}, "
+                                     f"max|dparam| {dparam}")
+        out["tiny"][arch] = res
+
+    cfg = get_tiny(TRAIN_ARCH) if tiny else get_config(TRAIN_ARCH)
+    want = [single["microbatch_first_loss"]["2"],
+            *single["losses_on_batch_1"][:2]]
+    tokens = shape["batch_size"] * shape["seq_len"]
+    full = batches(cfg, (0, 1), device, shape)
+
+    def fresh(policy):
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+        params = shard_params(cfg, init_params(
+            cfg, torch.Generator(device=device).manual_seed(0),
+            device=device), policy)
+        opt = AdamWConfig()  # train's optimizer
+        return params, init_state(params, opt), build_train_step(
+            cfg, opt, num_microbatches=2, remat="full", policy=policy)
+
+    if cuda:  # the device's busy time in one device's step, beside
+        params, state, step = fresh(ShardingPolicy.single())
+        step(params, state, full[0])
+        out["full_width"]["1x1"] = device_busy(
+            lambda: step(params, state, full[1]))
+        del params, state, step
+    for dp, tp in meshes:
+        params, state, step = fresh(_mesh_policy(device, dp, tp))
+        losses, secs = [], []
+        for b in (full[0], full[1], full[1]):
+            sync()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, b)
+            losses.append(float(m["loss"]))
+            sync()
+            secs.append(time.perf_counter() - t0)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+        if not rel <= TRAIN_TOLERANCE:
+            raise AssertionError(f"train_tp {cfg.name} {dp}x{tp}: losses "
+                                 f"{losses} vs one device's {want}")
+        step_s = statistics.median(secs[1:])
+        res = {"losses": losses, "single_losses": want,
+               "max_rel_diff": rel, "step_s": secs,
+               "step_s_median": step_s, "tokens_per_s": tokens / step_s,
+               "single_step_s_median": single.get("step_s_median")}
+        if cuda:
+            res["peak_device_bytes"] = torch.cuda.max_memory_allocated(
+                device)
+            res.update(device_busy(lambda: step(params, state, full[1])))
+        out["full_width"][f"{dp}x{tp}"] = res
+        del params, state, step
+    out["full_width_arch"] = {"arch": cfg.name, **shape, "microbatches": 2,
+                              "remat": "full", "moments": "fp32"}
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    (dp, tp), (dp2, tp2), saved, last = TRAIN_TP_ELASTIC
+    cfg = get_tiny("qwen2.5-32b")
+    host = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    whole, _, _ = _mesh_train(cfg, _tree_to(host, device),
+                              _mesh_policy(device, dp, tp),
+                              batches(cfg, range(last), device), fp32,
+                              remat=None)
+    with tempfile.TemporaryDirectory() as tmp:
+        _, params, state = _mesh_train(
+            cfg, _tree_to(host, device), _mesh_policy(device, dp, tp),
+            batches(cfg, range(saved), device), fp32, remat=None)
+        mgr = CheckpointManager(tmp)
+        mgr.save(saved, {"params": params, "opt": state})
+        pol2 = _mesh_policy(device, dp2, tp2)
+        tree, manifest = mgr.restore(policy=pol2, cfg=cfg)
+    step = build_train_step(cfg, fp32, remat=None, policy=pol2)
+    params, state = tree["params"], tree["opt"]
+    for b in batches(cfg, range(saved, last), device):
+        params, state, m = step(params, state, b)
+    resumed = float(m["loss"])
+    if not abs(resumed - whole[-1]) <= TRAIN_TP_LOSS_TOLERANCE:
+        raise AssertionError(f"train_tp elastic restore: loss {resumed} "
+                             f"vs uninterrupted {whole[-1]}")
+    out["elastic"] = {"saved_on": [dp, tp], "resumed_on": [dp2, tp2],
+                      "saved_step": manifest["step"], "last_step": last,
+                      "loss": resumed, "uninterrupted_loss": whole[-1]}
+    out["launches"] = _llm_launches()
+    if any(out["launches"].values()):
+        raise AssertionError(f"train_tp launched {out['launches']}")
+    return out
+
+
 def run_train_backend(device, steps: int = BACKEND_STEPS) -> dict:
     """``examples/torch_train_backend.py`` on ``device``: the 13M
     backend trained ``steps`` steps on ``make_ecommerce(seed=4)``'s
@@ -4682,6 +4956,11 @@ def main() -> int:
     emit({"phase": "train", **train, "seconds": time.perf_counter() - t0,
           "gpu": smi})
     t0 = time.perf_counter()
+    train_tp = run_train_tp(device, train)
+    emit({"phase": "train_tp", **train_tp,
+          "seconds": time.perf_counter() - t0, "gpu": smi,
+          "note": TP_CARD_NOTE})
+    t0 = time.perf_counter()
     tback = run_train_backend(device)
     emit({"phase": "train_backend", **tback,
           "seconds": time.perf_counter() - t0, "gpu": smi})
@@ -4753,6 +5032,7 @@ def main() -> int:
                            for phase, out in mm.items()},
                         "train_equiv": tequiv["launches"],
                         "train": train["launches"],
+                        "train_tp": train_tp["launches"],
                         "train_backend": tback["train_launches"],
                         "train_backend_serve": tback["launches"]},
                        serve["decode_lengths"], llm=llm_shapes,

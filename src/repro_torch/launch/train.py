@@ -1,4 +1,5 @@
-"""Training entry point on one device, on the card unless ``--device cpu``.
+"""Training entry point on one device or over a (dp, tp) model mesh, on
+the card unless ``--device cpu``.
 
     # a tiny configuration on the CPU
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \\
@@ -14,6 +15,11 @@
     PYTHONPATH=src python -m repro_torch.launch.train --steps 10 \\
         --seq 128 --microbatches 2
 
+    # over a (2, 2) mesh: four positions on the CPU, or four distinct
+    # cards without --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-32b \\
+        --tiny --device cpu --dp 2 --tp 2 --steps 20 --ckpt-dir /tmp/ck
+
 Fault tolerance: checkpoints are atomic and asynchronous
 (``training/checkpoint.py``); ``--simulate-failure K`` exits with code
 42 after step K; running the same command again resumes from the latest
@@ -24,8 +30,16 @@ from ``TokenStream(seed=7)``, which holds tokens only, so the
 encoder-decoder and VLM configurations, which need frames or patches
 beside them, are refused (as the reference's ``TokenStream`` cannot
 feed them; ``build_train_step`` trains them from a batch that carries
-them). ``--dp``/``--tp`` (an elastic
-model-parallel mesh) wait for the mesh slice and are refused.
+them).
+
+``--dp``/``--tp`` (dp·tp > 1) train over ``make_mesh(dp, tp)`` under
+``ShardingPolicy.for_mesh`` (the dense and MoE families): one distinct
+card a position on the card (``make_mesh`` raises with fewer), every
+position on the CPU with ``--device cpu``. The weights are made on the
+mesh's first device and laid out by ``shard_params``. Checkpoints hold
+global arrays, so a run resumes under another ``--dp``/``--tp`` (or
+none): ``CheckpointManager.restore(policy=, cfg=)`` lays the tree out
+over the new mesh (elastic restore).
 """
 from __future__ import annotations
 
@@ -38,10 +52,14 @@ import torch
 from ..configs import get_config, get_tiny
 from ..engine.table import resolve_device
 from ..models import check_tokens_only, init_params
+from ..models.params import shard_params
+from ..sharding import model as sm
+from ..sharding.policy import ShardingPolicy
 from ..training.checkpoint import CheckpointManager
 from ..training.data import TokenStream
 from ..training.optimizer import MOMENT_DTYPES, AdamWConfig, init_state
 from ..training.train_step import build_train_step
+from .mesh import make_mesh
 
 
 def main(argv=None):
@@ -49,8 +67,8 @@ def main(argv=None):
     a checkpoint) and return the last step's loss."""
     ap = argparse.ArgumentParser(
         description="Train an LM (dense, MoE, SSM, hybrid or MLA with "
-                    "MTP) on one device. Not ported: --dp/--tp (the "
-                    "model-parallel mesh).")
+                    "MTP) on one device, or a dense or MoE LM over a "
+                    "(dp, tp) model mesh.")
     ap.add_argument("--arch", default="stablelm-3b")
     ap.add_argument("--tiny", action="store_true",
                     help="use the reduced same-family config")
@@ -69,32 +87,43 @@ def main(argv=None):
                     help="hard-abort at this step (fault-tolerance test)")
     ap.add_argument("--log-every", type=int, default=10)
     args = ap.parse_args(argv)
-    if args.dp != 1 or args.tp != 1:
-        ap.error("--dp/--tp need the model-parallel mesh, which is not "
-                 "ported; train on one device")
 
     cfg = get_tiny(args.arch) if args.tiny else get_config(args.arch)
     check_tokens_only(cfg, "launch/train (TokenStream)")
     dev = resolve_device(args.device)
+    n = args.dp * args.tp
+    # on the card one distinct card a position (make_mesh raises with
+    # fewer); on the CPU the positions share it
+    mesh = make_mesh(args.dp, args.tp, devices=[dev] * n
+                     if dev.type == "cpu" else None) if n > 1 else None
+    policy = (ShardingPolicy.for_mesh(mesh) if mesh is not None
+              else ShardingPolicy.single())
+    if mesh is not None:
+        dev = sm.home_device(policy)
+        print(f"[train] {cfg.name} over {mesh}")
     opt_cfg = AdamWConfig(lr=args.lr, moment_dtype=args.moment_dtype)
+    # refuses a family the mesh does not train before any weight exists
+    step_fn = build_train_step(cfg, opt_cfg,
+                               num_microbatches=args.microbatches,
+                               remat=None, policy=policy)
     data = TokenStream(vocab_size=cfg.vocab_size, batch_size=args.batch,
                        seq_len=args.seq, seed=7)
 
     mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     start_step = 0
     if mgr is not None and mgr.latest_step() is not None:
-        tree, manifest = mgr.restore(device=dev)
+        if policy.active:
+            tree, manifest = mgr.restore(policy=policy, cfg=cfg)
+        else:
+            tree, manifest = mgr.restore(device=dev)
         params, opt_state = tree["params"], tree["opt"]
         start_step = int(manifest["step"])
         print(f"[train] resumed from step {start_step}")
     else:
         params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                              device=dev)
+        params = shard_params(cfg, params, policy)
         opt_state = init_state(params, opt_cfg)
-
-    step_fn = build_train_step(cfg, opt_cfg,
-                               num_microbatches=args.microbatches,
-                               remat=None)
 
     t0 = time.perf_counter()
     metrics = None

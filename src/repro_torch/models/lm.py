@@ -38,14 +38,16 @@ path and ``ssd_impl`` the SSD path of every layer (see ``layers.py``;
 MLA has one path, and "kernel" raises on an MLA configuration).
 
 Under an active ``ShardingPolicy`` (``params`` from
-``models.params.shard_params``) ``forward``, ``prefill`` and
-``decode_step`` run every layer over the mesh's positions
-(``sharding/model.py``): the embedding and the logits sharded over the
-vocabulary (an all-reduce of the lookups, an all-gather of the
+``models.params.shard_params``) ``forward``, ``forward_loss``,
+``prefill`` and ``decode_step`` run every layer over the mesh's
+positions (``sharding/model.py``): the embedding and the logits sharded
+over the vocabulary (an all-reduce of the lookups, an all-gather of the
 logits), attention, the MLP and the mixture of experts as
 ``models/layers.py`` shards them; the cache is per shard
 (``init_cache``) and the logits come back whole on the mesh's first
-device.
+device. ``forward_loss`` over the mesh is the global loss of the batch,
+and autograd runs back through every position to the parts of the
+``Sharded`` leaves (``training/train_step.py``).
 """
 from __future__ import annotations
 
@@ -226,19 +228,27 @@ def _blocks(cfg, params, h, attn_impl, ssd_impl, cache=None,
     checkpoints its scan body: "full" keeps only the layer's input,
     "dots" also its unbatched matrix products, None keeps
     everything."""
+    _check_remat(remat)
+    for l, bp in enumerate(_layers(params["blocks"], cfg.num_layers)):
+        h = _layer(functools.partial(
+            _block, cfg, bp, attn_impl=attn_impl, ssd_impl=ssd_impl,
+            cache=cache, l=l, mode=mode, prefix=prefix, enc=enc), h, remat)
+    return h
+
+
+def _check_remat(remat) -> None:
     if remat not in REMATS:
         raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
-    for l, bp in enumerate(_layers(params["blocks"], cfg.num_layers)):
-        if remat is None:
-            h = _block(cfg, bp, h, attn_impl, ssd_impl, cache, l, mode,
-                       prefix, enc)
-            continue
-        fn = functools.partial(_block, cfg, bp, attn_impl=attn_impl,
-                               ssd_impl=ssd_impl, mode=mode, prefix=prefix,
-                               enc=enc)
-        extra = {"context_fn": _SAVE_DOTS} if remat == "dots" else {}
-        h = checkpoint(fn, h, use_reentrant=False, **extra)
-    return h
+
+
+def _layer(fn, h, remat: Optional[str]):
+    """``fn(h)``, one layer; under ``remat`` recomputed in the backward
+    ("full" keeps only ``h``, "dots" also the unbatched matrix
+    products)."""
+    if remat is None:
+        return fn(h)
+    extra = {"context_fn": _SAVE_DOTS} if remat == "dots" else {}
+    return checkpoint(fn, h, use_reentrant=False, **extra)
 
 
 def encode(cfg: ModelConfig, params, frames, attn_impl: str = "auto"):
@@ -297,7 +307,8 @@ def forward(cfg: ModelConfig, params, batch, attn_impl: str = "auto",
 
 
 def forward_loss(cfg: ModelConfig, params, batch,
-                 remat: Optional[str] = None):
+                 remat: Optional[str] = None, *,
+                 policy: Optional[ShardingPolicy] = None):
     """Next-token cross-entropy of ``batch["tokens"]`` (B, S): text
     position t (hidden position P + t, after the VLM's P image
     positions) predicts token t + 1, weighted by ``token != 0``
@@ -308,7 +319,16 @@ def forward_loss(cfg: ModelConfig, params, batch,
     Attention and the SSD run their plain versions ("ref"): the grouped
     einsum and ``ssd_chunked`` are the reference's own training path
     (its ``forward`` never reaches a Pallas kernel), and the CUDA
-    kernels have no backward (their wrappers refuse grad mode)."""
+    kernels have no backward (their wrappers refuse grad mode).
+
+    Under an active ``policy`` (``params`` from ``shard_params``) the
+    model runs over the mesh (``_forward_loss_mesh``) and the loss, one
+    scalar on the mesh's first device, is the global one: every data
+    rank's weighted nll summed, divided by max(sum of every rank's
+    weights, 1)."""
+    if sm.on_mesh(policy):
+        return _forward_loss_mesh(cfg, params, batch["tokens"], remat,
+                                  policy)
     check_supported(cfg)
     tokens = batch["tokens"]
     h, mode, n_img, enc = _prepare_inputs(cfg, params, batch, "ref")
@@ -345,11 +365,16 @@ def _mtp_loss(cfg: ModelConfig, params, h, tokens):
     return _xent(logits[:, :S - 2], labels, (labels != 0).float())
 
 
-def _xent(logits, labels, weights):
+def _nll(logits, labels, weights):
+    """Each position's nll of its label, times its weight (float32)."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels[..., None])[..., 0]
-    nll = (logz - ll) * weights
+    return (logz - ll) * weights
+
+
+def _xent(logits, labels, weights):
+    nll = _nll(logits, labels, weights)
     return torch.sum(nll) / torch.clamp(torch.sum(weights), min=1.0)
 
 
@@ -540,19 +565,28 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos,
 
 
 def _check_mesh(cfg: ModelConfig, policy: ShardingPolicy) -> None:
-    """The families the model-parallel port runs: dense and MoE, with
-    plain grouped-query attention. Training under a mesh comes with the
-    next slice, then the SSM, hybrid, MLA, encoder-decoder and VLM
-    families."""
+    """The families the model-parallel port serves and trains: dense
+    and MoE, with plain grouped-query attention. The SSM, hybrid, MLA,
+    encoder-decoder and VLM families and the MTP loss come in a later
+    slice."""
     check_supported(cfg)
     sm.check_policy(policy)
     if cfg.family not in ("dense", "moe") or cfg.use_mla:
         kind = "mla" if cfg.use_mla else cfg.family
         raise sm.MeshNotPorted(
             f"{cfg.name}: the {kind} family under a model-parallel mesh "
-            f"comes in a later slice (training under a mesh first, then "
-            f"the SSM, hybrid, MLA, encoder-decoder and VLM families); "
+            f"comes in a later slice (with the SSM, hybrid, MLA, "
+            f"encoder-decoder and VLM families); serving and training of "
             f"the dense and MoE families run")
+
+
+def check_mesh_loss(cfg: ModelConfig, policy: ShardingPolicy) -> None:
+    """What ``forward_loss`` trains over a mesh: ``_check_mesh``'s
+    families, without the MTP loss."""
+    _check_mesh(cfg, policy)
+    if cfg.mtp_depth:
+        raise sm.MeshNotPorted(f"{cfg.name}: the MTP loss under a "
+                               f"model-parallel mesh comes in a later slice")
 
 
 def _norm_mesh(cfg, h: "sm.Rows", w: "sm.Sharded", last: bool = False):
@@ -577,32 +611,46 @@ def _embed_mesh(params, toks: "sm.Rows", g) -> "sm.Rows":
                                  sm.local_grid({"embed": emb}, g), toks), g)
 
 
-def _logits_mesh(cfg, params, h: "sm.Rows", g) -> "sm.Rows":
-    """Each rank's vocabulary slice of the logits, gathered over the
-    tensor-parallel ranks."""
+def _logit_parts(cfg, params, h: "sm.Rows", g) -> "sm.Rows":
+    """Each rank's vocabulary slice of the logits."""
     name = "embed" if cfg.tie_embeddings else "lm_head"
     loc = sm.local_grid({name: params[name]}, g)
-    part = sm.gmap(lambda hh, pl: hh @ (pl[name].T if cfg.tie_embeddings
+    return sm.gmap(lambda hh, pl: hh @ (pl[name].T if cfg.tie_embeddings
                                         else pl[name]), h, loc)
-    return sm.all_gather(part, g, dim=-1)
 
 
-def _blocks_mesh(cfg, params, h, attn_impl, policy, cache=None):
-    """Every layer over the mesh; with ``cache`` each position's keys
-    and values are written into its shard of layer l."""
-    g = sm.mesh_grid(policy)
+def _logits_mesh(cfg, params, h: "sm.Rows", g) -> "sm.Rows":
+    """The logits, gathered over the tensor-parallel ranks."""
+    return sm.all_gather(_logit_parts(cfg, params, h, g), g, dim=-1)
+
+
+def _block_mesh(cfg, bp, h, attn_impl, policy, cache=None, l=0):
+    """One layer over the mesh; with ``cache`` each position's keys and
+    values are written into its shard of layer l."""
+    a, k, v = attention_block(cfg, bp["attn"], _norm_mesh(
+        cfg, h, bp["ln1"]), attn_impl, policy=policy)
+    if cache is not None:
+        for name, grid in (("k", k), ("v", v)):
+            for (i, t), kv in np.ndenumerate(grid):
+                _write_kv(cache[name].parts[i, t][l], kv)
+    h = sm.gmap(torch.add, h, a)
+    x = _norm_mesh(cfg, h, bp["ln2"])
+    f = (moe_block(cfg, bp["moe"], x, policy) if cfg.num_experts
+         else mlp(cfg, bp["mlp"], x, policy))
+    return sm.gmap(torch.add, h, f)
+
+
+def _blocks_mesh(cfg, params, h, attn_impl, policy, cache=None,
+                 remat: Optional[str] = None):
+    """Every layer over the mesh (``_block_mesh``). ``remat`` recomputes
+    each layer in the backward as ``_blocks`` does; the FSDP gather at
+    use is inside the layer, so it is recomputed too, as the
+    reference's remat recomputes its all-gather."""
+    _check_remat(remat)
     for l, bp in enumerate(_layers(params["blocks"], cfg.num_layers)):
-        a, k, v = attention_block(cfg, bp["attn"], _norm_mesh(
-            cfg, h, bp["ln1"]), attn_impl, policy=policy)
-        if cache is not None:
-            for name, grid in (("k", k), ("v", v)):
-                for (i, t), kv in np.ndenumerate(grid):
-                    _write_kv(cache[name].parts[i, t][l], kv)
-        h = sm.gmap(torch.add, h, a)
-        x = _norm_mesh(cfg, h, bp["ln2"])
-        f = (moe_block(cfg, bp["moe"], x, policy) if cfg.num_experts
-             else mlp(cfg, bp["mlp"], x, policy))
-        h = sm.gmap(torch.add, h, f)
+        h = _layer(functools.partial(
+            _block_mesh, cfg, bp, attn_impl=attn_impl, policy=policy,
+            cache=cache, l=l), h, remat)
     return h
 
 
@@ -614,6 +662,35 @@ def _forward_mesh(cfg, params, tokens, attn_impl, policy):
                    params["final_ln"])
     home = sm.home_device(policy)
     return _logits_mesh(cfg, params, h, g).gather(home), h.gather(home)
+
+
+def _forward_loss_mesh(cfg, params, tokens, remat, policy):
+    """The global loss over the mesh: each data rank's rows (``Rows``'
+    zero padding rows carry label 0, so weight 0) through every layer
+    on "ref" attention, its logits gathered over the tensor-parallel
+    ranks onto the rank's position (i, 0) only, its weighted nll and
+    weights summed there; the sums of every rank added in rank order on
+    the mesh's first device."""
+    check_mesh_loss(cfg, policy)
+    g = sm.mesh_grid(policy)
+    toks = sm.scatter_rows(tokens, g)
+    h = _embed_mesh(params, toks, g)
+    h = _norm_mesh(cfg, _blocks_mesh(cfg, params, h, "ref", policy,
+                                     remat=remat), params["final_ln"])
+    part = _logit_parts(cfg, params, h, g)
+    home = sm.home_device(policy)
+    S = tokens.shape[1]
+    num = den = None
+    for i in range(g.dp):
+        dev = g.devices[i, 0]
+        logits = torch.cat([part.grid[i, u].to(dev) for u in range(g.tp)],
+                           dim=-1)
+        labels = toks.grid[i, 0][:, 1:].long()
+        w = (labels != 0).float()
+        n_i = torch.sum(_nll(logits[:, :S - 1], labels, w)).to(home)
+        d_i = torch.sum(w).to(home)
+        num, den = (n_i, d_i) if num is None else (num + n_i, den + d_i)
+    return num / torch.clamp(den, min=1.0)
 
 
 def _prefill_mesh(cfg, params, tokens, max_seq, attn_impl, policy):

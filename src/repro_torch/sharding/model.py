@@ -34,6 +34,13 @@ one card.
   the TP ranks in rank order.
 * ``local_grid`` hands each position its parameters, the FSDP
   (``embed``) dimension gathered over the data-parallel ranks at use.
+* Training: every collective above is built of ``.to``, ``cat`` and
+  ``add``, so autograd runs back through it (the FSDP gather's
+  backward adds each position's gradient of a part into that part: the
+  reduce-scatter). ``sum_replicas`` makes the gradients of the
+  positions that hold one slice on different devices equal (GSPMD's
+  gradient all-reduce), and ``slices`` visits each distinct global
+  slice once (the gradient norm, checkpoints, ``unshard``).
 
 No ``torch.distributed``: one process drives every position, as the
 partitioned data tier does (``sharding/data.py``), so a mesh over
@@ -52,8 +59,9 @@ from .policy import PartitionSpec, ShardingPolicy
 
 class MeshNotPorted(NotImplementedError):
     """A model family or policy knob the model-parallel port does not
-    run yet (training under a mesh, and the SSM, hybrid, MLA,
-    encoder-decoder and VLM families, come in later slices)."""
+    run yet (the SSM, hybrid, MLA, encoder-decoder and VLM families, the
+    MTP loss, and the ``dp_over_tp``, ``seq_parallel`` and
+    ``shard_cache_seq`` knobs come in a later slice)."""
 
 
 # ---------------------------------------------------------------------------
@@ -222,33 +230,71 @@ class Sharded:
                 f"{self.parts.shape})")
 
     def unshard(self, device=None) -> torch.Tensor:
-        """The global tensor, every part written at its slices (parts
-        holding the same slice agree)."""
+        """The global tensor, each distinct slice written once from its
+        first holder in rank order (parts holding the same slice
+        agree)."""
         dev = device if device is not None else self.parts[0, 0].device
         out = torch.empty(self.shape, dtype=self.dtype, device=dev)
-        for (i, t), part in np.ndenumerate(self.parts):
-            out[self.index[i, t]] = part.to(dev)
+        for idx, (first, *_) in self.slices():
+            out[idx] = self.parts[first].to(dev)
         return out
+
+    def slices(self) -> list[tuple[tuple, list]]:
+        """(index, holders) of each distinct global slice, in rank order
+        i·TP + t of its first holder; ``holders`` are the positions
+        (i, t) that hold it, in rank order. The slices tile the global
+        tensor (chunks and KV ranges are equal or disjoint)."""
+        out: dict = {}
+        for i, t in np.ndindex(*self.parts.shape):
+            idx = self.index[i, t]
+            out.setdefault(_key(idx), (idx, []))[1].append((i, t))
+        return list(out.values())
+
+    def distinct(self) -> list[tuple[tuple, torch.Tensor]]:
+        """((i, t), part) of each distinct part object once, at its first
+        position in rank order (positions on one device that hold the
+        same slice share one part)."""
+        seen: dict = {}
+        for (i, t), part in np.ndenumerate(self.parts):
+            seen.setdefault(id(part), ((i, t), part))
+        return list(seen.values())
+
+    def map(self, fn: Callable, dtype=None) -> "Sharded":
+        """``fn`` of each distinct part once, laid out as this tensor
+        (same index, same sharing)."""
+        made: dict = {}
+        parts = np.empty(self.parts.shape, dtype=object)
+        for (i, t), part in np.ndenumerate(self.parts):
+            if id(part) not in made:
+                made[id(part)] = fn(part)
+            parts[i, t] = made[id(part)]
+        return Sharded(self.shape, self.dtype if dtype is None else dtype,
+                       self.spec, parts, self.index, self.fsdp_dims)
 
     def layers(self, n: int) -> list["Sharded"]:
         """The ``n`` slices of a stacked (L, ...) leaf, views of the
-        parts; a part shared by several positions gives them one view
-        per layer."""
+        parts, each part unbound once (so the backward stacks the L
+        layers' gradients into it once, where a view a layer would add
+        a zero (L, ...) gradient a layer); a part shared by several
+        positions gives them one view per layer."""
         views: dict = {}
         out = []
         for l in range(n):
             parts = np.empty(self.parts.shape, dtype=object)
             index = np.empty(self.parts.shape, dtype=object)
             for (i, t), part in np.ndenumerate(self.parts):
-                key = (id(part), l)
-                if key not in views:
-                    views[key] = part[l]
-                parts[i, t] = views[key]
+                if id(part) not in views:
+                    views[id(part)] = torch.unbind(part)
+                parts[i, t] = views[id(part)][l]
                 index[i, t] = self.index[i, t][1:]
             out.append(Sharded(self.shape[1:], self.dtype, self.spec[1:],
                                parts, index,
                                tuple(d - 1 for d in self.fsdp_dims)))
         return out
+
+
+def _key(idx) -> tuple:
+    return tuple((s.start, s.stop) for s in idx)
 
 
 def _lay_out(shape, g: MeshGrid, spec, kv, kv_dims, make):
@@ -260,7 +306,7 @@ def _lay_out(shape, g: MeshGrid, spec, kv, kv_dims, make):
         idx = leaf_index(g, shape, spec, i, t, kv(t) if kv_dims else None,
                          kv_dims)
         dev = g.devices[i, t]
-        key = (str(dev), tuple((s.start, s.stop) for s in idx))
+        key = (str(dev), _key(idx))
         if key not in made:
             made[key] = make(idx, dev)
         parts[i, t], index[i, t] = made[key], idx
@@ -280,15 +326,81 @@ def split(x: torch.Tensor, g: MeshGrid, spec, kv=None, kv_dims=(),
     return Sharded(x.shape, x.dtype, spec, parts, index, fsdp_dims)
 
 
+def part_shape(shape, idx) -> tuple:
+    """The shape of the part at slices ``idx`` of a tensor of ``shape``."""
+    return tuple(len(range(*s.indices(n))) for s, n in zip(idx, shape))
+
+
 def zeros(shape, dtype, g: MeshGrid, spec, kv=None, kv_dims=(),
           fill=0) -> Sharded:
     """A ``Sharded`` of ``fill`` without a global tensor."""
     def full(idx, dev):
-        local = tuple(len(range(*s.indices(n))) for s, n in zip(idx, shape))
-        return torch.full(local, fill, dtype=dtype, device=dev)
+        return torch.full(part_shape(shape, idx), fill, dtype=dtype,
+                          device=dev)
 
     parts, index = _lay_out(shape, g, spec, kv, kv_dims, full)
     return Sharded(shape, dtype, spec, parts, index)
+
+
+def like(ref: Sharded, make: Callable, dtype, last: Optional[int] = None
+         ) -> Sharded:
+    """A tensor laid out as ``ref`` (its positions, devices, slices and
+    sharing), the part at slices ``idx`` on ``dev`` ``make(idx, dev)``.
+    With ``last`` the last dimension is whole, of size ``last``, at
+    every position (the spec's last entry None): the layout of an int8
+    moment's block scales beside its parameter."""
+    shape, spec = ref.shape, ref.spec
+    if last is not None:
+        shape = (*shape[:-1], last)
+        spec = PartitionSpec(*spec[:-1], None)
+    parts, index, made = (np.empty(ref.parts.shape, dtype=object),
+                          np.empty(ref.parts.shape, dtype=object), {})
+    for (i, t), part in np.ndenumerate(ref.parts):
+        idx = ref.index[i, t]
+        if last is not None:
+            idx = (*idx[:-1], slice(0, last))
+        key = (str(part.device), _key(idx))
+        if key not in made:
+            made[key] = make(idx, part.device)
+        parts[i, t], index[i, t] = made[key], idx
+    return Sharded(shape, dtype, spec, parts, index, ref.fsdp_dims)
+
+
+def split_like(x: torch.Tensor, ref: Sharded) -> Sharded:
+    """The global tensor ``x`` laid out as ``ref`` (``like``; ``x``'s
+    shape is ``ref``'s, or ``ref``'s but for a whole last dimension)."""
+    last = None if tuple(x.shape) == ref.shape else x.shape[-1]
+
+    def copy(idx, dev):
+        src = x[idx]
+        return torch.empty(src.shape, dtype=x.dtype, device=dev).copy_(src)
+
+    return like(ref, copy, x.dtype, last)
+
+
+def sum_replicas(x: Sharded) -> Sharded:
+    """``x`` (a gradient) with the parts of every slice that several
+    devices hold replaced by their sum, added in rank order i·TP + t of
+    each part's first holder on each holder's device, as
+    ``all_reduce(over="all")`` adds: the gradient all-reduce of the
+    replicated parameters (norms over TP, every leaf without FSDP over
+    the data ranks, KV heads that ``kv_range`` gives several ranks).
+    Positions on one device that share a part hold one gradient,
+    accumulated by autograd, and count once. Every holder ends with the
+    same bits."""
+    parts = x.parts.copy()
+    for _, holders in x.slices():
+        objs = list({id(x.parts[p]): x.parts[p] for p in holders}.values())
+        if len(objs) < 2:
+            continue
+        made: dict = {}
+        for p in holders:
+            part = x.parts[p]
+            if id(part) not in made:
+                made[id(part)] = functools.reduce(
+                    torch.add, [o.to(part.device) for o in objs])
+            parts[p] = made[id(part)]
+    return Sharded(x.shape, x.dtype, x.spec, parts, x.index, x.fsdp_dims)
 
 
 def unshard(tree, device=None):
@@ -544,7 +656,7 @@ def tokens_to_rows(y: np.ndarray, x: Rows, g: MeshGrid,
 
 __all__ = ["MeshGrid", "MeshNotPorted", "Rows", "Sharded", "all_gather",
            "all_reduce", "check_policy", "dedupe_spec", "gmap",
-           "home_device", "insert_rows", "kv_range", "leaf_index",
-           "local_config", "local_grid", "mesh_grid", "on_mesh", "positions",
-           "scatter_rows", "split", "token_chunks", "tokens_to_rows",
-           "unshard", "unzip", "zeros"]
+           "home_device", "insert_rows", "kv_range", "leaf_index", "like",
+           "local_config", "local_grid", "mesh_grid", "on_mesh", "part_shape",
+           "positions", "scatter_rows", "split", "split_like", "sum_replicas",
+           "token_chunks", "tokens_to_rows", "unshard", "unzip", "zeros"]

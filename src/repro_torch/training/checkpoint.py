@@ -13,10 +13,17 @@ other:
   writes on a thread, so the train loop does not wait on the disk;
 * old steps beyond ``keep`` are deleted after each write.
 
-Leaves are tensors on any device, numpy arrays or numbers. A bfloat16
-tensor (bf16 optimizer moments) is stored as the raw two-byte ``<V2``
-words ``np.save`` writes for the reference's bfloat16 arrays;
-``restore(device=...)`` reads such a leaf back as bfloat16.
+Leaves are tensors on any device, numpy arrays, numbers, or the
+``Sharded`` leaves of a tree laid out over a model mesh, which are
+written as their global arrays (each distinct slice copied to the host
+once), under the same keys. A bfloat16 tensor (bf16 optimizer moments)
+is stored as the raw two-byte ``<V2`` words ``np.save`` writes for the
+reference's bfloat16 arrays; ``restore(device=...)`` reads such a leaf
+back as bfloat16.
+
+``restore(policy=, cfg=)`` is the counterpart of the reference's
+``shardings=``: it lays a ``launch/train`` tree (``{"params", "opt"}``)
+out over the policy's mesh, whatever mesh wrote it (elastic restore).
 """
 from __future__ import annotations
 
@@ -30,6 +37,10 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from ..models.params import shard_params
+from ..sharding import model as sm
+from .optimizer import shard_state, tree_map
 
 
 def _flatten(tree, prefix=""):
@@ -55,7 +66,10 @@ def _unflatten(flat: dict):
 
 def _to_host(v) -> np.ndarray:
     """A host copy of ``v``, never a view: the caller's tensors go on
-    changing in place while an async save writes."""
+    changing in place while an async save writes. A ``Sharded`` leaf is
+    copied as its global array."""
+    if isinstance(v, sm.Sharded):
+        v = v.unshard("cpu")
     if isinstance(v, torch.Tensor):
         v = v.detach().to("cpu", copy=True)
         if v.dtype == torch.bfloat16:
@@ -160,10 +174,15 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: Optional[int] = None,
-                device=None) -> tuple[dict, dict]:
+    def restore(self, step: Optional[int] = None, device=None, *,
+                policy=None, cfg=None) -> tuple[dict, dict]:
         """(tree, manifest) of ``step`` (default the latest): numpy
-        arrays, or tensors on ``device`` when one is given."""
+        arrays, or tensors on ``device`` when one is given. Under an
+        active ``policy`` (``cfg`` the model's configuration) the tree
+        of ``launch/train`` is laid out over the policy's mesh: its
+        ``"params"`` by ``shard_params``, the moments of its ``"opt"``
+        beside them by ``state_specs`` (``optimizer.shard_state``), every
+        other leaf on the mesh's first device; ``device`` is unused."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -171,6 +190,26 @@ class CheckpointManager:
         d = self.dir / f"step_{step:010d}"
         manifest = json.loads((d / "manifest.json").read_text())
         flat = {k: np.load(d / (k + ".npy")) for k in manifest["keys"]}
+        if sm.on_mesh(policy):
+            return _lay_out(_unflatten(flat), policy, cfg), manifest
         if device is not None:
             flat = {k: _to_device(v, device) for k, v in flat.items()}
         return _unflatten(flat), manifest
+
+
+def _lay_out(tree: dict, policy, cfg) -> dict:
+    """A restored tree of host arrays over ``policy``'s mesh
+    (``CheckpointManager.restore``)."""
+    if cfg is None:
+        raise ValueError("restore(policy=...) needs cfg=, the model's "
+                         "configuration, to lay the parameters out")
+    host = tree_map(lambda a: _to_device(a, "cpu"), tree)
+    home = sm.home_device(policy)
+    out = {k: tree_map(lambda t: t.to(home), v) if isinstance(v, dict)
+           else v.to(home) for k, v in host.items()
+           if k not in ("params", "opt")}
+    if "params" in host:
+        out["params"] = shard_params(cfg, host["params"], policy)
+    if "opt" in host:
+        out["opt"] = shard_state(host["opt"], out["params"])
+    return out

@@ -26,6 +26,7 @@ from repro.training import optimizer as ref_opt  # noqa: E402
 from repro_torch.data import make_ecommerce  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
+from repro_torch.sharding import model as sm  # noqa: E402
 from repro_torch.training import (  # noqa: E402
     CheckpointManager,
     HashTokenizer,
@@ -91,8 +92,11 @@ def test_train_mla_tiny_cpu(tmp_path, capsys):
 
 
 def test_train_refuses_a_model_parallel_mesh():
-    with pytest.raises(SystemExit):
-        train.main(["--tiny", "--device", "cpu", "--dp", "2"])
+    """Dense and MoE configurations train over a mesh
+    (``test_torch_train_tp.py``); the SSM family does not yet."""
+    with pytest.raises(sm.MeshNotPorted, match="later slice"):
+        train.main(["--arch", "mamba2-370m", "--tiny", "--device", "cpu",
+                    "--dp", "2"])
 
 
 def test_serve_ckpt_serves_the_trained_backend(tmp_path, capsys):
