@@ -58,6 +58,16 @@ WINDOWS = (1, 17, 64)
 WINDOW_SEQ = 1000
 # K8's slot mask over a ring cache of T = window slots
 RING_WINDOWS = (16, 64)
+# one model-mesh position's rows and heads at the full widths that
+# chip_smoke.py serves (batch 16, 128-token prompts, 131-slot caches):
+# hymba-1.5b's window route and slot mask at (2, 1) and at (2, 2) under
+# dp_over_tp, (B, H, K, S or T, d, window); paligemma-3b's prefix route
+# at (1, 2), (B, H, K, S, d, prefix); whisper-small's cross decode at
+# (1, 2) and (2, 2) under dp_over_tp, (B, H, K, encoder frames, d)
+MESH_WINDOW_CASES = ((8, 25, 5, 128, 64, 2048), (4, 25, 5, 128, 64, 2048))
+MESH_RING_CASES = ((8, 25, 5, 131, 64, 2048), (4, 25, 5, 131, 64, 2048))
+MESH_PREFIX_CASES = ((16, 4, 1, 288, 256, 256),)
+MESH_CROSS_DECODE_CASES = ((16, 6, 6, 1500, 64), (4, 12, 12, 1500, 64))
 
 
 def ring_rows(W: int) -> list[tuple[int, int]]:

@@ -20,6 +20,11 @@ CHUNKS = (64, 128)
 # 50 x 64 with state 16
 HPN = ((1, 16, 16), (32, 64, 128), (50, 64, 16))
 BATCHES = (1, 16)
+# one model-mesh position's rows of a full 16 x 128 admission: mamba2-370m
+# at (2, 2) (8 rows a data rank), hymba-1.5b at (2, 1) and at (2, 2)
+# under dp_over_tp (4 rows), (b, s, h, p, n, chunk)
+MESH_CASES = ((8, 128, 32, 64, 128, 128), (8, 128, 50, 64, 16, 64),
+              (4, 128, 50, 64, 16, 64))
 # the whole SSD (ops.ssd) against the sequential oracle: (b, s, h, p, n,
 # chunk)
 ORACLE_CASE = (1, 1000, 4, 16, 16, 128)

@@ -26,9 +26,12 @@ behind the serving tier and answer prompts, on the card unless ``--device cpu``.
         --prompts "is product 3 electronics?"
 
     # tensor- and expert-parallel over a (dp, tp) mesh of distinct cards
-    # (dense and MoE configurations; --device cpu repeats the CPU)
+    # (--device cpu repeats the CPU); the SSM over the same mesh, the
+    # hybrid over the data axis alone
     PYTHONPATH=src python -m repro_torch.launch.serve --dp 2 --tp 2 \\
         --prompts "is product 3 electronics?"
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
+        --dp 2 --tp 2 --prompts "is product 3 electronics?"
 
 Dense, MoE, SSM, hybrid and MLA configurations are served, with random
 weights or, with ``--ckpt``, the trained semantic backend
@@ -38,10 +41,12 @@ paligemma-3b) are refused: the engine feeds tokens only, as the
 reference's does, and they need frames or patches beside them (run
 them through ``repro_torch.models``' ``prefill`` / ``decode_step``).
 ``--dp``/``--tp`` serve over a model mesh (``launch/mesh.py``) under
-``ShardingPolicy.for_mesh`` when it has more than one position (the
-dense and MoE families; others raise): on the card the mesh takes
-dp·tp distinct cards and refuses with fewer, with ``--device cpu`` it
-repeats the CPU.
+``ShardingPolicy.for_mesh`` when it has more than one position, as the
+reference's entry point builds it (the dense, MoE and SSM families,
+and the hybrid at ``--tp 1``; hymba-1.5b's 25 query heads over 5 KV
+heads split no further yet, and MLA raises): on the card the mesh
+takes dp·tp distinct cards and refuses with fewer, with ``--device
+cpu`` it repeats the CPU.
 """
 from __future__ import annotations
 

@@ -33,7 +33,9 @@ feed them; ``build_train_step`` trains them from a batch that carries
 them).
 
 ``--dp``/``--tp`` (dp·tp > 1) train over ``make_mesh(dp, tp)`` under
-``ShardingPolicy.for_mesh`` (the dense and MoE families): one distinct
+``ShardingPolicy.for_mesh``, as the reference's entry point builds it
+(the dense, MoE and SSM families, and the hybrid at ``--tp 1``; MLA
+and its MTP loss raise): one distinct
 card a position on the card (``make_mesh`` raises with fewer), every
 position on the CPU with ``--device cpu``. The weights are made on the
 mesh's first device and laid out by ``shard_params``. Checkpoints hold
@@ -67,8 +69,8 @@ def main(argv=None):
     a checkpoint) and return the last step's loss."""
     ap = argparse.ArgumentParser(
         description="Train an LM (dense, MoE, SSM, hybrid or MLA with "
-                    "MTP) on one device, or a dense or MoE LM over a "
-                    "(dp, tp) model mesh.")
+                    "MTP) on one device, or any of them but MLA over a "
+                    "(dp, tp) model mesh (the hybrid at --tp 1).")
     ap.add_argument("--arch", default="stablelm-3b")
     ap.add_argument("--tiny", action="store_true",
                     help="use the reduced same-family config")

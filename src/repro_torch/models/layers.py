@@ -48,13 +48,14 @@ breaks that, so there K8 takes the reference's slot mask itself. Cross
 decode (``cross=True``) reads the encoder's keys, every slot live: K8
 with ``lengths = encoder_seq`` on every row.
 
-Over a model-parallel mesh (``policy=``, dense and MoE families;
-``sharding/model.py``) ``mlp``, ``attention_block`` and
-``attention_decode`` run tensor-parallel on each rank's local weights
-(its query heads, the KV heads they read, its ``d_ff`` slice; K7/K8 at
-those local shapes), their partial ``w_out``/``wo`` products
-all-reduced, and ``moe_block`` runs the reference's two
-expert-parallel branches (``_moe_mesh``).
+Over a model-parallel mesh (``policy=``; ``sharding/model.py``)
+``mlp``, ``attention_block`` and ``attention_decode`` run
+tensor-parallel on each rank's local weights (its query heads, the KV
+heads they read, its ``d_ff`` slice) through the one-device code, so
+K7/K8 take their one-device routes at those local shapes (window,
+prefix, bidirectional, cross), their partial ``w_out``/``wo`` products
+all-reduced, and ``moe_block`` runs the reference's expert-parallel
+branches (``_moe_mesh``, ``_moe_dp_over_tp``).
 
 MLA has one path: the reference computes it with einsums outside any
 Pallas kernel, so there is no kernel to port; "auto" and "ref" both
@@ -68,9 +69,11 @@ has no decode kernel for it).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -231,20 +234,19 @@ def attention_block(cfg: ModelConfig, p, x, attn_impl: str = "auto",
     rope, no ``bq``), and k, v come back None (the cache stores them
     apart).
 
-    Under an active ``policy`` (``p`` sharded, ``x`` ``Rows``; causal
-    self-attention only) each position attends over its rows with its
-    rank's query heads and the KV heads they read (K7 at those local
-    shapes on the kernel path); the partial ``wo`` products are
+    Under an active ``policy`` (``p`` sharded, ``x`` ``Rows``,
+    ``kv_override`` None or a grid of each position's (k, v)) each
+    position attends over its rows with its rank's query heads and the
+    KV heads they read, through the one-device code at those local
+    shapes (so K7 takes the same route as on one device: the window,
+    the prefix, bidirectional); the partial ``wo`` products are
     all-reduced over the tensor-parallel ranks, and k, v come back as
     grids of each position's local keys and values."""
     if sm.on_mesh(policy):
-        if kv_override is not None or mode != "causal" or window:
-            raise sm.MeshNotPorted("attention under a mesh: causal "
-                                   "self-attention without a window only")
         g = sm.mesh_grid(policy)
-        out = sm.gmap(lambda pl, xl: attention_block(cfg, pl, xl,
-                                                     attn_impl),
-                      sm.local_grid(p, g), x)
+        out = sm.gmap(lambda pl, xl, kv: attention_block(
+            cfg, pl, xl, attn_impl, window, mode, prefix, kv),
+            sm.local_grid(p, g), x, kv_override)
         o, k, v = sm.unzip(out.grid, 3)
         return sm.all_reduce(sm.Rows(o, x.n), g), k, v
     B, S = x.shape[0], x.shape[1]
@@ -281,18 +283,17 @@ def attention_decode(cfg: ModelConfig, p, x, k_cache, v_cache, slot_pos,
     read). Returns (B,1,D).
 
     Under an active ``policy`` (``p`` sharded, ``x`` and ``pos``
-    ``Rows``, the caches grids of each position's layer views) each
-    position decodes its rows over its local heads and cache (K8 at
-    those shapes on the kernel path), and the partial ``wo`` products
-    are all-reduced over the tensor-parallel ranks."""
+    ``Rows``, the caches grids of each position's layer views;
+    ``slot_pos`` None with ``cross``) each position decodes its rows
+    over its local heads and cache through the one-device code (K8 at
+    those shapes on the kernel path, with the ring's slot mask under a
+    window, over every encoder slot with ``cross``), and the partial
+    ``wo`` products are all-reduced over the tensor-parallel ranks."""
     if sm.on_mesh(policy):
-        if cross or window:
-            raise sm.MeshNotPorted("decode under a mesh: self-attention "
-                                   "without a window only")
         g = sm.mesh_grid(policy)
         return sm.all_reduce(sm.gmap(
             lambda pl, xl, kc, vc, sp, ps: attention_decode(
-                cfg, pl, xl, kc, vc, sp, ps, attn_impl),
+                cfg, pl, xl, kc, vc, sp, ps, attn_impl, window, cross),
             sm.local_grid(p, g), x, k_cache, v_cache, slot_pos, pos), g)
     B = x.shape[0]
     if cross:
@@ -558,7 +559,14 @@ def _moe_mesh(cfg: ModelConfig, p, x, policy):
       (i, t) computes experts [(i·TP + t)·e, ...) of e = E / (DP·TP),
       and the partial sums are all-reduced over every position.
 
+    Under ``dp_over_tp`` the reference's default branch still splits
+    the experts over the model axis and the tokens over the data axes
+    alone, but takes its capacity from n·S / (DP·TP)
+    (``_moe_dp_over_tp``).
+
     The shared experts' MLP runs tensor-parallel on the rows."""
+    if policy.dp_over_tp:
+        return _moe_dp_over_tp(cfg, p, x, policy)
     g = sm.mesh_grid(policy)
     E, k, gated = cfg.num_experts, cfg.experts_per_tok, cfg.gated_mlp
     T = x.n * x.grid[0, 0].shape[1]
@@ -588,6 +596,56 @@ def _moe_mesh(cfg: ModelConfig, p, x, policy):
                 sm.positions(g), locs, xs)
     y = sm.tokens_to_rows(sm.all_reduce(y, g, "all" if everywhere
                                         else "tp"), x, g, everywhere)
+    if "shared" in p:
+        y = sm.gmap(torch.add, y, mlp(cfg, p["shared"], x, policy))
+    return y
+
+
+def _moe_dp_over_tp(cfg: ModelConfig, p, x, policy):
+    """The reference's default ``shard_map`` branch under ``dp_over_tp``:
+    the n·S tokens, flattened, in dp contiguous chunks (dp the data
+    axes' size; raises unless it divides n·S), model rank t computing
+    experts [t·E/tp, (t+1)·E/tp) of its chunk at capacity
+    ``moe_capacity(cfg, n·S / (dp·tp))`` (the reference's ``t_loc``,
+    whose ``dp_size`` counts the model axis too), the partial sums
+    added over t in rank order. The grid's data rank r = i·tp + t is
+    (data rank i, model rank t); every position holds every expert, so
+    each computes its (i, t) share on its own device, then takes its
+    rows of the sums."""
+    g = sm.mesh_grid(policy)
+    tp = policy.tp_size()
+    dp = g.dp // tp
+    E, k, gated = cfg.num_experts, cfg.experts_per_tok, cfg.gated_mlp
+    S = x.grid[0, 0].shape[1]
+    T = x.n * S
+    if T % dp:
+        raise ValueError(f"moe_block: {T} tokens do not split over {dp} "
+                         f"data-parallel ranks")
+    if E % tp:
+        raise ValueError(f"moe_block: {E} experts over tp={tp}")
+    e_loc, c = E // tp, T // dp
+    cap = moe_capacity(cfg, T // g.dp)
+    locs = sm.local_grid({n: p[n] for n in p if n != "shared"}, g)
+    toks = sm.token_chunks(x, g, everywhere=True)
+
+    def share(it, pl, xt):
+        i, t = divmod(it[0], tp)
+        lo = t * e_loc
+        pw = {n: w if n == "router" else w[lo:lo + e_loc]
+              for n, w in pl.items()}
+        return _moe_local(xt[i * c:(i + 1) * c], pw, lo, e_loc, cap, k,
+                          gated)
+
+    y = sm.gmap(share, sm.positions(g), locs, toks)
+    out, made = np.empty(y.shape, dtype=object), {}
+    for r, _ in g.coords():
+        dev = g.devices[r, 0]
+        if str(dev) not in made:
+            made[str(dev)] = torch.cat([functools.reduce(torch.add, [
+                y[i * tp + t, 0].to(dev) for t in range(tp)])
+                for i in range(dp)])
+        out[r, 0] = made[str(dev)]
+    y = sm.tokens_to_rows(out, x, g, everywhere=True)
     if "shared" in p:
         y = sm.gmap(torch.add, y, mlp(cfg, p["shared"], x, policy))
     return y

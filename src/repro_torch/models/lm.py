@@ -1,8 +1,8 @@
 """The LM of every family: decoder-only (dense, MoE, SSM and hybrid,
 MLA and multi-token prediction), encoder-decoder (whisper) and VLM
 (paligemma): forward, the decode cache, prefill and one-token decode —
-the reference's ``src/repro/models/lm.py``, on one device and, for the
-dense and MoE families, over a model-parallel mesh (``policy=``, the
+the reference's ``src/repro/models/lm.py``, on one device and, for
+every family but MLA, over a model-parallel mesh (``policy=``, the
 reference's sharded ``jit``; ``abstract_cache`` and ``cache_specs``
 give the cache's shapes and specs).
 
@@ -42,10 +42,12 @@ Under an active ``ShardingPolicy`` (``params`` from
 ``prefill`` and ``decode_step`` run every layer over the mesh's
 positions (``sharding/model.py``): the embedding and the logits sharded
 over the vocabulary (an all-reduce of the lookups, an all-gather of the
-logits), attention, the MLP and the mixture of experts as
-``models/layers.py`` shards them; the cache is per shard
-(``init_cache``) and the logits come back whole on the mesh's first
-device. ``forward_loss`` over the mesh is the global loss of the batch,
+logits), attention in every mode, the MLP and the mixture of experts as
+``models/layers.py`` shards them, the SSM on each position's rows (its
+weights replicated over the tensor-parallel ranks), the whisper
+encoder and the VLM's patch projection on each position's frames or
+patches (``_prepare_mesh``); the cache is per shard (``init_cache``)
+and the logits come back whole on the mesh's first device. ``forward_loss`` over the mesh is the global loss of the batch,
 and autograd runs back through every position to the parts of the
 ``Sharded`` leaves (``training/train_step.py``).
 """
@@ -296,7 +298,7 @@ def forward(cfg: ModelConfig, params, batch, attn_impl: str = "auto",
     over the mesh (``_forward_mesh``) and both come back whole on the
     mesh's first device."""
     if sm.on_mesh(policy):
-        return _forward_mesh(cfg, params, batch["tokens"], attn_impl,
+        return _forward_mesh(cfg, params, batch, attn_impl, ssd_impl,
                              policy)
     _check(cfg, attn_impl)
     h, mode, prefix, enc = _prepare_inputs(cfg, params, batch, attn_impl)
@@ -327,8 +329,7 @@ def forward_loss(cfg: ModelConfig, params, batch,
     rank's weighted nll summed, divided by max(sum of every rank's
     weights, 1)."""
     if sm.on_mesh(policy):
-        return _forward_loss_mesh(cfg, params, batch["tokens"], remat,
-                                  policy)
+        return _forward_loss_mesh(cfg, params, batch, remat, policy)
     check_supported(cfg)
     tokens = batch["tokens"]
     h, mode, n_img, enc = _prepare_inputs(cfg, params, batch, "ref")
@@ -421,6 +422,11 @@ CACHE_AXES = {
 }
 
 
+# the leaves whose dimension 3 holds KV heads: a tensor-parallel rank
+# holds those its query heads read (``sharding.model.kv_range``)
+KV_LEAVES = ("k", "v", "xk", "xv")
+
+
 def abstract_cache(cfg, batch_size, max_seq, dtype=torch.bfloat16) -> dict:
     """The cache as ``device="meta"`` tensors (``slot_pos`` int32)."""
     return {name: torch.empty(shape, dtype=torch.int32 if name == "slot_pos"
@@ -458,7 +464,7 @@ def init_cache(cfg, batch_size, max_seq, dtype=torch.float32,
             return sm.kv_range(cfg.num_heads, cfg.num_kv_heads, g.tp, t)
         return {name: sm.zeros(
             shape, torch.int32 if name == "slot_pos" else dtype, g,
-            specs[name], kv, (3,) if heads_tp and name in ("k", "v")
+            specs[name], kv, (3,) if heads_tp and name in KV_LEAVES
             else (), fill=-1 if name == "slot_pos" else 0)
             for name, shape in build_cache_spec(cfg, batch_size,
                                                 max_seq).items()}
@@ -486,8 +492,8 @@ def prefill(cfg: ModelConfig, params, batch,
     back whole on the mesh's first device and the cache per shard
     (``init_cache``)."""
     if sm.on_mesh(policy):
-        return _prefill_mesh(cfg, params, batch["tokens"], max_seq,
-                             attn_impl, policy)
+        return _prefill_mesh(cfg, params, batch, max_seq, attn_impl,
+                             ssd_impl, policy)
     _check(cfg, attn_impl)
     h, mode, prefix, enc = _prepare_inputs(cfg, params, batch, attn_impl)
     B, S = h.shape[0], h.shape[1]
@@ -560,24 +566,29 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos,
 
 
 # ---------------------------------------------------------------------------
-# the model over a model-parallel mesh (dense and MoE families)
+# the model over a model-parallel mesh
 # ---------------------------------------------------------------------------
 
 
 def _check_mesh(cfg: ModelConfig, policy: ShardingPolicy) -> None:
-    """The families the model-parallel port serves and trains: dense
-    and MoE, with plain grouped-query attention. The SSM, hybrid, MLA,
-    encoder-decoder and VLM families and the MTP loss come in a later
-    slice."""
+    """The families the model-parallel port serves and trains: dense,
+    MoE, SSM, hybrid, encoder-decoder and VLM, under every policy knob
+    ``sharding.model.check_policy`` admits. MLA (its latent cache over
+    ``kv_seq``, with ``shard_cache_seq``) and the hybrid at tp > 1
+    without ``dp_over_tp`` (its 25 query heads over 5 KV heads make no
+    even groups a rank: ``kv_range``) come in a later slice."""
     check_supported(cfg)
     sm.check_policy(policy)
-    if cfg.family not in ("dense", "moe") or cfg.use_mla:
-        kind = "mla" if cfg.use_mla else cfg.family
+    if cfg.use_mla:
         raise sm.MeshNotPorted(
-            f"{cfg.name}: the {kind} family under a model-parallel mesh "
-            f"comes in a later slice (with the SSM, hybrid, MLA, "
-            f"encoder-decoder and VLM families); serving and training of "
-            f"the dense and MoE families run")
+            f"{cfg.name}: MLA under a model-parallel mesh comes in a later "
+            f"slice (with its latent cache over kv_seq, shard_cache_seq "
+            f"and the MTP loss)")
+    if cfg.family == "hybrid" and sm.mesh_grid(policy).tp > 1:
+        raise sm.MeshNotPorted(
+            f"{cfg.name}: the hybrid at tp > 1 without dp_over_tp comes in "
+            f"a later slice; it runs over the data axes, or over both "
+            f"with dp_over_tp")
 
 
 def check_mesh_loss(cfg: ModelConfig, policy: ShardingPolicy) -> None:
@@ -624,62 +635,159 @@ def _logits_mesh(cfg, params, h: "sm.Rows", g) -> "sm.Rows":
     return sm.all_gather(_logit_parts(cfg, params, h, g), g, dim=-1)
 
 
-def _block_mesh(cfg, bp, h, attn_impl, policy, cache=None, l=0):
-    """One layer over the mesh; with ``cache`` each position's keys and
-    values are written into its shard of layer l."""
-    a, k, v = attention_block(cfg, bp["attn"], _norm_mesh(
-        cfg, h, bp["ln1"]), attn_impl, policy=policy)
-    if cache is not None:
-        for name, grid in (("k", k), ("v", v)):
-            for (i, t), kv in np.ndenumerate(grid):
-                _write_kv(cache[name].parts[i, t][l], kv)
+def _ssm_mesh(cfg, p, x: "sm.Rows", ssd_impl, g):
+    """``ssm_block`` on each position's rows (its weights replicated
+    over the tensor-parallel ranks, FSDP-gathered at use; positions
+    sharing a device share one call): (out Rows, state grid, conv
+    grid)."""
+    out = sm.gmap(lambda pl, xl: ssm_block(cfg, pl, xl, ssd_impl),
+                  sm.local_grid(p, g), x)
+    s, state, conv = sm.unzip(out.grid, 3)
+    return sm.Rows(s, x.n), state, conv
+
+
+def _hybrid_mix(cfg, bp, a: "sm.Rows", s: "sm.Rows") -> "sm.Rows":
+    """The hybrid's mixer: the mean of the normed attention and SSM
+    outputs."""
+    return sm.gmap(lambda aa, ss, wa, ws: 0.5 * (
+        rms_norm(aa, wa, cfg.norm_eps) + rms_norm(ss, ws, cfg.norm_eps)),
+        a, s, bp["attn_norm"].parts, bp["ssm_norm"].parts)
+
+
+def _write_parts(leaf: "sm.Sharded", l: int, grid) -> None:
+    """Write each position's value of ``grid`` into layer ``l`` of its
+    part of the cache leaf (``_write_kv``'s ring layout for keys and
+    values; a part shared by positions gets their one value)."""
+    for (i, t), val in np.ndenumerate(grid):
+        _write_kv(leaf.parts[i, t][l], val)
+
+
+def _block_mesh(cfg, bp, h, attn_impl, ssd_impl, policy, cache=None, l=0,
+                mode="causal", prefix=0, enc=None):
+    """One layer over the mesh, as ``_block``: its mixer (attention,
+    the SSM, or the hybrid's mean of both), the encoder-decoder's
+    cross-attention over ``enc`` (``Rows`` of the encoder output), the
+    FFN but for the SSM family; with ``cache`` each position's keys
+    and values, SSM state and conv tail and cross K/V are written into
+    its shard of layer l."""
+    g = sm.mesh_grid(policy)
+    x = _norm_mesh(cfg, h, bp["ln1"])
+    written = {}
+    if cfg.family != "ssm":
+        a, k, v = attention_block(cfg, bp["attn"], x, attn_impl,
+                                  _window(cfg), mode, prefix, policy=policy)
+        written.update(k=k, v=v)
+    if cfg.family in ("ssm", "hybrid"):
+        s, state, conv = _ssm_mesh(cfg, bp["ssm"], x, ssd_impl, g)
+        written.update(state=state, conv=conv)
+        a = s if cfg.family == "ssm" else _hybrid_mix(cfg, bp, a, s)
     h = sm.gmap(torch.add, h, a)
+    if enc is not None:
+        kv = sm.gmap(_cross_kv, sm.local_grid(bp["xattn"], g), enc)
+        written.update(zip(("xk", "xv"), sm.unzip(kv.grid, 2)))
+        xa, _, _ = attention_block(
+            cfg, bp["xattn"], _norm_mesh(cfg, h, bp["ln_x"]), attn_impl,
+            mode="bidir", kv_override=kv.grid, policy=policy)
+        h = sm.gmap(torch.add, h, xa)
+    if cache is not None:
+        for name, grid in written.items():
+            _write_parts(cache[name], l, grid)
+    if cfg.family == "ssm":
+        return h
     x = _norm_mesh(cfg, h, bp["ln2"])
     f = (moe_block(cfg, bp["moe"], x, policy) if cfg.num_experts
          else mlp(cfg, bp["mlp"], x, policy))
     return sm.gmap(torch.add, h, f)
 
 
-def _blocks_mesh(cfg, params, h, attn_impl, policy, cache=None,
-                 remat: Optional[str] = None):
-    """Every layer over the mesh (``_block_mesh``). ``remat`` recomputes
-    each layer in the backward as ``_blocks`` does; the FSDP gather at
-    use is inside the layer, so it is recomputed too, as the
+def _blocks_mesh(cfg, blocks, h, attn_impl, ssd_impl, policy, cache=None,
+                 remat: Optional[str] = None, mode="causal", prefix=0,
+                 enc=None, n_layers: Optional[int] = None):
+    """Every layer of the stacked ``blocks`` (``n_layers``, default
+    ``cfg.num_layers``) over the mesh (``_block_mesh``). ``remat``
+    recomputes each layer in the backward as ``_blocks`` does; the FSDP
+    gather at use is inside the layer, so it is recomputed too, as the
     reference's remat recomputes its all-gather."""
     _check_remat(remat)
-    for l, bp in enumerate(_layers(params["blocks"], cfg.num_layers)):
+    for l, bp in enumerate(_layers(blocks, n_layers or cfg.num_layers)):
         h = _layer(functools.partial(
-            _block_mesh, cfg, bp, attn_impl=attn_impl, policy=policy,
-            cache=cache, l=l), h, remat)
+            _block_mesh, cfg, bp, attn_impl=attn_impl, ssd_impl=ssd_impl,
+            policy=policy, cache=cache, l=l, mode=mode, prefix=prefix,
+            enc=enc), h, remat)
     return h
 
 
-def _forward_mesh(cfg, params, tokens, attn_impl, policy):
+def _encode_mesh(cfg, params, frames: "sm.Rows", attn_impl, policy,
+                 remat: Optional[str] = None):
+    """``encode`` over the mesh: each position's frames plus the learned
+    positions, the encoder's dense blocks in mode "bidir", its final
+    norm."""
+    g = sm.mesh_grid(policy)
+    enc = params["encoder"]
+    h = sm.gmap(lambda fr, pl: fr + pl["pos"][None, :fr.shape[1]], frames,
+                sm.local_grid({"pos": enc["pos_embed"]}, g))
+    h = _blocks_mesh(encoder_config(cfg), enc["blocks"], h, attn_impl, "ref",
+                     policy, remat=remat, mode="bidir",
+                     n_layers=cfg.encoder_layers)
+    return _norm_mesh(cfg, h, enc["final_ln"])
+
+
+def _prepare_mesh(cfg, params, batch, attn_impl, policy,
+                  remat: Optional[str] = None):
+    """``_prepare_inputs`` over the mesh: (h, toks, mode, prefix, enc),
+    the token rows ``toks`` and every modality input scattered with
+    them (``Rows``); the VLM's patches projected on each position and
+    put before its rows' token embeddings; the encoder-decoder's frames
+    through ``_encode_mesh``."""
+    g = sm.mesh_grid(policy)
+    toks = sm.scatter_rows(batch["tokens"], g)
+    h = _embed_mesh(params, toks, g)
+    mode, prefix, enc = "causal", 0, None
+    if cfg.family == "vlm":
+        pt = sm.scatter_rows(batch["patches"], g)
+        img = sm.gmap(lambda pp, pl, hh: pp.to(hh.dtype) @ pl["w"], pt,
+                      sm.local_grid({"w": params["img_proj"]}, g), h)
+        h = sm.gmap(lambda a, b: torch.cat([a, b], dim=1), img, h)
+        mode, prefix = "prefix", batch["patches"].shape[1]
+    if cfg.family == "encdec":
+        enc = _encode_mesh(cfg, params, sm.scatter_rows(batch["frames"], g),
+                           attn_impl, policy, remat)
+    return h, toks, mode, prefix, enc
+
+
+def _forward_mesh(cfg, params, batch, attn_impl, ssd_impl, policy):
     _check_mesh(cfg, policy)
     g = sm.mesh_grid(policy)
-    h = _embed_mesh(params, sm.scatter_rows(tokens, g), g)
-    h = _norm_mesh(cfg, _blocks_mesh(cfg, params, h, attn_impl, policy),
+    h, _, mode, prefix, enc = _prepare_mesh(cfg, params, batch, attn_impl,
+                                            policy)
+    h = _norm_mesh(cfg, _blocks_mesh(cfg, params["blocks"], h, attn_impl,
+                                     ssd_impl, policy, mode=mode,
+                                     prefix=prefix, enc=enc),
                    params["final_ln"])
     home = sm.home_device(policy)
     return _logits_mesh(cfg, params, h, g).gather(home), h.gather(home)
 
 
-def _forward_loss_mesh(cfg, params, tokens, remat, policy):
+def _forward_loss_mesh(cfg, params, batch, remat, policy):
     """The global loss over the mesh: each data rank's rows (``Rows``'
-    zero padding rows carry label 0, so weight 0) through every layer
-    on "ref" attention, its logits gathered over the tensor-parallel
-    ranks onto the rank's position (i, 0) only, its weighted nll and
-    weights summed there; the sums of every rank added in rank order on
-    the mesh's first device."""
+    zero padding rows carry label 0, so weight 0; their frames or
+    patches are zero too) through every layer on "ref" attention and
+    SSD, its logits gathered over the tensor-parallel ranks onto the
+    rank's position (i, 0) only, the text positions' weighted nll (the
+    VLM's image positions skipped, as the reference's ``forward_loss``
+    skips them) and weights summed there; the sums of every rank added
+    in rank order on the mesh's first device."""
     check_mesh_loss(cfg, policy)
     g = sm.mesh_grid(policy)
-    toks = sm.scatter_rows(tokens, g)
-    h = _embed_mesh(params, toks, g)
-    h = _norm_mesh(cfg, _blocks_mesh(cfg, params, h, "ref", policy,
-                                     remat=remat), params["final_ln"])
+    h, toks, mode, n_img, enc = _prepare_mesh(cfg, params, batch, "ref",
+                                              policy, remat)
+    h = _norm_mesh(cfg, _blocks_mesh(cfg, params["blocks"], h, "ref", "ref",
+                                     policy, remat=remat, mode=mode,
+                                     prefix=n_img, enc=enc),
+                   params["final_ln"])
     part = _logit_parts(cfg, params, h, g)
     home = sm.home_device(policy)
-    S = tokens.shape[1]
+    S = batch["tokens"].shape[1]
     num = den = None
     for i in range(g.dp):
         dev = g.devices[i, 0]
@@ -687,45 +795,78 @@ def _forward_loss_mesh(cfg, params, tokens, remat, policy):
                            dim=-1)
         labels = toks.grid[i, 0][:, 1:].long()
         w = (labels != 0).float()
-        n_i = torch.sum(_nll(logits[:, :S - 1], labels, w)).to(home)
+        n_i = torch.sum(_nll(logits[:, n_img:n_img + S - 1], labels,
+                             w)).to(home)
         d_i = torch.sum(w).to(home)
         num, den = (n_i, d_i) if num is None else (num + n_i, den + d_i)
     return num / torch.clamp(den, min=1.0)
 
 
-def _prefill_mesh(cfg, params, tokens, max_seq, attn_impl, policy):
+def _prefill_mesh(cfg, params, batch, max_seq, attn_impl, ssd_impl, policy):
     _check_mesh(cfg, policy)
     g = sm.mesh_grid(policy)
-    B, S = tokens.shape
-    h = _embed_mesh(params, sm.scatter_rows(tokens, g), g)
-    cache = init_cache(cfg, B, max_seq or S, dtype=h.grid[0, 0].dtype,
+    h, _, mode, prefix, enc = _prepare_mesh(cfg, params, batch, attn_impl,
+                                            policy)
+    B, S = batch["tokens"].shape[0], h.grid[0, 0].shape[1]
+    ccfg = cfg  # the cross K/V hold the frames given, as on one device
+    if enc is not None:
+        ccfg = cfg.replace(encoder_seq=batch["frames"].shape[1])
+    cache = init_cache(ccfg, B, max_seq or S, dtype=h.grid[0, 0].dtype,
                        policy=policy)
-    h = _blocks_mesh(cfg, params, h, attn_impl, policy, cache)
-    for part in {id(p): p for p in cache["slot_pos"].parts.flat}.values():
-        part[:, :, :S] = torch.arange(S, dtype=torch.int32,
-                                      device=part.device)
+    h = _blocks_mesh(cfg, params["blocks"], h, attn_impl, ssd_impl, policy,
+                     cache, mode=mode, prefix=prefix, enc=enc)
+    if "slot_pos" in cache:
+        for part in {id(p): p for p in cache["slot_pos"].parts.flat
+                     }.values():
+            first, slots = _ring_slots(S, part.shape[2], part.device)
+            part[:, :, slots] = torch.arange(first, S, dtype=torch.int32,
+                                             device=part.device)
     h = _norm_mesh(cfg, h, params["final_ln"], last=True)
     logits = _logits_mesh(cfg, params, h, g).gather(sm.home_device(policy))
     return logits[:, 0], cache
 
 
 def _decode_mesh(cfg, params, cache, tokens, pos, attn_impl, policy):
+    """``decode_step`` over the mesh: each position's rows through every
+    layer with its shard of the cache (its keys and values, the
+    hybrid's ring, its SSM state and conv tail updated in place, its
+    cross K/V read)."""
+    _check_mesh(cfg, policy)
     g = sm.mesh_grid(policy)
     L = cfg.num_layers
     h = _embed_mesh(params, sm.scatter_rows(tokens[:, None], g), g)
     posr = sm.scatter_rows(pos, g)
-    layers = {n: [c.parts for c in cache[n].layers(L)]
-              for n in ("k", "v", "slot_pos")}
+    layers = {n: [c.parts for c in leaf.layers(L)]
+              for n, leaf in cache.items()}
+    window = _window(cfg)
     for l, bp in enumerate(_layers(params["blocks"], L)):
-        a = attention_decode(cfg, bp["attn"], _norm_mesh(cfg, h, bp["ln1"]),
-                             layers["k"][l], layers["v"][l],
-                             layers["slot_pos"][l], posr, attn_impl,
-                             policy=policy)
+        x = _norm_mesh(cfg, h, bp["ln1"])
+        if cfg.family != "ssm":
+            a = attention_decode(cfg, bp["attn"], x, layers["k"][l],
+                                 layers["v"][l], layers["slot_pos"][l], posr,
+                                 attn_impl, window, policy=policy)
+        if cfg.family in ("ssm", "hybrid"):
+            out = sm.gmap(lambda pl, xl, st, cv: ssm_decode(cfg, pl, xl, st,
+                                                            cv),
+                          sm.local_grid(bp["ssm"], g), x,
+                          layers["state"][l], layers["conv"][l])
+            s, st, cv = sm.unzip(out.grid, 3)
+            for name, new in (("state", st), ("conv", cv)):
+                for (i, t), part in np.ndenumerate(layers[name][l]):
+                    part.copy_(new[i, t])
+            s = sm.Rows(s, x.n)
+            a = s if cfg.family == "ssm" else _hybrid_mix(cfg, bp, a, s)
         h = sm.gmap(torch.add, h, a)
-        x = _norm_mesh(cfg, h, bp["ln2"])
-        f = (moe_block(cfg, bp["moe"], x, policy) if cfg.num_experts
-             else mlp(cfg, bp["mlp"], x, policy))
-        h = sm.gmap(torch.add, h, f)
+        if cfg.family == "encdec":
+            h = sm.gmap(torch.add, h, attention_decode(
+                cfg, bp["xattn"], _norm_mesh(cfg, h, bp["ln_x"]),
+                layers["xk"][l], layers["xv"][l], None, posr, attn_impl,
+                cross=True, policy=policy))
+        if cfg.family != "ssm":
+            x = _norm_mesh(cfg, h, bp["ln2"])
+            f = (moe_block(cfg, bp["moe"], x, policy) if cfg.num_experts
+                 else mlp(cfg, bp["mlp"], x, policy))
+            h = sm.gmap(torch.add, h, f)
     h = _norm_mesh(cfg, h, params["final_ln"])
     return _logits_mesh(cfg, params, h, g).gather(
         sm.home_device(policy))[:, 0]

@@ -336,8 +336,14 @@ def shard_params(cfg: ModelConfig, params: dict,
     Under tensor parallelism the KV heads follow ``kv_range`` (each
     rank holds the heads its query heads read), and a leaf's FSDP
     (``embed``) dimension is gathered over the data-parallel ranks when
-    a layer uses it (``local_grid``). Off a mesh the tree comes back
-    as it is."""
+    a layer uses it (``local_grid``). Every family's leaves follow their
+    specs: the SSM's FSDP on ``embed`` only (replicated over the
+    tensor-parallel ranks), the encoder's ``pos_embed`` FSDP on its
+    second dimension, the cross-attention's heads as the
+    self-attention's, ``img_proj`` FSDP on its first, a vocabulary that
+    does not divide the model axis (whisper's 51865) in chunks of
+    ceil(V / tp); under ``dp_over_tp`` every leaf is whole at every
+    position. Off a mesh the tree comes back as it is."""
     if not policy.active:
         return params
     check_policy(policy)

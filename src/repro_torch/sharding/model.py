@@ -4,7 +4,11 @@
 
 The mesh is read as a (DP, TP) grid: DP data-parallel ranks (the
 policy's ``dp_axes``, 'pod' and 'data', flattened row-major in mesh
-order) by TP tensor-parallel ranks (its ``tp_axis``, 'model').
+order) by TP tensor-parallel ranks (its ``tp_axis``, 'model'). Under
+``dp_over_tp`` (pure data parallelism over both axes: the batch over
+``dp_axes + (tp_axis,)``, every parameter replicated) the grid is
+dp·tp data ranks, row-major as the policy orders the batch's axes, by
+TP = 1.
 Position (i, t) of the grid is a device of the mesh, and every loop of
 the port's sharded model runs over these positions, each on its own
 device, so the same code serves distinct cards and shards that share
@@ -59,9 +63,9 @@ from .policy import PartitionSpec, ShardingPolicy
 
 class MeshNotPorted(NotImplementedError):
     """A model family or policy knob the model-parallel port does not
-    run yet (the SSM, hybrid, MLA, encoder-decoder and VLM families, the
-    MTP loss, and the ``dp_over_tp``, ``seq_parallel`` and
-    ``shard_cache_seq`` knobs come in a later slice)."""
+    run yet: MLA (its latent cache over ``kv_seq``), the MTP loss, the
+    ``shard_cache_seq`` knob and the hybrid at tp > 1 without
+    ``dp_over_tp`` come in a later slice."""
 
 
 # ---------------------------------------------------------------------------
@@ -88,9 +92,12 @@ class MeshGrid:
                                 f"tensor-parallel under this policy")
         order = [names.index(a) for a in dp_axes + tp_axes] + [
             names.index(a) for a in names if a not in dp_axes + tp_axes]
-        self.dp_axes, self.tp_axis = dp_axes, policy.tp_axis
+        if policy.dp_over_tp:  # the batch's axes: dp_axes + (tp_axis,)
+            dp_axes, tp_axes = dp_axes + tp_axes, ()
+        self.dp_axes = dp_axes
+        self.tp_axis = tp_axes[0] if tp_axes else None
         self.dp = int(np.prod([shape[a] for a in dp_axes]))
-        self.tp = shape[policy.tp_axis] if policy.tp_axis else 1
+        self.tp = shape[self.tp_axis] if self.tp_axis else 1
         self.sizes = shape
         self.devices = mesh.devices.transpose(order).reshape(self.dp,
                                                              self.tp)
@@ -130,12 +137,19 @@ def check_policy(policy: ShardingPolicy) -> None:
     """The policy knobs the sharded model runs: batch over the data
     axes, heads/mlp/vocab/expert over the model axis (experts over
     both with ``ep_over_dp``), KV heads sharded or not, FSDP on or
-    off. Pure data parallelism over both axes, sequence parallelism
-    and a sequence-sharded cache raise."""
-    for knob in ("dp_over_tp", "seq_parallel", "shard_cache_seq"):
-        if getattr(policy, knob):
-            raise MeshNotPorted(f"ShardingPolicy.{knob} is not run by the "
-                                f"model-parallel port")
+    off, pure data parallelism over both axes (``dp_over_tp``) and
+    ``seq_parallel`` (which changes no function: no model code of the
+    reference constrains an activation to 'seq'). A sequence-sharded
+    cache raises, and so does ``ep_over_dp`` with ``dp_over_tp``, where
+    the reference's expert windows (over dp·tp·tp ranks) do not match
+    the experts its ranks hold (over dp·tp)."""
+    if policy.shard_cache_seq:
+        raise MeshNotPorted("ShardingPolicy.shard_cache_seq is not run by "
+                            "the model-parallel port: it comes in a later "
+                            "slice, with MLA's latent cache over kv_seq")
+    if policy.ep_over_dp and policy.dp_over_tp:
+        raise MeshNotPorted("ShardingPolicy.ep_over_dp with dp_over_tp is "
+                            "not run by the model-parallel port")
     if policy.fsdp_params and tuple(policy.fsdp_axes) != tuple(
             policy.dp_axes):
         raise MeshNotPorted("FSDP over axes other than the data axes")
@@ -417,13 +431,23 @@ def local_grid(tree: dict, g: MeshGrid) -> np.ndarray:
     """A grid of per-position parameter dicts: each leaf's part, with its
     FSDP dimension gathered (concatenated in data-parallel rank order)
     onto the position's device. Positions on one device with the same
-    parts share one gathered tensor. (No nested recursive closure: it
-    would hold the gathered tensors in a reference cycle until the
-    cycle collector ran, every layer's at once.)"""
-    out, made = _grid(g), {}
+    parts share one gathered tensor, and positions whose every leaf is
+    the same tensor (weights replicated over the tensor-parallel ranks
+    of a shared device: the SSM's) share one dict, so ``gmap`` runs
+    their work once. (No nested recursive closure: it would hold the
+    gathered tensors in a reference cycle until the cycle collector
+    ran, every layer's at once.)"""
+    out, made, same = _grid(g), {}, {}
     for i, t in g.coords():
-        out[i, t] = _local_tree(tree, g, i, t, made)
+        loc = _local_tree(tree, g, i, t, made)
+        out[i, t] = same.setdefault(tuple(map(id, _leaves(loc))), loc)
     return out
+
+
+def _leaves(node) -> list:
+    if isinstance(node, dict):
+        return [x for v in node.values() for x in _leaves(v)]
+    return [node]
 
 
 def _local_tree(node, g: MeshGrid, i: int, t: int, made: dict):
@@ -443,8 +467,10 @@ def _local_tree(node, g: MeshGrid, i: int, t: int, made: dict):
 def local_config(cfg, g: MeshGrid):
     """``cfg`` at one tensor-parallel rank's widths: its query heads,
     the KV heads it reads (``kv_range``), its share of ``d_ff`` and of
-    the experts (``head_dim`` pinned to the model's)."""
-    lo, hi = kv_range(cfg.num_heads, cfg.num_kv_heads, g.tp, 0)
+    the experts (``head_dim`` pinned to the model's). The SSM family
+    has no attention heads: only ``d_ff`` and the experts change."""
+    lo, hi = (kv_range(cfg.num_heads, cfg.num_kv_heads, g.tp, 0)
+              if cfg.num_heads else (0, 0))
     return cfg.replace(
         num_heads=cfg.num_heads // g.tp, num_kv_heads=hi - lo,
         head_dim=cfg.resolved_head_dim, d_ff=-(-cfg.d_ff // g.tp),

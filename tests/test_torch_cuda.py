@@ -16,6 +16,9 @@ between live ones, CUDA-graph replays), K9 within ``ssd_cases.tolerance`` of its
 version over the ``ssd_cases`` sweep, the dense, SSM and hybrid
 LMs' kernel paths equal to their plain paths (K7/K8/K9), K7/K8/K9
 refusing grad mode, tiny train steps on the card equal to the CPU's,
+K7/K8/K9 at the model mesh's shard shapes (``attention_cases.MESH_*``,
+``ssd_cases.MESH_CASES``) and the tiny SSM and hybrid served over a
+mesh of the card on both paths,
 K10 bit-identical
 to its plain version over the ``partition_cases`` sweep (sizes around
 its look-back tile, repeated calls, graph replays, two streams), and the
@@ -1592,3 +1595,153 @@ def test_partitioned_tier_on_two_cards(dev):
     mesh = make_data_mesh(2)
     assert not mesh.shared
     _check_tier(dev, mesh)
+
+
+# ------------------------------------- the model mesh's shard shapes (K7-K9)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SC.MESH_CASES)
+def test_ssd_chunk_kernel_at_mesh_shard_shapes(dev, b, s, h, p, n, chunk):
+    """K9 on one data rank's rows of a full admission over a model mesh
+    (mamba2-370m at (2, 2), hymba-1.5b at (2, 1) and under
+    ``dp_over_tp``), as ``chip_smoke.py``'s ``serve_tp_ssm`` gives it."""
+    g = torch.Generator(device=dev).manual_seed(b * 3 + h + n)
+    x, dt, A, B, C = SC.case_inputs(b, s, h, p, n, chunk, g, dev)
+    _build.reset_launches()
+    got = t_ssd.ssd_chunk_kernel(x, dt, A, B, C, chunk=chunk)
+    assert _build.LAUNCHES["ssd_chunk"] == 1
+    tol = SC.tolerance(SC.cum_max(dt, A, chunk))
+    for a, w in zip(got, ssd_chunk_ref(x, dt, A, B, C, chunk)):
+        err = float((a - w).abs().max())
+        assert err <= tol * max(1.0, float(w.abs().max())), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,K,S,d,window", AC.MESH_WINDOW_CASES)
+def test_flash_attention_window_at_mesh_shard_shapes(dev, B, H, K, S, d,
+                                                     window):
+    """K7's window route on one position's rows of hymba-1.5b's
+    admission (its 25 query heads over 5 KV heads whole: the hybrid
+    runs over the data ranks)."""
+    g = torch.Generator(device=dev).manual_seed(B + S)
+    q, k, v = (torch.randn(B, S, n, d, generator=g, device=dev)
+               .transpose(1, 2) for n in (H, K, K))
+    _build.reset_launches()
+    got = t_fa.flash_attention_kernel(q, k, v, causal=True, window=window)
+    assert _build.LAUNCHES["flash_attention"] == 1
+    want = attention_ref(q, k, v, causal=True, window=window)
+    assert float((got - want).abs().max()) <= AC.TOLERANCE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,K,T,d,window", AC.MESH_RING_CASES)
+def test_decode_attention_slot_mask_at_mesh_shard_shapes(dev, B, H, K, T,
+                                                         d, window):
+    """K8's slot mask on one position's rows of hymba-1.5b's first
+    decode round: prefill wrote slots 0..127, each row decodes at its
+    own position."""
+    g = torch.Generator(device=dev).manual_seed(B + T)
+    pos = torch.randint(0, 128, (B,), generator=g, device=dev,
+                        dtype=torch.int32)
+    sp = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
+    sp = torch.where(sp < 128, sp, torch.full_like(sp, -1)).contiguous()
+    q, k, v = _decode_operands(g, B, H, K, T, d, dev)
+    _build.reset_launches()
+    got = t_dec.decode_attention_kernel(q, k, v, slot_pos=sp, pos=pos,
+                                        window=window)
+    assert _build.LAUNCHES["decode_attention"] == 1
+    want = decode_attention_ref(q, k, v, slot_pos=sp, pos=pos,
+                                window=window)
+    assert float((got - want).abs().max()) <= AC.TOLERANCE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,K,S,d,prefix", AC.MESH_PREFIX_CASES)
+def test_flash_attention_prefix_at_mesh_shard_shapes(dev, B, H, K, S, d,
+                                                     prefix):
+    """K7's prefix route (two calls) on one tensor-parallel rank's heads
+    of paligemma-3b at (1, 2): 4 query heads over its one KV head."""
+    from repro_torch.kernels.flash_attention.ops import prefix_attention
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_prefix_ref)
+
+    g = torch.Generator(device=dev).manual_seed(S + H)
+    q, k, v = (torch.randn(B, S, n, d, generator=g, device=dev)
+               .transpose(1, 2) for n in (H, K, K))
+    _build.reset_launches()
+    got = prefix_attention(q, k, v, prefix, impl="kernel")
+    assert _build.LAUNCHES["flash_attention"] == 2
+    assert float((got - attention_prefix_ref(q, k, v, prefix)).abs()
+                 .max()) <= AC.TOLERANCE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,K,T,d", AC.MESH_CROSS_DECODE_CASES)
+def test_decode_attention_cross_at_mesh_shard_shapes(dev, B, H, K, T, d):
+    """K8's cross route (every encoder frame live) on one position's rows
+    and heads of whisper-small at (1, 2) and under ``dp_over_tp``."""
+    g = torch.Generator(device=dev).manual_seed(B + H)
+    lengths = torch.full((B,), T, dtype=torch.int32, device=dev)
+    q, k, v = _decode_operands(g, B, H, K, T, d, dev)
+    _build.reset_launches()
+    got = t_dec.decode_attention_kernel(q, k, v, lengths)
+    assert _build.LAUNCHES["decode_attention"] == 1
+    assert float((got - decode_attention_ref(q, k, v, lengths)).abs()
+                 .max()) <= AC.TOLERANCE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,mesh,rep", (
+    ("mamba2-370m", (2, 2), {}), ("hymba-1.5b", (2, 1), {}),
+    ("hymba-1.5b", (2, 2), {"dp_over_tp": True})))
+def test_mesh_serving_ssm_kernel_path_matches_plain_path(dev, arch, mesh,
+                                                         rep):
+    """The SSM and the hybrid over a model mesh whose positions all lie
+    on the card: K9 once per layer per data rank per admission (the
+    SSM's tensor ranks share one call on the card), K7 and K8 (window,
+    slot mask) once per layer per position, the same answers as the
+    plain path; the mesh's prefill logits within 1e-4 of the card's one
+    device."""
+    from repro_torch.configs import get_tiny
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params, prefill
+    from repro_torch.models.params import shard_params
+    from repro_torch.serving import ServingEngine
+    from repro_torch.sharding import model as sm
+    from repro_torch.sharding.policy import ShardingPolicy
+
+    cfg = get_tiny(arch).replace(vocab_size=512)
+    n = mesh[0] * mesh[1]
+    params = _tree_to(init_params(cfg, torch.Generator().manual_seed(0),
+                                  device="cpu"), dev)
+    pol = ShardingPolicy.for_mesh(make_mesh(*mesh, devices=[dev] * n)
+                                  ).replace(**rep)
+    g = sm.mesh_grid(pol)
+    sp = shard_params(cfg, params, pol)
+    prompts = [f"card mesh probe {i} " + "word " * (i % 11)
+               for i in range(13)]
+    out = {}
+    for impl in ("auto", "ref"):
+        eng = ServingEngine(cfg, sp, batch_size=4, max_seq=24,
+                            max_new_tokens=3, attn_impl=impl, ssd_impl=impl,
+                            policy=pol)
+        _build.reset_launches()
+        out[impl] = eng.answer(prompts)
+        launches = dict(_build.LAUNCHES)
+        want = dict.fromkeys(launches, 0)
+        if impl == "auto":
+            L, adm = cfg.num_layers, eng.stats.batches
+            want["ssd_chunk"] = L * g.dp * adm
+            if cfg.family == "hybrid":
+                want.update(flash_attention=L * n * adm,
+                            decode_attention=L * n
+                            * eng.stats.decode_steps)
+        assert launches == want
+    assert out["auto"] == out["ref"]
+    toks = torch.randint(1, cfg.vocab_size, (4, 24),
+                         generator=torch.Generator().manual_seed(2)).to(dev)
+    with torch.no_grad():
+        got, _ = prefill(cfg, sp, {"tokens": toks}, max_seq=28, policy=pol)
+        want, _ = prefill(cfg, params, {"tokens": toks}, max_seq=28)
+    assert float((got - want).abs().max()) <= \
+        1e-4 * float(want.abs().max())

@@ -270,10 +270,11 @@ def test_mesh_engine_requires_sharded_params(weights):
                       policy=policy(1, 2))
 
 
-@pytest.mark.parametrize("arch", ("mamba2-370m", "hymba-1.5b",
-                                  "deepseek-v3-671b", "whisper-small",
-                                  "paligemma-3b"))
+@pytest.mark.parametrize("arch", ("hymba-1.5b", "deepseek-v3-671b"))
 def test_other_families_refuse_the_mesh(arch):
+    """MLA, and the hybrid at tp > 1 without ``dp_over_tp``, do not run
+    over a mesh yet (the SSM, the hybrid over the data axes, the
+    encoder-decoder and the VLM do: ``test_torch_tp_families.py``)."""
     cfg = get_tiny(arch)
     pol = policy(1, 2)
     p = pm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
@@ -284,8 +285,7 @@ def test_other_families_refuse_the_mesh(arch):
         pm.init_cache(cfg, 2, 8, policy=pol)
 
 
-@pytest.mark.parametrize("knob", ("dp_over_tp", "seq_parallel",
-                                  "shard_cache_seq"))
+@pytest.mark.parametrize("knob", ("shard_cache_seq",))
 def test_unported_policy_knobs_refuse(weights, knob):
     cfg = get_tiny("starcoder2-3b")
     pol = policy(2, 2).replace(**{knob: True})

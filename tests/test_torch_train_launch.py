@@ -92,11 +92,12 @@ def test_train_mla_tiny_cpu(tmp_path, capsys):
 
 
 def test_train_refuses_a_model_parallel_mesh():
-    """Dense and MoE configurations train over a mesh
-    (``test_torch_train_tp.py``); the SSM family does not yet."""
+    """The dense, MoE, SSM, hybrid, encoder-decoder and VLM families
+    train over a mesh (``test_torch_train_tp.py``,
+    ``test_torch_train_tp_families.py``); MLA does not yet."""
     with pytest.raises(sm.MeshNotPorted, match="later slice"):
-        train.main(["--arch", "mamba2-370m", "--tiny", "--device", "cpu",
-                    "--dp", "2"])
+        train.main(["--arch", "deepseek-v3-671b", "--tiny", "--device",
+                    "cpu", "--dp", "2"])
 
 
 def test_serve_ckpt_serves_the_trained_backend(tmp_path, capsys):
