@@ -134,7 +134,17 @@ Phases, each printing one JSON line:
    layer per position per admission / round; prefill logits against
    the single-device prefill within TP_LOGIT_TOLERANCE of max|logit|;
    admission and round ms (eager) and peak memory;
-13. ``serve_ssm`` and ``serve_hybrid`` — the same serving checks with
+12c. ``serve_tp_seq`` — the same weights over (1, 4) under
+   ``shard_cache_seq`` (``TP_SEQ_MESHES``: the K/V caches split over
+   the sequence, each rank 33 of the engine's 131 slots, the last 32,
+   of both KV heads; each rank attends with all 24 heads over its
+   slice and the slices combine by their log-sum-exps): ``serve_tp``'s
+   checks against the same single-device answers, K8 once per layer
+   per position per round and on its log-sum-exp route alone; then one
+   admission whose prompts' lengths spread to ``max_seq``, so that its
+   rows' positions reach every rank's slice and a round has empty rows
+   beside live ones in a rank (``spread_admission``), its token ids on
+   both paths equal to a single-device engine's; and ``serve_hybrid`` — the same serving checks with
    mamba2-370m (48 SSM layers, d_model 1024, 32 heads x 64, state 128,
    chunk 128) and hymba-1.5b (32 layers, d_model 1600, attention of 25
    query over 5 KV heads with window 2048 beside 50 SSM heads x 64,
@@ -202,8 +212,22 @@ Phases, each printing one JSON line:
    and round; peak memory;
 19. ``llm_query_mla`` — Q13 and q8 through ``ModelBackend`` on that
    engine, twice (rows, stats, calls and token ids identical); the
-   query path's K1/K3/K4/K5 launches recorded, K7/K8 none; then the
-   model is freed;
+   query path's K1/K3/K4/K5 launches recorded, K7/K8 none;
+19b. ``serve_tp_mla`` — that engine's answers, token ids and routings
+   of the 128 prompts and of the two waves, and one admission's prefill
+   logits, recorded (``mla_one_device``); the model freed; the same
+   seeded tree made again and laid out leaf by leaf over (1, 2)
+   (``shard_params(consume=True)``: 128 heads and 256 routed experts
+   over two ranks; each whole leaf freed as its parts are made), then
+   two engines over it, under the default policy (the latent cache one
+   tensor a card) and under ``shard_cache_seq`` (each rank a slice of
+   its positions): 128 prompts continuous and drained (identical), the
+   two waves of 64; answers and ids held to one device's under
+   ``hold_paths``' tie rule (a first routing split only at a top-k gap
+   of at most ROUTE_TIE, then identical with one device's routings
+   replayed), prefill logits within TP_LOGIT_TOLERANCE; no K7/K8
+   launch; admission and round ms (eager) and peak memory, under the
+   card's; then the tree is freed;
 20. ``encdec`` — whisper-small at full width (12 + 12 layers, d_model
    768, 12 heads x 64, 1500 frames, vocab 51865; weights from a seeded
    generator) through the model's entry points (the reference's engine
@@ -225,11 +249,14 @@ Phases, each printing one JSON line:
    decode-matches-forward at 2 rows; then the model is freed;
 21b. ``mm_tp`` — after each of ``encdec`` and ``vlm``, its tree and
    inputs over model meshes of the card (``MM_TP_MESHES``: whisper-small
-   at (2, 2) under ``dp_over_tp`` and at (1, 2), paligemma-3b at (1, 2)
-   and (2, 2)), the same prefill and 16 greedy steps on both paths:
-   greedy ids identical to one device's, prefill logits within
+   at (2, 2) under ``dp_over_tp``, at (1, 2) and at (1, 2) under
+   ``shard_cache_seq``, paligemma-3b at (1, 2), (2, 2) and (1, 2) under
+   ``shard_cache_seq``), the same prefill and 16 greedy steps on both
+   paths: greedy ids identical to one device's, prefill logits within
    TP_LOGIT_TOLERANCE of one device's, K7 and K8 launches per position
-   and layer by mode; CUDA events, peak memory;
+   and layer by mode, self decode on K8's log-sum-exp route under
+   ``shard_cache_seq`` (its lengths route otherwise); CUDA events, peak
+   memory;
 22. ``train_equiv`` — three ``build_train_step`` steps of stablelm-tiny
    (2 microbatches, remat "full"), olmoe-tiny (remat "dots"),
    deepseek-tiny (MLA and the MTP loss; 2 microbatches, remat "full"),
@@ -270,6 +297,9 @@ Phases, each printing one JSON line:
    uninterrupted (2, 2) run's; mamba2-tiny at (2, 2), hymba-tiny and
    whisper-tiny at (2, 2) under ``dp_over_tp`` and paligemma-tiny at
    (1, 2) held as qwen is (frames and patches beside the tokens);
+   deepseek-tiny (MLA with the MTP loss; no expert drops at its
+   capacity factor) at (2, 2) and (1, 2) held to the CPU's mesh and the
+   card's one device;
    mamba2-370m at full width over (2, 2) on ``train``'s batch shape, 3
    steps against one device at 2 and at 4 microbatches (TRAIN_TP_SSM,
    SSM_SPREAD_FACTOR), with step times and the model's own row-split
@@ -312,7 +342,11 @@ Phases, each printing one JSON line:
    its 2048-slot ring with every slot live), K7 and K8 also at
    ``serve_moe``'s multi-head shapes (group 1), K7 and K8 also at each
    model mesh's shard shapes (``serve_tp_dense_1x4``, ``serve_tp_1x2``,
-   ``serve_tp_2x2``, with those runs' launches), K7 and K8 also at every
+   ``serve_tp_2x2``, with those runs' launches), K8's log-sum-exp route
+   at ``serve_tp_seq``'s rank slice (its first round's lengths at the
+   second rank, and positions spread around the fourth, rows empty
+   there: output and lse against the plain version, SDPA of the output
+   alone beside), K7 and K8 also at every
    shape the ``encdec`` and ``vlm`` phases launched them at (with those
    launches: whisper's encoder, decoder and cross-attention, paligemma's
    prefix route at head_dim 256, and their decodes) and at every shape
@@ -378,6 +412,10 @@ MOE_PROMPTS = SSM_PROMPTS
 TP_MESHES = {MOE_ARCH: ((1, 2), (2, 2)), SERVE_ARCH: ((1, 4),),
              SSM_ARCH: ((2, 2),),
              HYBRID_ARCH: ((2, 1), (2, 2, {"dp_over_tp": True}))}
+# serve_tp_seq: starcoder2's weights over (1, 4) with the caches split
+# over the sequence (each rank 33 of the engine's 131 slots, the last 32,
+# of both KV heads)
+TP_SEQ_MESHES = ((1, 4, {"shard_cache_seq": True}),)
 TP_LOGIT_TOLERANCE = 1e-4  # of max|logit|, mesh against one device
 # a top-k router gap at most this is a near tie: the kernel path's and
 # the plain path's float32 attention differ by ~1e-6 (relative), so
@@ -386,6 +424,11 @@ ROUTE_TIE = 1e-6
 MLA_ARCH = "deepseek-v3-671b"
 MLA_REDUCED = {"num_layers": "61 -> 1"}
 MLA_PROMPTS = SSM_PROMPTS
+# serve_tp_mla: deepseek's one-layer tree over (1, 2) (128 heads and 256
+# routed experts over two ranks), served under the default policy and
+# under shard_cache_seq by two engines over the one sharded tree
+MLA_TP_MESH = (1, 2)
+MLA_TP_POLICIES = ({}, {"shard_cache_seq": True})
 # decode against forward, absolute and relative: the reference's own
 # decode-matches-forward tolerance (tests/test_models_smoke.py); the
 # absorbed MLA decode and the materialised forward contract the latent
@@ -449,12 +492,14 @@ BACKEND_STEPS = 300
 # training over the model mesh: the tiny meshes (arch -> (dp, tp),
 # for_mesh keywords), the full-width meshes of TRAIN_ARCH, the elastic
 # restore's (mesh, mesh resumed on, step saved, last step)
-TRAIN_TP_TINY = {"qwen2.5-32b": ((2, 4), {"shard_kv_heads": False}),
-                 "olmoe-1b-7b": ((2, 2), {}),
-                 "mamba2-370m": ((2, 2), {}),
-                 "hymba-1.5b": ((2, 2), {"dp_over_tp": True}),
-                 "whisper-small": ((2, 2), {"dp_over_tp": True}),
-                 "paligemma-3b": ((1, 2), {})}
+TRAIN_TP_TINY = (("qwen2.5-32b", (2, 4), {"shard_kv_heads": False}),
+                 ("olmoe-1b-7b", (2, 2), {}),
+                 ("mamba2-370m", (2, 2), {}),
+                 ("hymba-1.5b", (2, 2), {"dp_over_tp": True}),
+                 ("whisper-small", (2, 2), {"dp_over_tp": True}),
+                 ("paligemma-3b", (1, 2), {}),
+                 ("deepseek-v3-671b", (2, 2), {}),
+                 ("deepseek-v3-671b", (1, 2), {}))
 # the SSM at full width over (2, 2), train's batch shape, against one
 # device (the same step: 2 microbatches, remat "full", fp32)
 TRAIN_TP_SSM = (SSM_ARCH, (2, 2))
@@ -2078,6 +2123,9 @@ def timed_serve(eng, prompts) -> tuple[list[str], dict]:
             events[name].append((a, b))
         setattr(sched, name, run)
 
+    # a wrapper already set on the instance (``record_serving``'s) is
+    # wrapped in turn and restored after
+    saved = {name: sched.__dict__.get(name) for name in events}
     for name in events:
         wrap(name)
     t0 = time.perf_counter()
@@ -2087,7 +2135,10 @@ def timed_serve(eng, prompts) -> tuple[list[str], dict]:
             torch.cuda.synchronize(eng.device)
     finally:
         for name in events:
-            delattr(sched, name)
+            if saved[name] is None:
+                delattr(sched, name)
+            else:
+                setattr(sched, name, saved[name])
     wall = time.perf_counter() - t0
 
     def each_ms(name):
@@ -2444,6 +2495,7 @@ def run_serve_tp(device, arch: str = MOE_ARCH, meshes=TP_MESHES[MOE_ARCH],
                 "launches": {k: _build.LAUNCHES[k] for k in LLM_KERNELS},
                 "shapes": {k: list(v) for k, v in _build.MAX_SHAPES.items()
                            if k in LLM_KERNELS},
+                "k8_routes": k8_routes(),
                 "peak_device_bytes": (torch.cuda.max_memory_allocated(
                     device) if cuda else None)}
         kern, plain = engs
@@ -2478,6 +2530,11 @@ def run_serve_tp(device, arch: str = MOE_ARCH, meshes=TP_MESHES[MOE_ARCH],
             if any(res["plain"]["launches"].values()):
                 raise AssertionError(f"serve_tp {label}: the plain engine "
                                      f"launched {res['plain']['launches']}")
+            if rep.get("shard_cache_seq") and set(k["k8_routes"]) != {
+                    "lengths_lse"}:
+                raise AssertionError(f"serve_tp {cfg.name} {label}: K8 "
+                                     f"routes {k['k8_routes']}, not its "
+                                     f"log-sum-exp route alone")
         # the two waves a round apart, both paths
         waves, stag, sroutes = prompts[:4 * b], {}, {}
         for path, eng in zip(("kernel", "plain"), engs):
@@ -2495,6 +2552,10 @@ def run_serve_tp(device, arch: str = MOE_ARCH, meshes=TP_MESHES[MOE_ARCH],
         res["staggered"] = {"prompts": 4 * b, "tokens_compared": sum(
             map(len, kr["ids"])), "mid_decode_admissions":
             kr["mid_decode_admissions"]}
+        if rep.get("shard_cache_seq"):
+            res["spread_admission"] = spread_admission(
+                f"serve_tp {cfg.name} {label}", engs, ServingEngine(
+                    cfg, params, device=device, **serve), grid.tp)
         # one admission's prefill logits against one device's, where no
         # row drops (capacity factor E/k for the MoE)
         nd = (cfg.replace(moe_capacity_factor=cfg.num_experts
@@ -2535,7 +2596,57 @@ def run_serve_tp(device, arch: str = MOE_ARCH, meshes=TP_MESHES[MOE_ARCH],
     out["tolerance"] = TP_LOGIT_TOLERANCE
     out["answer_sample"] = answers["kernel"][:4]
     out["engines"] = engines
+    out["single"] = single
     return out
+
+
+def k8_routes() -> dict:
+    """K8's launches since the last reset, by route (``lengths``,
+    ``slot_mask``, ``lengths_lse``, ...)."""
+    from repro_torch.kernels import _build
+
+    out: dict = {}
+    for (name, var, _), n in _build.SHAPE_LAUNCHES.items():
+        if name == "decode_attention":
+            out[var] = out.get(var, 0) + n
+    return out
+
+
+def spread_admission(label: str, engs, one, tp: int) -> dict:
+    """One admission of a full batch whose prompts' lengths spread from
+    3 tokens to ``max_seq``, so that the first decode positions lie in
+    every tensor-parallel rank's slice of a cache split over the
+    sequence, and a round has rows with nothing live in a rank's slice
+    beside live ones: the mesh engines' (``engs``, kernel and plain
+    path) token ids equal the single-device engine ``one``'s."""
+    kern = engs[0]
+    b = kern.batch_size
+    words = ["is", "the", "review", "positive", "product", "winter",
+             "garden", "seasonal", "category", "answer"]
+    lens = [1 + (kern.max_seq - 2) * i // (b - 1) for i in range(b)]
+    prompts = [" ".join(words[j % len(words)] for j in range(n))
+               for n in lens]
+    ids = {}
+    for name, eng in (("kernel", engs[0]), ("plain", engs[1]),
+                      ("one_device", one)):
+        rec = record_serving(eng)
+        try:
+            eng.answer(prompts)
+        finally:
+            unrecord_serving(eng)
+        ids[name] = rec["ids"]
+    n = [kern.encode_row(p)[1] for p in prompts]
+    c = -(-kern.cache_len // tp)
+    reached = sorted({(m - 1) // c for m in n})
+    if len(reached) < tp:
+        raise AssertionError(f"{label} (spread): first decode positions "
+                             f"reach ranks {reached} of {tp}")
+    for name in ("kernel", "plain"):
+        if ids[name] != ids["one_device"]:
+            raise AssertionError(f"{label} (spread): the {name} path's ids "
+                                 f"differ from one device's")
+    return {"prompt_lengths": n, "slice": c, "ranks_reached": reached,
+            "tokens_compared": sum(map(len, ids["kernel"]))}
 
 
 def attn_weights(cfg) -> int:
@@ -2999,6 +3110,231 @@ def mla_decode_check(cfg, params, device, seed: int = 0, batch: int = 2,
             "router_topk_diff": router_topk_diff(dec, plain)}
 
 
+def mla_one_device(eng, n_prompts: int = MLA_PROMPTS, seed: int = 0
+                   ) -> dict:
+    """What ``serve_tp_mla`` holds the mesh to, from ``serve_mla``'s
+    one-device engine ``eng``: the answers, token ids and routings
+    (``pinned_routes``) of ``n_prompts`` prompts served continuously,
+    of the two waves of 64, and of one admission's prefill with its
+    logits."""
+    import torch
+
+    from repro_torch.models import prefill
+
+    prompts = serve_prompts(n_prompts, seed)
+    b = eng.batch_size
+    one = {"routes": [], "wave_routes": [], "prefill_routes": []}
+    with pinned_routes(record=one["routes"]):
+        rec = record_serving(eng)
+        try:
+            one["answers"] = eng.answer(prompts)
+        finally:
+            unrecord_serving(eng)
+    one["ids"] = rec["ids"]
+    with pinned_routes(record=one["wave_routes"]):
+        one["waves"], wrec = staggered_serve(eng, prompts[:4 * b], b // 2)
+    one["wave_ids"] = wrec["ids"]
+    toks = torch.from_numpy(np.stack([eng.encode_row(p)[0]
+                                      for p in prompts[:b]])).to(eng.device)
+    with torch.no_grad(), pinned_routes(record=one["prefill_routes"]):
+        one["logits"], _ = prefill(eng.cfg, eng.params, {"tokens": toks},
+                                   max_seq=eng.cache_len)
+    one["tokens"] = toks
+    return one
+
+
+def hold_to_one_device(label: str, want: list, routes: list, got: list,
+                       got_routes: list, tp: int, rerun) -> dict | None:
+    """A mesh run's answers ``got`` against one device's ``want``:
+    ``hold_paths``' tie rule, the mesh's routings (``tp`` positions
+    route the same tokens a layer at dp = 1) taken a position once, and
+    ``rerun()`` the mesh run with one device's routings replayed at
+    every position."""
+    return hold_paths(label, (), None, {"kernel": want, "plain": got},
+                      {"kernel": routes, "plain": got_routes[::tp]}, rerun)
+
+
+def replay_each(routes: list, tp: int) -> list:
+    """One device's routings, each repeated for the ``tp`` positions
+    that route a layer's tokens on the mesh."""
+    return [r for r in routes for _ in range(tp)]
+
+
+def run_serve_tp_mla(device, one: dict, tiny: bool = False,
+                     n_prompts: int = MLA_PROMPTS, seed: int = 0,
+                     serve=SERVE, mesh=MLA_TP_MESH,
+                     policies=MLA_TP_POLICIES) -> dict:
+    """deepseek-v3-671b at full width (one layer; ``tiny`` for a CPU
+    rehearsal) over a model mesh whose positions all lie on ``device``:
+    the tree made again from ``serve_mla``'s seed and laid out leaf by
+    leaf (``shard_params(consume=True)``: each whole leaf freed as its
+    parts are made, so the whole tree and its parts are never on the
+    card together), then two engines over it, one a policy of
+    ``policies`` (the default, the latent cache one tensor a card; and
+    ``shard_cache_seq``, each rank a slice of its positions): each
+    serves ``n_prompts`` prompts continuously and drained (identical),
+    then the two waves of 64; the continuous answers and ids and the
+    two waves' held to one device's (``one``, from ``mla_one_device``)
+    under ``hold_paths``' tie rule (a first routing split at a top-k
+    gap of at most ROUTE_TIE, after which the answers with one device's
+    routings replayed must be identical: the mesh sums its two ranks'
+    attention and experts in another order); one admission's prefill
+    logits within TP_LOGIT_TOLERANCE of one device's (with its routings
+    replayed after such a split); no K7/K8 launch (MLA has no kernel).
+    Records admission and round ms (CUDA events, eager), the latent
+    cache's parts and bytes, and peak memory, which must stay under the
+    card's."""
+    import torch
+
+    from repro_torch.configs import get_config, get_tiny
+    from repro_torch.kernels import _build
+    from repro_torch.models import count_params, init_params, prefill
+    from repro_torch.models.params import shard_params
+    from repro_torch.serving import ServingEngine
+    from repro_torch.sharding.model import mesh_grid
+
+    cfg = get_tiny(MLA_ARCH) if tiny else get_config(MLA_ARCH).replace(
+        num_layers=1)
+    cuda = device.type == "cuda"
+    dp, tp = mesh
+    prompts = serve_prompts(n_prompts, seed)
+    b = serve["batch_size"]
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(device)
+
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    base = _mesh_policy(device, dp, tp)
+    tree = init_params(cfg, torch.Generator(device=device).manual_seed(seed),
+                       device=device)
+    sync()
+    init_s = time.perf_counter() - t0
+    sp = shard_params(cfg, tree, base, consume=True)
+    del tree
+    sync()
+    out = {"arch": cfg.name, "params": count_params(cfg),
+           "reduced": {} if tiny else MLA_REDUCED, "mesh": [dp, tp],
+           "prompts": n_prompts, **serve, "init_s": init_s,
+           "shard_s": time.perf_counter() - t0 - init_s,
+           "shard_peak_device_bytes": (torch.cuda.max_memory_allocated(
+               device) if cuda else None),
+           "sharded_bytes": (torch.cuda.memory_allocated(device)
+                             if cuda else None),
+           "policies": {}}
+    card = (torch.cuda.get_device_properties(device).total_memory
+            if cuda else None)
+    for rep in policies:
+        pol = base.replace(**rep)
+        label = mesh_label((dp, tp, rep))[3]
+        eng = ServingEngine(cfg, sp, device=device, policy=pol, **serve)
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        _build.reset_launches()
+        routes = []
+        with pinned_routes(record=routes):
+            rec = record_serving(eng)
+            try:
+                answers, t = timed_serve(eng, prompts)
+            finally:
+                unrecord_serving(eng)
+        st = eng.stats
+        launches = {k: _build.LAUNCHES[k] for k in LLM_KERNELS}
+        latent = eng.scheduler._cache["ckv"]
+        res = {"grid": [mesh_grid(pol).dp, mesh_grid(pol).tp],
+               "admissions": st.batches, "decode_rounds": st.decode_steps,
+               "wall_s": t["wall_s"], "prefill_s": t["prefill_s"],
+               "decode_s": t["decode_s"],
+               "admission_eager_ms": t["prefill_s"] / st.batches * 1e3,
+               "round_eager_ms": t["decode_s"] / st.decode_steps * 1e3,
+               "launches": launches,
+               "latent_cache_parts": len(latent.distinct()),
+               "latent_cache_part_shape": list(latent.parts[0, 0].shape),
+               "peak_device_bytes": (torch.cuda.max_memory_allocated(device)
+                                     if cuda else None)}
+        if any(launches.values()):
+            raise AssertionError(f"serve_tp_mla {label}: MLA launched "
+                                 f"{launches}")
+        if cuda and res["peak_device_bytes"] >= card:
+            raise AssertionError(f"serve_tp_mla {label}: peak "
+                                 f"{res['peak_device_bytes']} bytes")
+        res["route_tie"] = hold_to_one_device(
+            f"serve_tp_mla {label}", one["answers"], one["routes"], answers,
+            routes, tp, lambda: _replayed(
+                lambda: eng.answer(prompts), replay_each(one["routes"], tp)))
+        if res["route_tie"] is None and rec["ids"] != one["ids"]:
+            raise AssertionError(f"serve_tp_mla {label}: token ids differ "
+                                 f"from one device's")
+        drained = eng.answer_drained(prompts)
+        if drained != answers:
+            raise AssertionError(f"serve_tp_mla {label}: "
+                                 f"{sum(a != c for a, c in zip(drained, answers))}"
+                                 f" drained answers differ from the "
+                                 f"continuous")
+        waves, wroutes = prompts[:4 * b], []
+        with pinned_routes(record=wroutes):
+            wa, wrec = staggered_serve(eng, waves, b // 2)
+        res["staggered_route_tie"] = hold_to_one_device(
+            f"serve_tp_mla {label} (staggered)", one["waves"],
+            one["wave_routes"], wa, wroutes, tp, lambda: _replayed(
+                lambda: staggered_serve(eng, waves, b // 2)[0],
+                replay_each(one["wave_routes"], tp)))
+        if not wrec["mid_decode_admissions"]:
+            raise AssertionError(f"serve_tp_mla {label} (staggered): no "
+                                 f"slot was refilled mid-decode")
+        res["staggered"] = {"prompts": 4 * b, "tokens_compared": sum(
+            map(len, wrec["ids"])), "mid_decode_admissions":
+            wrec["mid_decode_admissions"]}
+        res["tokens_compared"] = sum(map(len, rec["ids"]))
+        # one admission's prefill logits, with one device's routings
+        # replayed where the mesh's first split at a near tie
+        proutes = []
+        with torch.no_grad():
+            with pinned_routes(record=proutes):
+                lm, _ = prefill(cfg, sp, {"tokens": one["tokens"]},
+                                max_seq=eng.cache_len, policy=pol)
+            split = route_split(one["prefill_routes"], proutes[::tp])
+            if split is not None:
+                if split["gap"] is None or split["gap"] > ROUTE_TIE:
+                    raise AssertionError(f"serve_tp_mla {label}: prefill "
+                                         f"routing split {split}")
+                with pinned_routes(replay=replay_each(
+                        one["prefill_routes"], tp)):
+                    lm, _ = prefill(cfg, sp, {"tokens": one["tokens"]},
+                                    max_seq=eng.cache_len, policy=pol)
+        scale = float(one["logits"].abs().max())
+        err = float((lm - one["logits"]).abs().max())
+        if not (bool(torch.isfinite(lm).all())
+                and err <= TP_LOGIT_TOLERANCE * scale):
+            raise AssertionError(f"serve_tp_mla {label}: prefill logits "
+                                 f"{err} from one device's (max|logit| "
+                                 f"{scale})")
+        res.update(prefill_logit_max_abs_diff=err,
+                   prefill_logit_max_abs=scale, prefill_route_split=split,
+                   answers_identical=res["route_tie"] is None)
+        out["policies"][label] = res
+        del eng, lm
+        gc.collect()
+    out["tolerance"] = TP_LOGIT_TOLERANCE
+    out["card_bytes"] = card
+    out["answer_sample"] = one["answers"][:4]
+    del sp
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def _replayed(run, routes: list):
+    with pinned_routes(replay=routes):
+        return run()
+
+
 def modal_inputs(cfg, rows: int, seed: int) -> dict:
     """The stub frontend's embeddings a family needs beside its tokens,
     unit-normal float32 from ``seed``: ``frames`` (rows, encoder_seq, D)
@@ -3211,8 +3547,9 @@ def run_multimodal(device, phase: str, tiny: bool = False,
 
 # the encoder-decoder and the VLM over model meshes of the card (mm_tp):
 # mesh entries as TP_MESHES'
-MM_TP_MESHES = {"encdec": ((2, 2, {"dp_over_tp": True}), (1, 2)),
-                "vlm": ((1, 2), (2, 2))}
+MM_TP_MESHES = {"encdec": ((2, 2, {"dp_over_tp": True}), (1, 2),
+                           (1, 2, {"shard_cache_seq": True})),
+                "vlm": ((1, 2), (2, 2), (1, 2, {"shard_cache_seq": True}))}
 
 
 def run_multimodal_tp(device, phase: str, one: dict, tiny: bool = False,
@@ -3317,8 +3654,20 @@ def run_multimodal_tp(device, phase: str, one: dict, tiny: bool = False,
         k7, k8 = modal_launches(f"mm_tp {cfg.name} {label}", cfg,
                                 res["paths"]["kernel"]["shape_launches"],
                                 steps, n, cuda)
+        # under shard_cache_seq self decode reads each rank's slice of the
+        # sequence through K8's log-sum-exp route; cross decode keeps its
+        # lengths route over the whole xk/xv of its KV heads
+        self_routes = {e["variant"] for e in res["paths"]["kernel"][
+            "shape_launches"] if e["kernel"] == "decode_attention" and not (
+                cfg.encoder_layers and e["shape"][3] == cfg.encoder_seq)}
+        want_route = "lengths_lse" if rep.get("shard_cache_seq") \
+            else "lengths"
+        if cuda and self_routes != {want_route}:
+            raise AssertionError(f"mm_tp {cfg.name} {label}: K8 self-decode "
+                                 f"routes {self_routes}, not {want_route}")
         res.update(k7_by_mode=k7, k8_by_decode=k8, ids_identical=True,
-                   greedy_ids=int(want_ids.numel()))
+                   greedy_ids=int(want_ids.numel()),
+                   k8_self_route=sorted(self_routes))
         out["meshes"][label] = res
         del sp
         gc.collect()
@@ -3954,7 +4303,7 @@ def run_train_tp(device, single: dict, tiny: bool = False,
 
     _build.reset_launches()
     out = {"tiny": {}, "full_width": {}}
-    for arch, ((dp, tp), kw) in TRAIN_TP_TINY.items():
+    for arch, (dp, tp), kw in TRAIN_TP_TINY:
         cfg = get_tiny(arch)
         host = init_params(cfg, torch.Generator().manual_seed(0),
                            device="cpu")
@@ -3963,7 +4312,9 @@ def run_train_tp(device, single: dict, tiny: bool = False,
                 ("card_mesh", device, _mesh_policy(device, dp, tp, **kw)),
                 ("cpu_mesh", cpu, _mesh_policy(cpu, dp, tp, **kw)),
                 ("card_one", device, None)):
-            if name == "card_one" and cfg.num_experts:
+            if name == "card_one" and cfg.num_experts and (
+                    cfg.moe_capacity_factor
+                    < cfg.num_experts / cfg.experts_per_tok):
                 continue  # capacity per data-parallel chunk: no match
             losses, params, _ = _mesh_train(
                 cfg, _tree_to(host, dev), pol, batches(cfg, range(3), dev),
@@ -3983,7 +4334,7 @@ def run_train_tp(device, single: dict, tiny: bool = False,
                 raise AssertionError(f"train_tp {arch} {dp}x{tp}: losses "
                                      f"{got[0]} vs {name} {runs[name][0]}, "
                                      f"max|dparam| {dparam}")
-        out["tiny"][arch] = res
+        out["tiny"][f"{arch} {dp}x{tp}"] = res
 
     cfg = get_tiny(TRAIN_ARCH) if tiny else get_config(TRAIN_ARCH)
     want = [single["microbatch_first_loss"]["2"],
@@ -4819,15 +5170,80 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
     # each shard's local heads over a model mesh of the card
     for path, (k7s, k8s, lens) in llm.get("tp", {}).items():
         k8_extra[f"at_{path}"] = k8_at(tuple(k8s), lens, path, path)
+    def k8_err(got, want, lm) -> float:
+        """K8 against its plain version: the output, and on the
+        log-sum-exp route also the lse of the rows with a live slot;
+        there a row with nothing live must be exactly 0 and -inf."""
+        if not isinstance(got, tuple):
+            return float((got - want).abs().max())
+        (o, lse), (wo, wl) = got, want
+        live = lm > 0
+        if bool(torch.isnan(o).any() or torch.isnan(lse).any()) or not (
+                bool(torch.isneginf(lse[~live]).all())
+                and not bool(o[~live].any())):
+            raise AssertionError("K8's log-sum-exp route: a row with "
+                                 "nothing live is not 0 and -inf")
+        return max(float((o - wo).abs().max()), float(
+            (lse[live] - wl[live]).abs().max()) if bool(live.any()) else 0.0)
+
+    def k8_lse_at(shape, lens, path, label):
+        """K8's log-sum-exp route at one rank's slice (B, H, K, n, d) of
+        a cache split over the sequence, ``lens`` its lengths clamp(pos +
+        1 - lo, 0, n) (0: a row with nothing live there), that path's
+        launches; the library call is SDPA over the same mask, the
+        output alone."""
+        Bm, Hm, Km, Tm, dm = shape
+        lm = torch.tensor(list(lens)[:Bm], dtype=torch.int32, device=device)
+        qm = torch.randn(Bm, Hm, dm, generator=g, device=device)
+        km, vm = (torch.randn(Bm, Tm, Km, dm, generator=g, device=device)
+                  .permute(0, 2, 1, 3) for _ in range(2))
+
+        def k8m():
+            return decode_attention_kernel(qm, km, vm, lm, return_lse=True)
+
+        def k8p():
+            return decode_attention_ref(qm, km, vm, lm, return_lse=True)
+
+        errm = k8_err(k8m(), k8p(), lm)
+        if not errm <= TOLERANCE:
+            raise AssertionError(f"K8 lse at the {label} shape: {errm}")
+        live_m = int(lm.sum())
+        b_ms, b_by = bound_ms(
+            4 * (2 * Bm * Hm * dm + Bm * Hm + 2 * Km * dm * live_m + Bm),
+            4 * dm * Hm * live_m)
+        mask_m = (torch.arange(Tm, device=device)[None, :]
+                  < lm[:, None])[:, None, None, :]
+        row_ = {
+            "route": "lengths_lse", "shape": list(shape), "live": live_m,
+            "lengths": lm.tolist(), "empty_rows": int((lm == 0).sum()),
+            "max_abs_err": errm,
+            "launches": by_path[path].get("decode_attention", 0),
+            "path": path, "ms": time_ms(k8m), "plain_ms": time_ms(k8p),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(sdpa_call(qm[:, :, None], km, vm,
+                                            attn_mask=mask_m)),
+            "library_call": "scaled_dot_product_attention(attn_mask, "
+                            "gqa), the output alone",
+            "wrapper_eager_ms": eager_ms(k8m),
+            "device_kernels": one_data_kernel(
+                f"K8 lse at {label}", k8m, "decode_kernel", memset=True)}
+        del qm, km, vm
+        return row_
+
+    for label, (shape, lens, path) in llm.get("k8_lse", {}).items():
+        k8_extra[f"lse_at_{label}"] = k8_lse_at(tuple(shape), lens, path,
+                                                label)
     # the encoder-decoder's self and cross decode and the VLM's decode:
     # lengths, every row at its phase's last step (cross: every encoder
-    # slot)
+    # slot); under shard_cache_seq the self decode's log-sum-exp route
+    # over a rank's slice, whose every slot is then live
     for phase, (entries, lens) in llm.get("multimodal", {}).items():
         for e in entries:
             if e["kernel"] != "decode_attention":
                 continue
             Bm, Hm, Km, Tm, dm = e["shape"]
             kind = "cross" if Tm == lens["cross"] else "self"
+            lse = e["variant"].endswith("_lse")
             lm = torch.full((Bm,), min(lens[kind], Tm), dtype=torch.int32,
                             device=device)
             qm = torch.randn(Bm, Hm, dm, generator=g, device=device)
@@ -4835,24 +5251,26 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
                                   device=device).permute(0, 2, 1, 3)
                       for _ in range(2))
 
-            def k8m(qm=qm, km=km, vm=vm, lm=lm):
-                return decode_attention_kernel(qm, km, vm, lm)
+            def k8m(qm=qm, km=km, vm=vm, lm=lm, lse=lse):
+                return decode_attention_kernel(qm, km, vm, lm,
+                                               return_lse=lse)
 
-            def k8p(qm=qm, km=km, vm=vm, lm=lm):
-                return decode_attention_ref(qm, km, vm, lm)
+            def k8p(qm=qm, km=km, vm=vm, lm=lm, lse=lse):
+                return decode_attention_ref(qm, km, vm, lm, return_lse=lse)
 
-            errm = float((k8m() - k8p()).abs().max())
+            errm = k8_err(k8m(), k8p(), lm)
             if not errm <= TOLERANCE:
                 raise AssertionError(f"K8 at {phase} {kind} {e['shape']}: "
                                      f"{errm}")
             live_m = int(lm.sum())
             b_ms, b_by = bound_ms(
-                4 * (2 * Bm * Hm * dm + 2 * Km * dm * live_m + Bm),
-                4 * dm * Hm * live_m)
+                4 * (2 * Bm * Hm * dm + Bm * Hm * lse + 2 * Km * dm * live_m
+                     + Bm), 4 * dm * Hm * live_m)
             mask_m = (torch.arange(Tm, device=device)[None, :]
                       < lm[:, None])[:, None, None, :]
             k8_extra[f"at_{phase}_{kind}"] = {
-                "shape": list(e["shape"]), "live": live_m,
+                "route": e["variant"], "shape": list(e["shape"]),
+                "live": live_m,
                 "lengths": lm[0].item(), "max_abs_err": errm,
                 "launches": e["launches"], "path": phase,
                 "ms": time_ms(k8m), "plain_ms": time_ms(k8p),
@@ -4980,6 +5398,25 @@ def ptxas_report(log: str) -> dict:
                 "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill"):
             spills.append({"function": fn, "line": ln})
     return {"lines": lines, "spills": spills}
+
+
+def k8_lse_cases(tp_seq: dict, AC) -> dict:
+    """The kernels line's K8 log-sum-exp rows at ``serve_tp_seq``'s rank
+    slice (B, H, K, n, d): the first decode round's lengths at the
+    second rank's slice [n, 2n) (rows whose position lies before it
+    hold nothing live there), and positions spread around the fourth
+    rank's (``attention_cases.slice_lengths``, several rows empty)."""
+    out = {}
+    for label, res in tp_seq["meshes"].items():
+        shape = res["kernel"]["shapes"]["decode_attention"]
+        n = shape[3]
+        out[f"serve_tp_seq_{label}_rank1"] = (
+            shape, [min(max(m - n, 0), n) for m in res["decode_lengths"]],
+            f"serve_tp_seq_{label}")
+        out[f"serve_tp_seq_{label}_empty_rows"] = (
+            shape, AC.slice_lengths(shape[0], n, 3 * n),
+            f"serve_tp_seq_{label}")
+    return out
 
 
 def require_launched(path: str, launches: dict, names) -> None:
@@ -5161,8 +5598,8 @@ def main() -> int:
     t0 = time.perf_counter()
     tp_dense = run_serve_tp(device, SERVE_ARCH, TP_MESHES[SERVE_ARCH],
                             params=engines[0].params)
-    del engines
     tp_dense.pop("engines")
+    single_dense = tp_dense.pop("single")
     gc.collect()  # an engine and its scheduler refer to each other
     torch.cuda.empty_cache()
     emit({"phase": "serve_tp_dense", **tp_dense,
@@ -5171,6 +5608,22 @@ def main() -> int:
     for label, res in tp_dense["meshes"].items():
         require_launched(f"serve_tp_dense {label}",
                          res["kernel"]["launches"], ATTN_KERNELS)
+    # the same weights over (1, 4) with the caches split over the
+    # sequence, held to the same single-device answers
+    t0 = time.perf_counter()
+    tp_seq = run_serve_tp(device, SERVE_ARCH, TP_SEQ_MESHES,
+                          params=engines[0].params, single=single_dense)
+    del engines, single_dense
+    tp_seq.pop("engines")
+    tp_seq.pop("single")
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_tp_seq", **tp_seq,
+          "seconds": time.perf_counter() - t0, "gpu": smi,
+          "note": TP_CARD_NOTE})
+    for label, res in tp_seq["meshes"].items():
+        require_launched(f"serve_tp_seq {label}", res["kernel"]["launches"],
+                         ATTN_KERNELS)
 
     served = {}
     for phase, arch, need in (("serve_ssm", SSM_ARCH, ("ssd_chunk",)),
@@ -5203,7 +5656,7 @@ def main() -> int:
                                     params=run["engines"][0].params,
                                     single=run["answers"],
                                     n_prompts=SSM_PROMPTS)
-        del tp_ssm[arch]["engines"]
+        del tp_ssm[arch]["engines"], tp_ssm[arch]["single"]
         gc.collect()
         torch.cuda.empty_cache()
     emit({"phase": "serve_tp_ssm", **tp_ssm,
@@ -5244,6 +5697,7 @@ def main() -> int:
     tp = run_serve_tp(device, MOE_ARCH, TP_MESHES[MOE_ARCH],
                       params=moe_engines[0].params, single=moe_answers)
     tp_engines = tp.pop("engines")
+    tp.pop("single")
     emit({"phase": "serve_tp", **tp, "seconds": time.perf_counter() - t0,
           "gpu": smi, "note": TP_CARD_NOTE})
     for label, res in tp["meshes"].items():
@@ -5275,10 +5729,20 @@ def main() -> int:
     if any(llm_mla["launches"][k] for k in LLM_KERNELS):
         raise AssertionError(f"llm_query_mla: MLA launched "
                              f"{llm_mla['launches']}")
-    # free the 54.85 GB model before the next
+    # one device's answers, routings and prefill logits for the mesh,
+    # then the 54.85 GB model freed before its mesh tree is made
+    t0 = time.perf_counter()
+    one_mla = mla_one_device(mla_engine)
     del mla_engine
     gc.collect()
     torch.cuda.empty_cache()
+    tp_mla = run_serve_tp_mla(device, one_mla)
+    del one_mla
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_tp_mla", **tp_mla,
+          "seconds": time.perf_counter() - t0, "gpu": smi,
+          "note": TP_CARD_NOTE})
 
     mm, mm_tp = {}, {}
     for phase in MULTIMODAL:
@@ -5356,6 +5820,7 @@ def main() -> int:
             for phase, run in (("serve_tp_dense", tp_dense),
                                ("serve_tp", tp))
             for label, res in run["meshes"].items()},
+        "k8_lse": k8_lse_cases(tp_seq, AC),
         "tp_window": {
             f"serve_tp_ssm_{label}": (
                 res["kernel"]["shapes"]["flash_attention"],
@@ -5399,8 +5864,11 @@ def main() -> int:
                         "llm_query_moe": llm_m["launches"],
                         **{f"{phase}_{label}": res["kernel"]["launches"]
                            for phase, run in (("serve_tp_dense", tp_dense),
+                                              ("serve_tp_seq", tp_seq),
                                               ("serve_tp", tp))
                            for label, res in run["meshes"].items()},
+                        **{f"serve_tp_mla_{label}": res["launches"]
+                           for label, res in tp_mla["policies"].items()},
                         "llm_query_tp": llm_tp["launches"],
                         "serve_mla": mla["continuous"]["launches"],
                         "llm_query_mla": llm_mla["launches"],

@@ -71,6 +71,16 @@
 // path never passes one (lengths = pos + 1; a row's current slot is
 // always live).
 //
+// The log-sum-exp route (lse non-null): the call also writes lse[b, h] =
+// log sum_{t live} exp(scale * q . k), the row's max plus the log of its
+// sum where the output is normalised (the single chunk's softmax, or the
+// combine's final running state), so that partial attentions over
+// slices of one cache combine exactly (sharding/model.py::
+// combine_partials: a cache split over the sequence across
+// tensor-parallel ranks, each slice's lengths clamp(pos + 1 - lo, 0, n)).
+// There a row may have nothing live in a slice: its output is 0 and its
+// lse -inf, so it weighs nothing in the combine.
+//
 // kChunk = 64 and 384 threads, chosen on an NVIDIA H100 80GB HBM3
 // (700 W) with chip_sweep.py (CUDA-graph replays, two rounds, ms) at
 // (16,24,2,131,128) with lengths / (16,25,5,131,64) with the slot mask /
@@ -132,6 +142,7 @@ struct Args {
   const int* pos;       // (B,) with slot_pos
   int window;
   float* o;
+  float* lse;  // (B, H) contiguous, or null
   int K, group, T, d, chunks;
   int stage;  // chunks the combine stages at once
   long long q_sb, q_sh;
@@ -232,6 +243,26 @@ __device__ void mean_of_v(const Args& a, int b, int kh) {
     for (int g = 0; g < a.group; ++g)
       a.o[b * a.o_sb + (kh * a.group + g) * a.o_sh + col] = mean;
   }
+}
+
+// the log-sum-exp route's answer for a row with nothing live: o = 0 and
+// lse = -inf for every head of the group
+__device__ void empty_row(const Args& a, int b, int kh) {
+  for (int i = threadIdx.x; i < a.group * a.d; i += kThreads) {
+    const int g = i / a.d;
+    a.o[b * a.o_sb + (kh * a.group + g) * a.o_sh + (i - g * a.d)] = 0.f;
+  }
+  for (int g = threadIdx.x; g < a.group; g += kThreads)
+    a.lse[(static_cast<long long>(b) * a.K + kh) * a.group + g] = -INFINITY;
+}
+
+// lse of the group's heads from the normalising (max, sum) in shared memory
+__device__ __forceinline__ void write_lse(const Args& a, int b, int kh,
+                                          const float* s_m,
+                                          const float* s_l) {
+  for (int g = threadIdx.x; g < a.group; g += kThreads)
+    a.lse[(static_cast<long long>(b) * a.K + kh) * a.group + g] =
+        s_m[g] + logf(s_l[g]);
 }
 
 // kDMax: the head_dim bound of the instance (kNarrowD or kMaxD)
@@ -401,11 +432,17 @@ decode_kernel(const Args a) {
         a.part_acc[(cell + c) * pairs + p] = acc;
       }
     }
-    if (n_arrive == 1) return;
+    if (n_arrive == 1) {
+      if (a.lse != nullptr) write_lse(a, b, kh, s_m, s_l);
+      return;
+    }
   } else {
     ac::wait<0>();
     if (n_arrive == 1) {  // nothing live in the row
-      mean_of_v(a, b, kh);
+      if (a.lse != nullptr)
+        empty_row(a, b, kh);
+      else
+        mean_of_v(a, b, kh);
       return;
     }
     for (int g = tid; g < group; g += kThreads) {
@@ -506,9 +543,13 @@ decode_kernel(const Args a) {
   }
 
   if (s_l[0] == 0.f) {  // nothing live in the row (every head alike)
-    mean_of_v(a, b, kh);
+    if (a.lse != nullptr)
+      empty_row(a, b, kh);
+    else
+      mean_of_v(a, b, kh);
     return;
   }
+  if (a.lse != nullptr) write_lse(a, b, kh, s_m, s_l);
 #pragma unroll
   for (int q = 0; q < kPairs; ++q) {
     const int p = tid + q * kThreads;
@@ -583,14 +624,16 @@ extern "C" long long repro_decode_scratch_bytes(int B, int H, int K, int T,
 // q: (B, H, d) with (b, h) strides; k/v: (B, K, T, d) with (b, kv, t)
 // strides; either lengths: (B,) int32 (slot_pos and pos null) or
 // slot_pos: (B, T) and pos: (B,) int32 with window >= 0 (lengths null),
-// contiguous; o: (B, H, d) with (b, h) strides; float32, unit stride on
-// d; H % K == 0, H / K <= 32, 1 <= d <= 256, B * K <= 65535; scratch:
+// contiguous; o: (B, H, d) with (b, h) strides; lse: (B, H) contiguous
+// float32, or null (the log-sum-exp route when given); float32, unit
+// stride on d; H % K == 0, H / K <= 32, 1 <= d <= 256, B * K <= 65535; scratch:
 // repro_decode_scratch_bytes(B, H, K, T, d) bytes, 16-byte aligned.
 // Returns the CUDA error code of the memset and the launch (0 on
 // success).
 extern "C" int repro_decode_attention(
     const void* q, const void* k, const void* v, const void* lengths,
-    const void* slot_pos, const void* pos, int window, void* o, int B,
+    const void* slot_pos, const void* pos, int window, void* o, void* lse,
+    int B,
     int H, int K, int T, int d, long long q_sb, long long q_sh,
     long long k_sb, long long k_sh, long long k_st, long long v_sb,
     long long v_sh, long long v_st, long long o_sb, long long o_sh,
@@ -608,6 +651,7 @@ extern "C" int repro_decode_attention(
   a.pos = static_cast<const int*>(pos);
   a.window = window;
   a.o = static_cast<float*>(o);
+  a.lse = static_cast<float*>(lse);
   a.K = K;
   a.group = H / K;
   a.T = T;

@@ -53,9 +53,9 @@ SIGNATURES = {
     # and o, scale, causal, window, stream
     "repro_flash_attention": (_P,) * 4 + (_I,) * 6 + (_LL,) * 12
     + (_F, _I, _I, _P),
-    # q, k, v, lengths, slot_pos, pos, window, o, B, H, K, T, d, q (b, h),
-    # k and v (b, kv, t), o (b, h) strides, scale, scratch, stream
-    "repro_decode_attention": (_P,) * 6 + (_I, _P) + (_I,) * 5
+    # q, k, v, lengths, slot_pos, pos, window, o, lse, B, H, K, T, d, q
+    # (b, h), k and v (b, kv, t), o (b, h) strides, scale, scratch, stream
+    "repro_decode_attention": (_P,) * 6 + (_I, _P, _P) + (_I,) * 5
     + (_LL,) * 10 + (_F, _P, _P),
     "repro_decode_chunk": (),
     # B, H, K, T, d -> scratch bytes
@@ -82,7 +82,8 @@ LAUNCHES = {"prefix_count": 0, "hash_rows": 0, "group_boundaries": 0,
 MAX_SHAPES: dict[str, tuple] = {}
 # (kernel name, variant, input shape) -> launches since the last
 # reset_launches(): K7's variant is its mask ("causal", "bidir", with
-# "+window"), K8's ("lengths", "slot_mask"), others' None
+# "+window"), K8's ("lengths", "slot_mask", "lengths_lse" and
+# "slot_mask_lse" for the log-sum-exp route), others' None
 SHAPE_LAUNCHES: dict[tuple, int] = {}
 
 _LIB: ctypes.CDLL | None = None

@@ -68,6 +68,22 @@ MESH_WINDOW_CASES = ((8, 25, 5, 128, 64, 2048), (4, 25, 5, 128, 64, 2048))
 MESH_RING_CASES = ((8, 25, 5, 131, 64, 2048), (4, 25, 5, 131, 64, 2048))
 MESH_PREFIX_CASES = ((16, 4, 1, 288, 256, 256),)
 MESH_CROSS_DECODE_CASES = ((16, 6, 6, 1500, 64), (4, 12, 12, 1500, 64))
+# K8's log-sum-exp route on one tensor-parallel rank's slice of a cache
+# split over the sequence (``shard_cache_seq``): every query head over
+# every KV head, (B, H, K, slice, d) — starcoder2-3b's 131 slots over 4
+# ranks (33), whisper-small's 64 over 2 (32), paligemma-3b's 304 over 2
+# (152, three chunks)
+MESH_SEQ_DECODE_CASES = ((16, 24, 2, 33, 128), (16, 12, 12, 32, 64),
+                         (16, 8, 1, 152, 256))
+
+
+def slice_lengths(B: int, n: int, lo: int) -> list[int]:
+    """K8's lengths clamp(pos + 1 - lo, 0, n) for B rows of a slice of
+    n slots starting at ``lo``, their positions spread from before the
+    slice (empty rows) to past its end (full ones)."""
+    a, b = max(lo - 4, 0), lo + n + 4
+    return [min(max(a + (b - a) * i // max(B - 1, 1) + 1 - lo, 0), n)
+            for i in range(B)]
 
 
 def ring_rows(W: int) -> list[tuple[int, int]]:

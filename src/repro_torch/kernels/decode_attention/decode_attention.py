@@ -16,6 +16,13 @@ one memset of the arrival counters. Two masks: the first
 head_dim runs to 256 (paligemma-3b) in a second instance of the kernel,
 whose combine keeps twice the registers; heads up to 128 keep the
 narrow instance. Bound: bytes, the live cache rows.
+
+The log-sum-exp route (``return_lse=True``) also returns each head's
+log-sum-exp of its scaled scores, written where the output is
+normalised, so that the attentions of the slices of one cache held by
+several tensor-parallel ranks combine exactly
+(``sharding/model.py::combine_partials``); a row with nothing live
+then gives 0 and -inf.
 """
 from __future__ import annotations
 
@@ -36,15 +43,19 @@ def decode_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                             lengths: torch.Tensor | None = None, *,
                             slot_pos: torch.Tensor | None = None,
                             pos: torch.Tensor | None = None,
-                            window: int = 0) -> torch.Tensor:
+                            window: int = 0, return_lse: bool = False):
     """q: (B, H, d), k/v: (B, K, T, d) float32 CUDA tensors with unit
     stride on d (the model passes permuted views of its (B, T, K, d)
     cache), and either ``lengths`` (B,) int32 — positions t < lengths[b]
     are live — or ``slot_pos`` (B, T) and ``pos`` (B,) int32 with
     ``window`` >= 0 — slot t is live iff 0 <= slot_pos[b,t] <= pos[b]
     and, for window > 0, pos[b] - slot_pos[b,t] < window. Returns
-    (B, H, d). Raises for a tensor off the card: there is no
-    fallback. One memset and one kernel launch on the current stream."""
+    (B, H, d), or with ``return_lse`` (out, lse): lse (B, H) float32
+    the natural log of the sum of exp(scale · q·k) over the row's live
+    slots, and a row with nothing live 0 and -inf (without it, the mean
+    of V, as the plain version). Raises for a tensor off the card: there
+    is no fallback. One memset and one kernel launch on the current
+    stream."""
     refuse_autograd("decode_attention_kernel", q, k, v)
     _build.check_cuda(q, "q", torch.float32, 3, contiguous=False)
     for t, name in ((k, "k"), (v, "v")):
@@ -82,8 +93,10 @@ def decode_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     if T == 0:
         raise ValueError("decode_attention: empty cache")
     out = torch.empty((B, H, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if B == 0:
-        return out
+        return (out, lse) if return_lse else out
     if B * K > MAX_ROW_HEADS:
         raise ValueError(f"{B} rows x {K} KV heads exceed {MAX_ROW_HEADS}")
     lib = _build.library()
@@ -92,9 +105,11 @@ def decode_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     _build.call("repro_decode_attention", q.device, _build.ptr(q),
                 _build.ptr(k), _build.ptr(v), _build.opt_ptr(lengths),
                 _build.opt_ptr(slot_pos), _build.opt_ptr(pos), int(window),
-                _build.ptr(out), B, H, K, T, d, *q.stride()[:2],
+                _build.ptr(out), _build.opt_ptr(lse), B, H, K, T, d,
+                *q.stride()[:2],
                 *k.stride()[:3], *v.stride()[:3], *out.stride()[:2],
                 1.0 / math.sqrt(d), _build.ptr(scratch), _build.stream(q))
+    route = "lengths" if lengths is not None else "slot_mask"
     _build.count_launch("decode_attention", (B, H, K, T, d),
-                        "lengths" if lengths is not None else "slot_mask")
-    return out
+                        f"{route}_lse" if return_lse else route)
+    return (out, lse) if return_lse else out

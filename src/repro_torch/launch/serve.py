@@ -1,5 +1,6 @@
 """Serving entry point: stand up an LM (dense, MoE, SSM, hybrid or MLA)
-behind the serving tier and answer prompts, on the card unless ``--device cpu``.
+behind the serving tier and answer prompts, on the card unless
+``--device cpu``.
 
     # full-width olmoe-1b-7b (the default), random weights (seed 0), on
     # the card
@@ -16,9 +17,12 @@ behind the serving tier and answer prompts, on the card unless ``--device cpu``.
         --tiny --device cpu --prompts "hello" "world"
 
     # MLA with a shared expert (deepseek-v3-671b's tiny config; its full
-    # width, 704 B parameters, fits no card)
+    # width, 704 B parameters, fits no card), also over a mesh
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch deepseek-v3-671b --tiny --prompts "hello" "world"
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch deepseek-v3-671b --tiny --device cpu --dp 2 --tp 2 \\
+        --prompts "hello" "world"
 
     # the trained 13M backend (examples/torch_train_backend.py)
     PYTHONPATH=src python -m repro_torch.launch.serve \\
@@ -42,9 +46,9 @@ reference's does, and they need frames or patches beside them (run
 them through ``repro_torch.models``' ``prefill`` / ``decode_step``).
 ``--dp``/``--tp`` serve over a model mesh (``launch/mesh.py``) under
 ``ShardingPolicy.for_mesh`` when it has more than one position, as the
-reference's entry point builds it (the dense, MoE and SSM families,
-and the hybrid at ``--tp 1``; hymba-1.5b's 25 query heads over 5 KV
-heads split no further yet, and MLA raises): on the card the mesh
+reference's entry point builds it (the dense, MoE, SSM and MLA
+families, and the hybrid at ``--tp 1``; hymba-1.5b's 25 query heads
+over 5 KV heads split no further): on the card the mesh
 takes dp·tp distinct cards and refuses with fewer, with ``--device
 cpu`` it repeats the CPU.
 """
@@ -111,7 +115,7 @@ def main(argv=None):
         params = init_params(cfg, gen, device=dev)
         print(f"[serve] random-weight {cfg.name} on {dev} (smoke mode)")
     if policy.active:
-        params = shard_params(cfg, params, policy)
+        params = shard_params(cfg, params, policy, consume=True)
         print(f"[serve] sharded over {mesh}")
     engine = ServingEngine(cfg, params,
                            tokenizer=HashTokenizer(cfg.vocab_size),

@@ -34,8 +34,9 @@ them).
 
 ``--dp``/``--tp`` (dp·tp > 1) train over ``make_mesh(dp, tp)`` under
 ``ShardingPolicy.for_mesh``, as the reference's entry point builds it
-(the dense, MoE and SSM families, and the hybrid at ``--tp 1``; MLA
-and its MTP loss raise): one distinct
+(the dense, MoE, SSM and MLA families, deepseek-v3-671b's MTP loss
+included, and the hybrid at ``--tp 1``; ``--tiny`` on the CPU): one
+distinct
 card a position on the card (``make_mesh`` raises with fewer), every
 position on the CPU with ``--device cpu``. The weights are made on the
 mesh's first device and laid out by ``shard_params``. Checkpoints hold
@@ -69,8 +70,8 @@ def main(argv=None):
     a checkpoint) and return the last step's loss."""
     ap = argparse.ArgumentParser(
         description="Train an LM (dense, MoE, SSM, hybrid or MLA with "
-                    "MTP) on one device, or any of them but MLA over a "
-                    "(dp, tp) model mesh (the hybrid at --tp 1).")
+                    "MTP) on one device or over a (dp, tp) model mesh "
+                    "(the hybrid at --tp 1).")
     ap.add_argument("--arch", default="stablelm-3b")
     ap.add_argument("--tiny", action="store_true",
                     help="use the reduced same-family config")
@@ -124,7 +125,7 @@ def main(argv=None):
     else:
         params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                              device=dev)
-        params = shard_params(cfg, params, policy)
+        params = shard_params(cfg, params, policy, consume=True)
         opt_state = init_state(params, opt_cfg)
 
     t0 = time.perf_counter()

@@ -55,11 +55,24 @@ heads they read, its ``d_ff`` slice) through the one-device code, so
 K7/K8 take their one-device routes at those local shapes (window,
 prefix, bidirectional, cross), their partial ``w_out``/``wo`` products
 all-reduced, and ``moe_block`` runs the reference's expert-parallel
-branches (``_moe_mesh``, ``_moe_dp_over_tp``).
+branches (``_moe_mesh``, ``_moe_dp_over_tp``). Under ``shard_cache_seq``
+(``sharding.model.seq_sharded``) a decode step's self-attention reads
+a cache split over the sequence: every rank attends with every query
+head over its slice of every KV head's positions (K8's log-sum-exp
+route, or the grouped einsum with its log-sum-exp), the slices merge
+by ``sharding.model.combine_partials``, and each rank takes its own
+heads through its ``wo`` part (``_decode_seq``).
 
 MLA has one path: the reference computes it with einsums outside any
 Pallas kernel, so there is no kernel to port; "auto" and "ref" both
-run it, and "kernel" raises (``check_mla_impl``).
+run it, and "kernel" raises (``check_mla_impl``), on a mesh too. Over
+a mesh ``mla_block`` and ``mla_decode`` run each rank's heads
+(``wuq``/``wuk``/``wuv``/``wo`` over ``heads``) on one latent a card:
+the query's down-projection and the latent, whose weights
+(``wdq``/``wdkv``, FSDP on ``embed``) every rank holds whole, are
+computed once for the positions that share a device, and the latent
+cache is one tensor a card (or, under ``shard_cache_seq``, each
+rank's slice of positions).
 
 The SSD scan has two paths too, chosen by ``ssd_impl``: "kernel" runs
 ``kernels/ssd/ops.py::ssd`` (K9 for the intra-chunk step, the
@@ -78,6 +91,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.decode_attention.ops import decode_attention
+from ..kernels.decode_attention.ref import softmax_lse
 from ..kernels.flash_attention.ops import flash_attention, prefix_attention
 from ..kernels.ssd import ops as ssd_ops
 from ..kernels.ssd.ref import ssd_reference  # noqa: F401  (re-export)
@@ -288,9 +302,17 @@ def attention_decode(cfg: ModelConfig, p, x, k_cache, v_cache, slot_pos,
     over its local heads and cache through the one-device code (K8 at
     those shapes on the kernel path, with the ring's slot mask under a
     window, over every encoder slot with ``cross``), and the partial
-    ``wo`` products are all-reduced over the tensor-parallel ranks."""
+    ``wo`` products are all-reduced over the tensor-parallel ranks.
+    Under ``shard_cache_seq`` each position's caches are its rank's
+    slice of the sequence (``_decode_seq``; not with ``cross``, whose
+    ``xk``/``xv`` carry no ``kv_seq``)."""
     if sm.on_mesh(policy):
         g = sm.mesh_grid(policy)
+        if sm.seq_sharded(policy) and not cross:
+            # no ring here: the hybrid, the one family with a window, is
+            # refused at tp > 1 (``lm.py::_check_mesh``)
+            return _decode_seq(cfg, p, x, k_cache, v_cache, slot_pos, pos,
+                               attn_impl, g)
         return sm.all_reduce(sm.gmap(
             lambda pl, xl, kc, vc, sp, ps: attention_decode(
                 cfg, pl, xl, kc, vc, sp, ps, attn_impl, window, cross),
@@ -330,6 +352,96 @@ def attention_decode(cfg: ModelConfig, p, x, k_cache, v_cache, slot_pos,
         bias = torch.where(ok, zero, torch.full_like(zero, -1e30))[:, None]
         out = gqa_attention(q, k_cache, v_cache, bias)
     return out.reshape(B, 1, -1) @ p["wo"].reshape(-1, cfg.d_model)
+
+
+def gqa_decode_lse(q, k, v, ok):
+    """The grouped einsum of one query token with its log-sum-exp: q
+    (B,H,hd), k/v (B,T,K,hd), ``ok`` (B,T) the live slots. Returns (out
+    (B,H,hd), lse (B,H)); a row with nothing live gives 0 and -inf."""
+    B, H, hd = q.shape
+    K = k.shape[2]
+    s = torch.einsum("bkgd,btkd->bkgt", q.reshape(B, K, H // K, hd),
+                     k).float() / math.sqrt(hd)
+    s = torch.where(ok[:, None, None], s, torch.full_like(s, -torch.inf))
+    w, lse = softmax_lse(s)
+    out = torch.einsum("bkgt,btkd->bkgd", w.to(q.dtype), v)
+    return out.reshape(B, H, hd), lse.reshape(B, H)
+
+
+def _owned(pos, lo: int, n: int):
+    """(slot, own): the local slot ``pos - lo`` of each row, clamped
+    into [0, n), and whether the row's position lies in the slice [lo,
+    lo + n) (n > 0)."""
+    loc = pos.long() - lo
+    return loc.clamp(0, n - 1), (loc >= 0) & (loc < n)
+
+
+def _write_owned(cache, new, slot, own) -> None:
+    """Write row b's ``new[b]`` into ``cache[b, slot[b]]`` in place where
+    ``own[b]``, leaving the other rows' slots as they were."""
+    bidx = torch.arange(cache.shape[0], device=cache.device)
+    old = cache[bidx, slot]
+    keep = own.view(-1, *([1] * (old.dim() - 1)))
+    cache[bidx, slot] = torch.where(keep, new.to(old.dtype), old)
+
+
+def _decode_seq(cfg: ModelConfig, p, x, k_cache, v_cache, slot_pos, pos,
+                attn_impl: str, g):
+    """``attention_decode`` over caches split over the sequence: each
+    rank's query heads gathered over the tensor-parallel ranks (every
+    rank has q for every head), the new token's K/V gathered over the
+    KV heads (``kv_owners``) and written only by the rank whose slice
+    holds slot ``pos``; each rank attends over its slice [lo, lo + n)
+    with every head, K8's log-sum-exp route with lengths clamp(pos + 1
+    - lo, 0, n) or the grouped einsum over its live slots; the partials
+    merge in rank order (``combine_partials``); each rank's heads go
+    through its ``wo`` part and the products are all-reduced."""
+    H, K, D = cfg.num_heads, cfg.num_kv_heads, cfg.d_model
+    loc = sm.local_grid(p, g)
+
+    def project(pl, xl, ps):
+        q, k, v = _qkv(cfg, pl, xl)
+        return (rope(q, ps[:, None], cfg.rope_theta)[:, 0],
+                rope(k, ps[:, None], cfg.rope_theta)[:, 0], v[:, 0])
+
+    q, k_new, v_new = sm.unzip(sm.gmap(project, loc, x, pos).grid, 3)
+    q = sm.all_gather(q, g, dim=1)
+    owners = sm.kv_owners(H, K, g.tp)
+    k_new = sm.gather_ranks(k_new, g, owners, dim=1)
+    v_new = sm.gather_ranks(v_new, g, owners, dim=1)
+    T = sum(k_cache[0, u].shape[1] for u in range(g.tp))
+    kernel = attn_path(attn_impl, x.grid[0, 0]) == "kernel"
+
+    def attend(it, qq, kc, vc, sp, ps, kn, vn):
+        lo, n = sm.seq_slice(T, g.tp, it[1])
+        B = qq.shape[0]
+        if n == 0:
+            return (qq.new_zeros(qq.shape), qq.new_full((B, H), -torch.inf,
+                                                        dtype=torch.float32))
+        slot, own = _owned(ps, lo, n)
+        _write_owned(kc, kn, slot, own)
+        _write_owned(vc, vn, slot, own)
+        _write_owned(sp, ps.to(sp.dtype), slot, own)
+        if kernel:
+            lengths = (ps.long() + 1 - lo).clamp(0, n).to(torch.int32)
+            return decode_attention(qq, kc.permute(0, 2, 1, 3),
+                                    vc.permute(0, 2, 1, 3), lengths,
+                                    impl="kernel", return_lse=True)
+        ok = (sp >= 0) & (sp <= ps[:, None])
+        return gqa_decode_lse(qq, kc, vc, ok)
+
+    parts = sm.gmap(attend, sm.positions(g), q, k_cache, v_cache, slot_pos,
+                    pos, k_new, v_new)
+    out = sm.combine_partials(*sm.unzip(parts.grid, 2), g)
+    h = H // g.tp
+
+    def proj(it, o, pl):
+        t = it[1]
+        return (o[:, t * h:(t + 1) * h].reshape(o.shape[0], 1, -1)
+                @ pl["wo"].reshape(-1, D))
+
+    return sm.all_reduce(sm.Rows(sm.gmap(proj, sm.positions(g), out, loc),
+                                 x.n), g)
 
 
 def _cross_decode(cfg: ModelConfig, p, x, xk, xv, attn_impl: str):
@@ -374,13 +486,23 @@ def _mla_scale(cfg: ModelConfig) -> float:
     return 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
 
 
-def _mla_q(cfg: ModelConfig, p, x, positions):
-    """The queries: (B,S,H,qk_nope) unroped and (B,S,H,qk_rope) roped."""
-    cq = rms_norm(_proj(x, p["wdq"]), p["q_ln"], cfg.norm_eps)
+def _mla_cq(cfg: ModelConfig, p, x):
+    """The query's normed down-projection (B,S,q_lora_rank)."""
+    return rms_norm(_proj(x, p["wdq"]), p["q_ln"], cfg.norm_eps)
+
+
+def _mla_q_up(cfg: ModelConfig, p, cq, positions):
+    """The queries of ``p``'s heads from ``cq``: (B,S,H,qk_nope) unroped
+    and (B,S,H,qk_rope) roped."""
     q = _proj(cq, p["wuq"])
     qn, qr = torch.split(q, [cfg.qk_nope_head_dim, cfg.qk_rope_head_dim],
                          dim=-1)
     return qn, rope(qr, positions, cfg.rope_theta)
+
+
+def _mla_q(cfg: ModelConfig, p, x, positions):
+    """The queries: (B,S,H,qk_nope) unroped and (B,S,H,qk_rope) roped."""
+    return _mla_q_up(cfg, p, _mla_cq(cfg, p, x), positions)
 
 
 def _mla_kv_latent(cfg: ModelConfig, p, x, positions):
@@ -394,53 +516,197 @@ def _mla_kv_latent(cfg: ModelConfig, p, x, positions):
     return ckv, k_rope
 
 
-def mla_block(cfg: ModelConfig, p, x):
-    """Causal MLA over positions ``arange(S)`` on every row (train
-    forward / prefill), per-head K/V materialised from the latent.
-    Returns (out (B,S,D), ckv, k_rope), the latent the decode cache
-    stores."""
-    B, S = x.shape[0], x.shape[1]
-    positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    qn, qr = _mla_q(cfg, p, x, positions)
-    ckv, k_rope = _mla_kv_latent(cfg, p, x, positions)
+# the MLA leaves every tensor-parallel rank holds whole (FSDP on
+# ``embed`` at most): the query's down-projection and the latent
+MLA_SHARED = ("wdq", "q_ln", "wdkv", "kv_ln")
+
+
+def _mla_shared(cfg: ModelConfig, p, x, positions):
+    """(cq, ckv, k_rope): the work of ``MLA_SHARED``, the same at every
+    tensor-parallel rank."""
+    return (_mla_cq(cfg, p, x), *_mla_kv_latent(cfg, p, x, positions))
+
+
+def _mla_shared_mesh(cfg: ModelConfig, p, x, g, pos=None):
+    """``_mla_shared`` over the mesh, at positions ``arange(S)`` or, with
+    ``pos`` (``Rows``), one decode token's: grids of cq, ckv and k_rope,
+    one call for the positions that share a device (``local_grid``
+    gives them one dict of ``MLA_SHARED``'s leaves), so the latent is
+    one tensor a card."""
+    shared = sm.local_grid({n: p[n] for n in MLA_SHARED}, g)
+
+    def one(pl, xl, ps):
+        return _mla_shared(cfg, pl, xl, _arange_positions(xl) if ps is None
+                           else ps[:, None])
+
+    return sm.unzip(sm.gmap(one, shared, x, pos).grid, 3)
+
+
+def _mla_attend(cfg: ModelConfig, p, cq, ckv, k_rope, positions):
+    """Causal MLA of ``p``'s heads over positions ``arange(S)``: the
+    queries from ``cq``, per-head K/V materialised from the latent;
+    returns ``p["wo"]``'s product (B,S,D)."""
+    B, S = cq.shape[0], cq.shape[1]
+    qn, qr = _mla_q_up(cfg, p, cq, positions)
     kn = _proj(ckv, p["wuk"])
     v = _proj(ckv, p["wuv"])
     scores = (torch.einsum("bshk,bthk->bhst", qn, kn)
               + torch.einsum("bshk,btk->bhst", qr, k_rope)).float()
     bias = _mask_bias(positions, positions)
     w = torch.softmax(scores * _mla_scale(cfg) + bias[:, None],
-                      dim=-1).to(x.dtype)
+                      dim=-1).to(cq.dtype)
     out = torch.einsum("bhst,bthk->bshk", w, v)
-    o = out.reshape(B, S, -1) @ p["wo"].reshape(-1, cfg.d_model)
-    return o, ckv, k_rope
+    return out.reshape(B, S, -1) @ p["wo"].reshape(-1, cfg.d_model)
 
 
-def mla_decode(cfg: ModelConfig, p, x, ckv_cache, krope_cache, pos):
+def _arange_positions(x):
+    B, S = x.shape[0], x.shape[1]
+    return torch.arange(S, device=x.device)[None].expand(B, S)
+
+
+def mla_block(cfg: ModelConfig, p, x, policy=None):
+    """Causal MLA over positions ``arange(S)`` on every row (train
+    forward / prefill), per-head K/V materialised from the latent.
+    Returns (out (B,S,D), ckv, k_rope), the latent the decode cache
+    stores.
+
+    Under an active ``policy`` (``p`` sharded, ``x`` ``Rows``) each
+    position computes its heads' ``qn``/``qr``/``kn``/``v`` from its
+    ``wuq``/``wuk``/``wuv`` parts over the latent of its device
+    (``_mla_shared_mesh``), the partial ``wo`` products all-reduced;
+    ckv and k_rope come back as grids of each position's latent."""
+    if sm.on_mesh(policy):
+        g = sm.mesh_grid(policy)
+        cq, ckv, k_rope = _mla_shared_mesh(cfg, p, x, g)
+        o = sm.gmap(lambda pl, xl, c, kv, kr: _mla_attend(
+            cfg, pl, c, kv, kr, _arange_positions(xl)),
+            sm.local_grid(p, g), x, cq, ckv, k_rope)
+        return sm.all_reduce(o, g), ckv, k_rope
+    positions = _arange_positions(x)
+    cq, ckv, k_rope = _mla_shared(cfg, p, x, positions)
+    return _mla_attend(cfg, p, cq, ckv, k_rope, positions), ckv, k_rope
+
+
+def _mla_write(ckv_cache, krope_cache, ckv_new, krope_new, pos) -> None:
+    """Write one token's latent at slot ``pos`` of each row, in place."""
+    bidx = torch.arange(ckv_cache.shape[0], device=ckv_cache.device)
+    slot = pos.long()
+    ckv_cache[bidx, slot] = ckv_new[:, 0]
+    krope_cache[bidx, slot] = krope_new[:, 0]
+
+
+def _mla_absorbed_q(cfg: ModelConfig, p, cq, pos):
+    """The absorbed queries of ``p``'s heads: ``q_abs`` (B,1,H,r), with
+    ``wuk`` folded in, and the roped ``qr`` (B,1,H,qk_rope)."""
+    qn, qr = _mla_q_up(cfg, p, cq, pos[:, None])
+    return torch.einsum("bshk,rhk->bshr", qn, p["wuk"]), qr
+
+
+def _mla_scores(cfg: ModelConfig, q_abs, qr, ckv_cache, krope_cache):
+    return (torch.einsum("bshr,btr->bhst", q_abs, ckv_cache)
+            + torch.einsum("bshk,btk->bhst", qr, krope_cache)
+            ).float() * _mla_scale(cfg)
+
+
+def _mla_out(cfg: ModelConfig, p, ctx):
+    """(B,1,H,r) context of ``p``'s heads through ``wuv`` and ``wo``."""
+    out = torch.einsum("bshr,rhk->bshk", ctx, p["wuv"])
+    return out.reshape(ctx.shape[0], 1, -1) @ p["wo"].reshape(
+        -1, cfg.d_model)
+
+
+def _mla_decode_heads(cfg: ModelConfig, p, cq, ckv_cache, krope_cache,
+                      pos):
+    """The absorbed step of ``p``'s heads over the whole latent cache,
+    every slot ``<= pos`` visible: (B,1,D)."""
+    q_abs, qr = _mla_absorbed_q(cfg, p, cq, pos)
+    T = ckv_cache.shape[1]
+    scores = _mla_scores(cfg, q_abs, qr, ckv_cache, krope_cache)
+    ok = torch.arange(T, device=cq.device)[None, :] <= pos[:, None]
+    zero = torch.zeros((), dtype=torch.float32, device=cq.device)
+    scores = scores + torch.where(ok, zero, torch.full_like(zero, -1e30)
+                                  )[:, None, None, :]
+    w = torch.softmax(scores, dim=-1).to(cq.dtype)
+    ctx = torch.einsum("bhst,btr->bshr", w, ckv_cache)  # (B,1,H,r)
+    return _mla_out(cfg, p, ctx)
+
+
+def mla_decode(cfg: ModelConfig, p, x, ckv_cache, krope_cache, pos,
+               policy=None):
     """Absorbed-form single-token MLA: ``wuk`` folds into the query and
     ``wuv`` into the output, so the step reads only the latent cache and
     never materialises per-head K/V. x: (B,1,D); caches ckv (B,T,r) and
     krope (B,T,qk_rope) are updated IN PLACE at slot ``pos`` of each
-    row; every slot ``<= pos`` is visible. Returns (B,1,D)."""
-    B = x.shape[0]
-    qn, qr = _mla_q(cfg, p, x, pos[:, None])
-    ckv_new, krope_new = _mla_kv_latent(cfg, p, x, pos[:, None])
-    bidx = torch.arange(B, device=x.device)
-    slot = pos.long()
-    ckv_cache[bidx, slot] = ckv_new[:, 0]
-    krope_cache[bidx, slot] = krope_new[:, 0]
-    q_abs = torch.einsum("bshk,rhk->bshr", qn, p["wuk"])  # (B,1,H,r)
-    T = ckv_cache.shape[1]
-    scores = (torch.einsum("bshr,btr->bhst", q_abs, ckv_cache)
-              + torch.einsum("bshk,btk->bhst", qr, krope_cache)
-              ).float() * _mla_scale(cfg)
-    ok = torch.arange(T, device=x.device)[None, :] <= pos[:, None]
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    scores = scores + torch.where(ok, zero, torch.full_like(zero, -1e30)
-                                  )[:, None, None, :]
-    w = torch.softmax(scores, dim=-1).to(x.dtype)
-    ctx = torch.einsum("bhst,btr->bshr", w, ckv_cache)  # (B,1,H,r)
-    out = torch.einsum("bshr,rhk->bshk", ctx, p["wuv"])
-    return out.reshape(B, 1, -1) @ p["wo"].reshape(-1, cfg.d_model)
+    row; every slot ``<= pos`` is visible. Returns (B,1,D).
+
+    Under an active ``policy`` (``p`` sharded, ``x`` and ``pos``
+    ``Rows``, the caches grids of each position's layer views) the new
+    latent is computed once a card and written once into each distinct
+    cache part: without ``shard_cache_seq`` the latent cache is
+    replicated over the tensor-parallel ranks (one tensor a card) and
+    each rank runs its heads over all of it; with it each rank holds a
+    slice of the positions (``_mla_decode_seq``). The partial ``wo``
+    products are all-reduced."""
+    if sm.on_mesh(policy):
+        g = sm.mesh_grid(policy)
+        cq, ckv_new, krope_new = _mla_shared_mesh(cfg, p, x, g, pos)
+        if sm.seq_sharded(policy):
+            return _mla_decode_seq(cfg, p, x, cq, ckv_new, krope_new,
+                                   ckv_cache, krope_cache, pos, g)
+        done = set()
+        for (i, t), part in np.ndenumerate(ckv_cache):
+            if id(part) not in done:
+                done.add(id(part))
+                _mla_write(part, krope_cache[i, t], ckv_new[i, t],
+                           krope_new[i, t], pos.grid[i, t])
+        return sm.all_reduce(sm.gmap(
+            lambda pl, c, kc, kr, ps: _mla_decode_heads(cfg, pl, c, kc, kr,
+                                                        ps),
+            sm.local_grid(p, g), cq, ckv_cache, krope_cache, pos), g)
+    cq, ckv_new, krope_new = _mla_shared(cfg, p, x, pos[:, None])
+    _mla_write(ckv_cache, krope_cache, ckv_new, krope_new, pos)
+    return _mla_decode_heads(cfg, p, cq, ckv_cache, krope_cache, pos)
+
+
+def _mla_decode_seq(cfg: ModelConfig, p, x, cq, ckv_new, krope_new,
+                    ckv_cache, krope_cache, pos, g):
+    """``mla_decode`` over latent caches split over the sequence: the
+    new latent written by the rank whose slice [lo, lo + n) holds slot
+    ``pos``; each rank's ``q_abs`` and ``qr`` gathered over the
+    tensor-parallel ranks; each rank's scores and context (B,1,H,r) of
+    every head over its slice, with their log-sum-exp; the partials
+    merged in rank order (``combine_partials``); each rank's heads
+    through its ``wuv`` and ``wo`` parts, the products all-reduced."""
+    H = cfg.num_heads
+    loc = sm.local_grid(p, g)
+    q = sm.gmap(lambda pl, c, ps: _mla_absorbed_q(cfg, pl, c, ps), loc, cq,
+                pos)
+    q_abs, qr = (sm.all_gather(a, g, dim=2) for a in sm.unzip(q.grid, 2))
+    T = sum(ckv_cache[0, u].shape[1] for u in range(g.tp))
+
+    def attend(it, qa, qq, kc, kr, cn, rn, ps):
+        lo, n = sm.seq_slice(T, g.tp, it[1])
+        B = qa.shape[0]
+        if n == 0:
+            return (qa.new_zeros((B, H, qa.shape[-1])),
+                    qa.new_full((B, H), -torch.inf, dtype=torch.float32))
+        slot, own = _owned(ps, lo, n)
+        _write_owned(kc, cn[:, 0], slot, own)
+        _write_owned(kr, rn[:, 0], slot, own)
+        s = _mla_scores(cfg, qa, qq, kc, kr)[:, :, 0]  # (B,H,n)
+        ok = lo + torch.arange(n, device=s.device)[None, :] <= ps[:, None]
+        s = torch.where(ok[:, None], s, torch.full_like(s, -torch.inf))
+        w, lse = softmax_lse(s)
+        return torch.einsum("bht,btr->bhr", w.to(qa.dtype), kc), lse
+
+    parts = sm.gmap(attend, sm.positions(g), q_abs, qr, ckv_cache,
+                    krope_cache, ckv_new, krope_new, pos)
+    ctx = sm.combine_partials(*sm.unzip(parts.grid, 2), g)
+    h = H // g.tp
+    return sm.all_reduce(sm.Rows(sm.gmap(
+        lambda it, c, pl: _mla_out(cfg, pl, c[:, None, it[1] * h:
+                                              (it[1] + 1) * h]),
+        sm.positions(g), ctx, loc), x.n), g)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,10 @@
 """The LM of every family: decoder-only (dense, MoE, SSM and hybrid,
 MLA and multi-token prediction), encoder-decoder (whisper) and VLM
 (paligemma): forward, the decode cache, prefill and one-token decode —
-the reference's ``src/repro/models/lm.py``, on one device and, for
-every family but MLA, over a model-parallel mesh (``policy=``, the
-reference's sharded ``jit``; ``abstract_cache`` and ``cache_specs``
-give the cache's shapes and specs).
+the reference's ``src/repro/models/lm.py``, on one device and over a
+model-parallel mesh (``policy=``, the reference's sharded ``jit``;
+``abstract_cache`` and ``cache_specs`` give the cache's shapes and
+specs).
 
 Entry points
 ------------
@@ -42,14 +42,17 @@ Under an active ``ShardingPolicy`` (``params`` from
 ``prefill`` and ``decode_step`` run every layer over the mesh's
 positions (``sharding/model.py``): the embedding and the logits sharded
 over the vocabulary (an all-reduce of the lookups, an all-gather of the
-logits), attention in every mode, the MLP and the mixture of experts as
-``models/layers.py`` shards them, the SSM on each position's rows (its
-weights replicated over the tensor-parallel ranks), the whisper
-encoder and the VLM's patch projection on each position's frames or
-patches (``_prepare_mesh``); the cache is per shard (``init_cache``)
-and the logits come back whole on the mesh's first device. ``forward_loss`` over the mesh is the global loss of the batch,
-and autograd runs back through every position to the parts of the
-``Sharded`` leaves (``training/train_step.py``).
+logits), attention in every mode and MLA, the MLP and the mixture of
+experts as ``models/layers.py`` shards them, the SSM on each position's
+rows (its weights replicated over the tensor-parallel ranks), the
+whisper encoder and the VLM's patch projection on each position's
+frames or patches (``_prepare_mesh``); the cache is per shard
+(``init_cache``; under ``shard_cache_seq`` the K/V, ``slot_pos`` and
+latent leaves split over the sequence) and the logits come back whole
+on the mesh's first device. ``forward_loss`` over the mesh is the
+global loss of the batch, the MTP loss included, and autograd runs
+back through every position to the parts of the ``Sharded`` leaves
+(``training/train_step.py``).
 """
 from __future__ import annotations
 
@@ -423,8 +426,12 @@ CACHE_AXES = {
 
 
 # the leaves whose dimension 3 holds KV heads: a tensor-parallel rank
-# holds those its query heads read (``sharding.model.kv_range``)
+# holds those its query heads read (``sharding.model.kv_range``), but
+# for a leaf split over the sequence (below), which holds every KV head
 KV_LEAVES = ("k", "v", "xk", "xv")
+# the leaves whose dimension 2 is ``kv_seq``: under ``shard_cache_seq``
+# each tensor-parallel rank holds a slice of their positions
+SEQ_LEAVES = ("k", "v", "slot_pos", "ckv", "krope")
 
 
 def abstract_cache(cfg, batch_size, max_seq, dtype=torch.bfloat16) -> dict:
@@ -452,20 +459,30 @@ def init_cache(cfg, batch_size, max_seq, dtype=torch.float32,
     the mesh (``device`` unused): rows over the data-parallel ranks in
     chunks of ceil(batch_size / DP) (the batch padded to DP chunks,
     as ``Rows`` pads activations), each tensor-parallel rank holding
-    the KV heads its query heads read."""
+    the KV heads its query heads read, or under ``shard_cache_seq``
+    (``sharding.model.seq_sharded``) the leaves of ``SEQ_LEAVES`` split
+    over the sequence, each rank's slice of positions of every KV head
+    (``seq_slice``). MLA's latent leaves are replicated over the
+    tensor-parallel ranks without the knob: one tensor a device."""
     if sm.on_mesh(policy):
         _check_mesh(cfg, policy)
         g = sm.mesh_grid(policy)
         batch_size = -(-batch_size // g.dp) * g.dp
         specs = cache_specs(cfg, batch_size, max_seq, policy)
         heads_tp = g.tp > 1 and policy.spec("heads")[0] == policy.tp_axis
+        seq = sm.seq_sharded(policy)
 
         def kv(t):
             return sm.kv_range(cfg.num_heads, cfg.num_kv_heads, g.tp, t)
+
+        def kv_dims(name):
+            on_heads = heads_tp and name in KV_LEAVES
+            return (3,) if on_heads and not (seq and name in SEQ_LEAVES) \
+                else ()
         return {name: sm.zeros(
             shape, torch.int32 if name == "slot_pos" else dtype, g,
-            specs[name], kv, (3,) if heads_tp and name in KV_LEAVES
-            else (), fill=-1 if name == "slot_pos" else 0)
+            specs[name], kv, kv_dims(name),
+            fill=-1 if name == "slot_pos" else 0)
             for name, shape in build_cache_spec(cfg, batch_size,
                                                 max_seq).items()}
     out = {}
@@ -572,32 +589,17 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos,
 
 def _check_mesh(cfg: ModelConfig, policy: ShardingPolicy) -> None:
     """The families the model-parallel port serves and trains: dense,
-    MoE, SSM, hybrid, encoder-decoder and VLM, under every policy knob
-    ``sharding.model.check_policy`` admits. MLA (its latent cache over
-    ``kv_seq``, with ``shard_cache_seq``) and the hybrid at tp > 1
-    without ``dp_over_tp`` (its 25 query heads over 5 KV heads make no
-    even groups a rank: ``kv_range``) come in a later slice."""
+    MoE, MLA (with its MTP loss), SSM, hybrid, encoder-decoder and VLM,
+    under every policy knob ``sharding.model.check_policy`` admits. The
+    hybrid at tp > 1 without ``dp_over_tp`` (its 25 query heads over 5
+    KV heads make no even groups a rank: ``kv_range``) raises."""
     check_supported(cfg)
     sm.check_policy(policy)
-    if cfg.use_mla:
-        raise sm.MeshNotPorted(
-            f"{cfg.name}: MLA under a model-parallel mesh comes in a later "
-            f"slice (with its latent cache over kv_seq, shard_cache_seq "
-            f"and the MTP loss)")
     if cfg.family == "hybrid" and sm.mesh_grid(policy).tp > 1:
         raise sm.MeshNotPorted(
-            f"{cfg.name}: the hybrid at tp > 1 without dp_over_tp comes in "
-            f"a later slice; it runs over the data axes, or over both "
-            f"with dp_over_tp")
-
-
-def check_mesh_loss(cfg: ModelConfig, policy: ShardingPolicy) -> None:
-    """What ``forward_loss`` trains over a mesh: ``_check_mesh``'s
-    families, without the MTP loss."""
-    _check_mesh(cfg, policy)
-    if cfg.mtp_depth:
-        raise sm.MeshNotPorted(f"{cfg.name}: the MTP loss under a "
-                               f"model-parallel mesh comes in a later slice")
+            f"{cfg.name}: the hybrid at tp > 1 without dp_over_tp is not "
+            f"run by the model-parallel port; it runs over the data axes, "
+            f"or over both with dp_over_tp")
 
 
 def _norm_mesh(cfg, h: "sm.Rows", w: "sm.Sharded", last: bool = False):
@@ -654,12 +656,32 @@ def _hybrid_mix(cfg, bp, a: "sm.Rows", s: "sm.Rows") -> "sm.Rows":
         a, s, bp["attn_norm"].parts, bp["ssm_norm"].parts)
 
 
-def _write_parts(leaf: "sm.Sharded", l: int, grid) -> None:
+def _seq_span(leaf: "sm.Sharded", i: int, t: int) -> tuple[int, int]:
+    """(lo, n): the positions [lo, lo + n) of dimension 2 (``kv_seq``)
+    that the part of (i, t) holds."""
+    lo, hi, _ = leaf.index[i, t][2].indices(leaf.shape[2])
+    return lo, hi - lo
+
+
+def _write_parts(leaf: "sm.Sharded", l: int, grid, name: str = "") -> None:
     """Write each position's value of ``grid`` into layer ``l`` of its
-    part of the cache leaf (``_write_kv``'s ring layout for keys and
-    values; a part shared by positions gets their one value)."""
+    part of the cache leaf, once a distinct part (positions sharing a
+    part give the same value): ``_write_kv``'s ring layout for keys and
+    values, or, for a leaf of ``SEQ_LEAVES`` split over the sequence,
+    the part's slice [lo, lo + n) of the S positions written."""
+    done = set()
     for (i, t), val in np.ndenumerate(grid):
-        _write_kv(leaf.parts[i, t][l], val)
+        part = leaf.parts[i, t]
+        if id(part) in done:
+            continue
+        done.add(id(part))
+        lo, n = (_seq_span(leaf, i, t) if name in SEQ_LEAVES
+                 else (0, leaf.shape[2]))
+        if (lo, n) == (0, leaf.shape[2]):
+            _write_kv(part[l], val)
+        else:
+            m = min(max(val.shape[1] - lo, 0), n)
+            part[l][:, :m] = val[:, lo:lo + m]
 
 
 def _block_mesh(cfg, bp, h, attn_impl, ssd_impl, policy, cache=None, l=0,
@@ -669,13 +691,21 @@ def _block_mesh(cfg, bp, h, attn_impl, ssd_impl, policy, cache=None, l=0,
     cross-attention over ``enc`` (``Rows`` of the encoder output), the
     FFN but for the SSM family; with ``cache`` each position's keys
     and values, SSM state and conv tail and cross K/V are written into
-    its shard of layer l."""
+    its shard of layer l (MLA's latent once a card; under
+    ``shard_cache_seq`` every KV head's keys and values, gathered over
+    the tensor-parallel ranks, into each rank's slice of positions)."""
     g = sm.mesh_grid(policy)
     x = _norm_mesh(cfg, h, bp["ln1"])
     written = {}
-    if cfg.family != "ssm":
+    if cfg.use_mla:
+        a, ckv, krope = mla_block(cfg, bp["mla"], x, policy=policy)
+        written.update(ckv=ckv, krope=krope)
+    elif cfg.family != "ssm":
         a, k, v = attention_block(cfg, bp["attn"], x, attn_impl,
                                   _window(cfg), mode, prefix, policy=policy)
+        if cache is not None and sm.seq_sharded(policy):
+            owners = sm.kv_owners(cfg.num_heads, cfg.num_kv_heads, g.tp)
+            k, v = (sm.gather_ranks(a_, g, owners, dim=2) for a_ in (k, v))
         written.update(k=k, v=v)
     if cfg.family in ("ssm", "hybrid"):
         s, state, conv = _ssm_mesh(cfg, bp["ssm"], x, ssd_impl, g)
@@ -691,7 +721,7 @@ def _block_mesh(cfg, bp, h, attn_impl, ssd_impl, policy, cache=None, l=0,
         h = sm.gmap(torch.add, h, xa)
     if cache is not None:
         for name, grid in written.items():
-            _write_parts(cache[name], l, grid)
+            _write_parts(cache[name], l, grid, name)
     if cfg.family == "ssm":
         return h
     x = _norm_mesh(cfg, h, bp["ln2"])
@@ -776,8 +806,10 @@ def _forward_loss_mesh(cfg, params, batch, remat, policy):
     rank's position (i, 0) only, the text positions' weighted nll (the
     VLM's image positions skipped, as the reference's ``forward_loss``
     skips them) and weights summed there; the sums of every rank added
-    in rank order on the mesh's first device."""
-    check_mesh_loss(cfg, policy)
+    in rank order on the mesh's first device; plus 0.3 times the MTP
+    loss over the mesh (``_mtp_loss_mesh``) when the configuration has
+    an MTP block."""
+    _check_mesh(cfg, policy)
     g = sm.mesh_grid(policy)
     h, toks, mode, n_img, enc = _prepare_mesh(cfg, params, batch, "ref",
                                               policy, remat)
@@ -785,21 +817,58 @@ def _forward_loss_mesh(cfg, params, batch, remat, policy):
                                      policy, remat=remat, mode=mode,
                                      prefix=n_img, enc=enc),
                    params["final_ln"])
-    part = _logit_parts(cfg, params, h, g)
-    home = sm.home_device(policy)
     S = batch["tokens"].shape[1]
+    loss = _xent_mesh(_logit_parts(cfg, params, h, g), toks, n_img, S - 1,
+                      1, policy)
+    if cfg.mtp_depth:
+        loss = loss + 0.3 * _mtp_loss_mesh(cfg, params, h, toks, n_img, S,
+                                           policy)
+    return loss
+
+
+def _xent_mesh(part: "sm.Rows", toks: "sm.Rows", first: int, n: int,
+               shift: int, policy) -> torch.Tensor:
+    """The global cross-entropy of the logits' positions [first, first +
+    n) against the tokens ``shift`` ahead (weight ``token != 0``): each
+    data rank's vocabulary parts gathered onto its position (i, 0), its
+    weighted nll and weights summed there, the sums of every rank added
+    in rank order on the mesh's first device."""
+    g = sm.mesh_grid(policy)
+    home = sm.home_device(policy)
     num = den = None
     for i in range(g.dp):
         dev = g.devices[i, 0]
         logits = torch.cat([part.grid[i, u].to(dev) for u in range(g.tp)],
                            dim=-1)
-        labels = toks.grid[i, 0][:, 1:].long()
+        labels = toks.grid[i, 0][:, shift:].long()
         w = (labels != 0).float()
-        n_i = torch.sum(_nll(logits[:, n_img:n_img + S - 1], labels,
+        n_i = torch.sum(_nll(logits[:, first:first + n], labels,
                              w)).to(home)
         d_i = torch.sum(w).to(home)
         num, den = (n_i, d_i) if num is None else (num + n_i, den + d_i)
     return num / torch.clamp(den, min=1.0)
+
+
+def _mtp_loss_mesh(cfg, params, h: "sm.Rows", toks: "sm.Rows", n_img: int,
+                   S: int, policy) -> torch.Tensor:
+    """``_mtp_loss`` over the mesh (the reference's ``_mtp_loss`` under
+    its policy): the next tokens' embeddings through the vocab-sharded
+    lookup, ``[h_t ; emb_{t+1}] · proj`` on each position (``proj``
+    FSDP-gathered), the MTP blocks through ``_block_mesh`` at
+    ``mtp_config`` (no checkpoint of their own, as on one device), the
+    final norm, the vocabulary parts of the logits and the global
+    cross-entropy of token t + 2."""
+    g = sm.mesh_grid(policy)
+    mtp = params["mtp"]
+    emb = _embed_mesh(params, sm.gmap(lambda tk: tk[:, 1:], toks), g)
+    x = sm.gmap(lambda hh, ee, pl: torch.cat(
+        [hh[:, n_img:n_img + S - 1], ee], dim=-1) @ pl["proj"], h, emb,
+        sm.local_grid({"proj": mtp["proj"]}, g))
+    x = _blocks_mesh(mtp_config(cfg), mtp["blocks"], x, "ref", "ref",
+                     policy, n_layers=cfg.mtp_depth)
+    x = _norm_mesh(cfg, x, mtp["final_ln"])
+    return _xent_mesh(_logit_parts(cfg, params, x, g), toks, 0, S - 2, 2,
+                      policy)
 
 
 def _prefill_mesh(cfg, params, batch, max_seq, attn_impl, ssd_impl, policy):
@@ -816,21 +885,36 @@ def _prefill_mesh(cfg, params, batch, max_seq, attn_impl, ssd_impl, policy):
     h = _blocks_mesh(cfg, params["blocks"], h, attn_impl, ssd_impl, policy,
                      cache, mode=mode, prefix=prefix, enc=enc)
     if "slot_pos" in cache:
-        for part in {id(p): p for p in cache["slot_pos"].parts.flat
-                     }.values():
-            first, slots = _ring_slots(S, part.shape[2], part.device)
-            part[:, :, slots] = torch.arange(first, S, dtype=torch.int32,
-                                             device=part.device)
+        _write_slot_pos(cache["slot_pos"], S)
     h = _norm_mesh(cfg, h, params["final_ln"], last=True)
     logits = _logits_mesh(cfg, params, h, g).gather(sm.home_device(policy))
     return logits[:, 0], cache
 
 
+def _write_slot_pos(leaf: "sm.Sharded", S: int) -> None:
+    """Each distinct part of ``slot_pos`` after a prefill of S
+    positions: ``_ring_slots``' positions over the whole sequence, or
+    the positions of the part's slice [lo, lo + n) that are below S."""
+    done = set()
+    for (i, t), part in np.ndenumerate(leaf.parts):
+        if id(part) in done:
+            continue
+        done.add(id(part))
+        lo, n = _seq_span(leaf, i, t)
+        if (lo, n) == (0, leaf.shape[2]):
+            first, slots = _ring_slots(S, n, part.device)
+            part[:, :, slots] = torch.arange(first, S, dtype=torch.int32,
+                                             device=part.device)
+        elif S > lo:
+            part[:, :, :min(S - lo, n)] = torch.arange(
+                lo, min(S, lo + n), dtype=torch.int32, device=part.device)
+
+
 def _decode_mesh(cfg, params, cache, tokens, pos, attn_impl, policy):
     """``decode_step`` over the mesh: each position's rows through every
-    layer with its shard of the cache (its keys and values, the
-    hybrid's ring, its SSM state and conv tail updated in place, its
-    cross K/V read)."""
+    layer with its shard of the cache (its keys and values or MLA's
+    latent, the hybrid's ring, its SSM state and conv tail updated in
+    place, its cross K/V read)."""
     _check_mesh(cfg, policy)
     g = sm.mesh_grid(policy)
     L = cfg.num_layers
@@ -841,7 +925,10 @@ def _decode_mesh(cfg, params, cache, tokens, pos, attn_impl, policy):
     window = _window(cfg)
     for l, bp in enumerate(_layers(params["blocks"], L)):
         x = _norm_mesh(cfg, h, bp["ln1"])
-        if cfg.family != "ssm":
+        if cfg.use_mla:
+            a = mla_decode(cfg, bp["mla"], x, layers["ckv"][l],
+                           layers["krope"][l], posr, policy=policy)
+        elif cfg.family != "ssm":
             a = attention_decode(cfg, bp["attn"], x, layers["k"][l],
                                  layers["v"][l], layers["slot_pos"][l], posr,
                                  attn_impl, window, policy=policy)

@@ -327,7 +327,7 @@ def param_shardings(cfg: ModelConfig, policy: ShardingPolicy) -> dict:
 
 
 def shard_params(cfg: ModelConfig, params: dict,
-                 policy: ShardingPolicy) -> dict:
+                 policy: ShardingPolicy, *, consume: bool = False) -> dict:
     """``params`` laid out over ``policy``'s mesh, the counterpart of the
     reference's ``jax.device_put(params, param_shardings(cfg,
     policy))``: every leaf a ``sharding.model.Sharded`` split along
@@ -342,8 +342,19 @@ def shard_params(cfg: ModelConfig, params: dict,
     second dimension, the cross-attention's heads as the
     self-attention's, ``img_proj`` FSDP on its first, a vocabulary that
     does not divide the model axis (whisper's 51865) in chunks of
-    ceil(V / tp); under ``dp_over_tp`` every leaf is whole at every
-    position. Off a mesh the tree comes back as it is."""
+    ceil(V / tp); MLA's ``wuq``/``wuk``/``wuv`` over ``heads`` on their
+    third dimension and ``wo`` on its second, ``wdq``/``wdkv`` FSDP on
+    ``embed``, its norms replicated; the MTP block's ``proj`` FSDP on its
+    second dimension and its blocks as ``mtp_config``'s dense blocks;
+    under ``dp_over_tp`` every leaf is whole at every position. Off a
+    mesh the tree comes back as it is.
+
+    With ``consume`` the tree is split leaf by leaf, each leaf taken out
+    of ``params`` (whose dicts are left empty) as soon as its parts are
+    made, so that a caller holding no other reference to it frees each
+    whole leaf then: the whole tree and its parts are never on the card
+    together (deepseek-v3-671b at one layer is 54.85 GB in float32, its
+    routed experts' ``w_in``, ``w_gate`` and ``w_out`` 15.0 GB each)."""
     if not policy.active:
         return params
     check_policy(policy)
@@ -354,9 +365,16 @@ def shard_params(cfg: ModelConfig, params: dict,
     def kv(t):
         return kv_range(cfg.num_heads, cfg.num_kv_heads, g.tp, t)
 
-    def walk(leaf, axes):
-        if isinstance(leaf, dict):
-            return {k: walk(v, axes[k]) for k, v in leaf.items()}
+    def walk(node: dict, axes: dict) -> dict:
+        out = {}
+        for k in list(node):
+            leaf = node.pop(k) if consume else node[k]
+            out[k] = (walk(leaf, axes[k]) if isinstance(leaf, dict)
+                      else lay_out(leaf, axes[k]))
+            del leaf
+        return out
+
+    def lay_out(leaf, axes):
         spec = dedupe_spec(policy.spec(*axes))
         kv_dims = tuple(d for d, a in enumerate(axes)
                         if a == "kv_heads") if heads_tp else ()

@@ -26,12 +26,14 @@ configuration (deepseek-v3-671b) has one attention path, which "auto"
 and "ref" both run (the reference computes MLA outside any Pallas
 kernel); "kernel" is refused at construction.
 
-Over a model-parallel mesh (``policy``; the dense, MoE and SSM
+Over a model-parallel mesh (``policy``; the dense, MoE, SSM and MLA
 families, and the hybrid over the data axes or under ``dp_over_tp``):
 the parameters come from ``models.params.shard_params``, the decode
 cache is per shard (``init_cache(..., policy=)``: slots over the
-data-parallel ranks, KV heads over the tensor-parallel ranks, the SSM
-state and conv tail and the hybrid's ring with their slots), each
+data-parallel ranks, KV heads over the tensor-parallel ranks, MLA's
+latent one tensor a device, or under ``shard_cache_seq`` the K/V and
+latent positions over the tensor-parallel ranks; the SSM state and
+conv tail and the hybrid's ring with their slots), each
 admission's prefill rows go into the shards that hold their slots
 (``sharding.model.insert_rows``), and the slot state and the gathered
 logits stay on the mesh's first device, so the scheduler and the

@@ -38,6 +38,14 @@ one card.
   the TP ranks in rank order.
 * ``local_grid`` hands each position its parameters, the FSDP
   (``embed``) dimension gathered over the data-parallel ranks at use.
+* ``shard_cache_seq`` (``seq_sharded``): the K/V, ``slot_pos`` and MLA
+  latent cache leaves split over the sequence (``kv_seq``) across the
+  TP ranks, rank t holding positions [t·c, (t+1)·c), c = ceil(T / TP)
+  (``seq_slice``; the last slice shorter, or empty), of every KV head
+  (the reference's ``cache_specs`` drops ``kv_heads`` there, so
+  ``kv_range`` does not apply). Decode attends over each slice and
+  ``combine_partials`` merges the slices' outputs by their
+  log-sum-exps, in rank order.
 * Training: every collective above is built of ``.to``, ``cat`` and
   ``add``, so autograd runs back through it (the FSDP gather's
   backward adds each position's gradient of a part into that part: the
@@ -63,9 +71,9 @@ from .policy import PartitionSpec, ShardingPolicy
 
 class MeshNotPorted(NotImplementedError):
     """A model family or policy knob the model-parallel port does not
-    run yet: MLA (its latent cache over ``kv_seq``), the MTP loss, the
-    ``shard_cache_seq`` knob and the hybrid at tp > 1 without
-    ``dp_over_tp`` come in a later slice."""
+    run: the hybrid at tp > 1 without ``dp_over_tp`` (its 25 query heads
+    over 5 KV heads make no even groups a rank: ``kv_range``), and
+    ``ep_over_dp`` with ``dp_over_tp`` (``check_policy``)."""
 
 
 # ---------------------------------------------------------------------------
@@ -137,22 +145,37 @@ def check_policy(policy: ShardingPolicy) -> None:
     """The policy knobs the sharded model runs: batch over the data
     axes, heads/mlp/vocab/expert over the model axis (experts over
     both with ``ep_over_dp``), KV heads sharded or not, FSDP on or
-    off, pure data parallelism over both axes (``dp_over_tp``) and
+    off, pure data parallelism over both axes (``dp_over_tp``),
     ``seq_parallel`` (which changes no function: no model code of the
-    reference constrains an activation to 'seq'). A sequence-sharded
-    cache raises, and so does ``ep_over_dp`` with ``dp_over_tp``, where
-    the reference's expert windows (over dp·tp·tp ranks) do not match
-    the experts its ranks hold (over dp·tp)."""
-    if policy.shard_cache_seq:
-        raise MeshNotPorted("ShardingPolicy.shard_cache_seq is not run by "
-                            "the model-parallel port: it comes in a later "
-                            "slice, with MLA's latent cache over kv_seq")
+    reference constrains an activation to 'seq') and
+    ``shard_cache_seq`` (the caches over the sequence: ``seq_sharded``).
+    ``ep_over_dp`` with ``dp_over_tp`` raises, where the reference's
+    expert windows (over dp·tp·tp ranks) do not match the experts its
+    ranks hold (over dp·tp)."""
     if policy.ep_over_dp and policy.dp_over_tp:
         raise MeshNotPorted("ShardingPolicy.ep_over_dp with dp_over_tp is "
                             "not run by the model-parallel port")
     if policy.fsdp_params and tuple(policy.fsdp_axes) != tuple(
             policy.dp_axes):
         raise MeshNotPorted("FSDP over axes other than the data axes")
+
+
+def seq_sharded(policy: Optional[ShardingPolicy]) -> bool:
+    """True when the policy's caches lie over the sequence across more
+    than one tensor-parallel rank (``shard_cache_seq`` at TP > 1; under
+    ``dp_over_tp`` ``kv_seq`` maps to no axis, and the grid has TP =
+    1)."""
+    return (on_mesh(policy) and policy.shard_cache_seq
+            and mesh_grid(policy).tp > 1)
+
+
+def seq_slice(T: int, tp: int, t: int) -> tuple[int, int]:
+    """(lo, n): the cache positions [lo, lo + n) of T that
+    tensor-parallel rank t of ``tp`` holds under ``shard_cache_seq``,
+    chunks of ceil(T / tp) as ``leaf_index`` cuts them."""
+    c = -(-T // tp)
+    lo = min(t * c, T)
+    return lo, min(lo + c, T) - lo
 
 
 def _grid(g: MeshGrid) -> np.ndarray:
@@ -180,6 +203,19 @@ def kv_range(num_heads: int, num_kv_heads: int, tp: int, t: int
                             f"of {group}")
     lo = t * h_loc // group
     return lo, (t * h_loc + h_loc - 1) // group + 1
+
+
+def kv_owners(num_heads: int, num_kv_heads: int, tp: int) -> list[int]:
+    """The tensor-parallel ranks whose ``kv_range`` starts a new KV head
+    range, in rank order: concatenated, their ranges are every KV head
+    once (ranks inside one group share its range)."""
+    out, end = [], 0
+    for t in range(tp):
+        lo, hi = kv_range(num_heads, num_kv_heads, tp, t)
+        if lo == end and hi > lo:
+            out.append(t)
+            end = hi
+    return out
 
 
 def dedupe_spec(spec) -> PartitionSpec:
@@ -589,14 +625,53 @@ def all_gather(x, g: MeshGrid, dim: int):
                     lambda ts: torch.cat(ts, dim=dim))
 
 
+def gather_ranks(x, g: MeshGrid, ranks: list[int], dim: int):
+    """Concatenate the values of the tensor-parallel ranks ``ranks`` (in
+    that order) along ``dim`` onto each position's device: every KV
+    head from the ranks of ``kv_owners``."""
+    return _collect(x, g, lambda i, t: [(i, u) for u in ranks],
+                    lambda ts: torch.cat(ts, dim=dim))
+
+
+def combine_partials(out: np.ndarray, lse: np.ndarray, g: MeshGrid
+                     ) -> np.ndarray:
+    """Each position receives the attention of its rows over the whole
+    sequence from every tensor-parallel rank's partial attention over
+    its slice: ``out`` (B, H, X) normalised over the slice and ``lse``
+    (B, H) its log-sum-exp (-inf where the slice held nothing live),
+    weighted by exp(lse - max lse) and summed in rank order, as
+    ``all_reduce`` sums its parts; a row that no slice holds gives 0.
+    One result per distinct device and source set."""
+    res, made = _grid(g), {}
+    for i, t in g.coords():
+        dev = g.devices[i, t]
+        src = [(out[i, u], lse[i, u]) for u in range(g.tp)]
+        key = (str(dev), tuple(id(a) for pair in src for a in pair))
+        if key not in made:
+            outs = [o.to(dev) for o, _ in src]
+            lses = [s_.to(dev) for _, s_ in src]
+            m = functools.reduce(torch.maximum, lses)
+            m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+            w = [torch.exp(s_ - m) for s_ in lses]
+            den = functools.reduce(torch.add, w)
+            num = functools.reduce(torch.add, [
+                wu[..., None] * o for wu, o in zip(w, outs)])
+            made[key] = num / torch.where(den > 0, den, torch.ones_like(
+                den))[..., None]
+        res[i, t] = made[key]
+    return res
+
+
 def insert_rows(dst: Sharded, src: Sharded, slots: torch.Tensor, n: int,
                 g: MeshGrid) -> None:
     """Write rows [0, n) of ``src`` (a cache leaf of an admission's
     prefill, rows along axis 1) into rows ``slots`` (a device tensor of
     n global slot indices) of ``dst`` (the shared decode cache), in
-    place, each into the shard that holds its slot. Without a host
-    sync: a shard of several data-parallel ranks maps each of its
-    local slots to a source row on the device and merges them."""
+    place, each into the shard that holds its slot (a leaf split over
+    the sequence: each part of the same rank's slice of ``src``).
+    Without a host sync: a shard of several data-parallel ranks maps
+    each of its local slots to a source row on the device and merges
+    them."""
     done = set()
     for (i, t), part in np.ndenumerate(dst.parts):
         if id(part) in done:
@@ -665,7 +740,10 @@ def tokens_to_rows(y: np.ndarray, x: Rows, g: MeshGrid,
     c = x.chunk
     for i, t in g.coords():
         if not everywhere and not x.padded:
-            out[i, t] = y[i, t].reshape(c, S, D)
+            # one view a source, so positions that share it share rows
+            if id(y[i, t]) not in made:
+                made[id(y[i, t])] = y[i, t].reshape(c, S, D)
+            out[i, t] = made[id(y[i, t])]
             continue
         dev = g.devices[i, t]
         src = [y[i, t]] if everywhere else [y[j, t] for j in range(g.dp)]
@@ -681,8 +759,10 @@ def tokens_to_rows(y: np.ndarray, x: Rows, g: MeshGrid,
 
 
 __all__ = ["MeshGrid", "MeshNotPorted", "Rows", "Sharded", "all_gather",
-           "all_reduce", "check_policy", "dedupe_spec", "gmap",
-           "home_device", "insert_rows", "kv_range", "leaf_index", "like",
-           "local_config", "local_grid", "mesh_grid", "on_mesh", "part_shape",
-           "positions", "scatter_rows", "split", "split_like", "sum_replicas",
-           "token_chunks", "tokens_to_rows", "unshard", "unzip", "zeros"]
+           "all_reduce", "check_policy", "combine_partials", "dedupe_spec",
+           "gather_ranks", "gmap", "home_device", "insert_rows",
+           "kv_owners", "kv_range", "leaf_index", "like", "local_config",
+           "local_grid", "mesh_grid", "on_mesh", "part_shape", "positions",
+           "scatter_rows", "seq_sharded", "seq_slice", "split", "split_like",
+           "sum_replicas", "token_chunks", "tokens_to_rows", "unshard",
+           "unzip", "zeros"]

@@ -24,7 +24,7 @@ import torch
 
 from ..models import forward_loss
 from ..models.config import ModelConfig
-from ..models.lm import check_mesh_loss
+from ..models.lm import _check_mesh as check_mesh
 from ..sharding import model as sm
 from ..sharding.policy import ShardingPolicy
 from .optimizer import AdamWConfig, apply_updates, leaves, tree_map
@@ -98,7 +98,7 @@ def build_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     device."""
     mesh = sm.on_mesh(policy)
     if mesh:
-        check_mesh_loss(cfg, policy)
+        check_mesh(cfg, policy)
 
     def step(params, opt_state, batch):
         if num_microbatches == 1:

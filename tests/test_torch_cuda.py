@@ -12,13 +12,16 @@ graph replays, two streams), K6 over
 of their plain versions (K7 with a sliding window, K8 with the slot mask over a
 wrapped ring too, and at its chunk edges: lengths around the chunk, a
 4104-position cache, a full 2048-slot ring, rings with dead chunks
-between live ones, CUDA-graph replays), K9 within ``ssd_cases.tolerance`` of its plain
+between live ones, CUDA-graph replays; its log-sum-exp route at the
+slices of a cache split over the sequence, ``MESH_SEQ_DECODE_CASES``),
+K9 within ``ssd_cases.tolerance`` of its plain
 version over the ``ssd_cases`` sweep, the dense, SSM and hybrid
 LMs' kernel paths equal to their plain paths (K7/K8/K9), K7/K8/K9
 refusing grad mode, tiny train steps on the card equal to the CPU's,
 K7/K8/K9 at the model mesh's shard shapes (``attention_cases.MESH_*``,
-``ssd_cases.MESH_CASES``) and the tiny SSM and hybrid served over a
-mesh of the card on both paths,
+``ssd_cases.MESH_CASES``), the tiny SSM and hybrid served over a
+mesh of the card on both paths, and tiny starcoder2 and deepseek served
+over a mesh of the card under ``shard_cache_seq``,
 K10 bit-identical
 to its plain version over the ``partition_cases`` sweep (sizes around
 its look-back tile, repeated calls, graph replays, two streams), and the
@@ -1688,6 +1691,86 @@ def test_decode_attention_cross_at_mesh_shard_shapes(dev, B, H, K, T, d):
     assert _build.LAUNCHES["decode_attention"] == 1
     assert float((got - decode_attention_ref(q, k, v, lengths)).abs()
                  .max()) <= AC.TOLERANCE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lo", (0, 33))
+@pytest.mark.parametrize("B,H,K,T,d", AC.MESH_SEQ_DECODE_CASES)
+def test_decode_attention_lse_at_mesh_seq_slices(dev, B, H, K, T, d, lo):
+    """K8's log-sum-exp route on one rank's slice of a cache split over
+    the sequence: every head over the slice's T slots, lengths
+    clamp(pos + 1 - lo, 0, T) from rows whose position lies before the
+    slice (nothing live: 0 and -inf, no NaN) to past it, against the
+    plain version's output and lse; one launch under its own route."""
+    g = torch.Generator(device=dev).manual_seed(B + T + lo)
+    lengths = torch.tensor(AC.slice_lengths(B, T, lo), dtype=torch.int32,
+                           device=dev)
+    q, k, v = _decode_operands(g, B, H, K, T, d, dev)
+    _build.reset_launches()
+    out, lse = t_dec.decode_attention_kernel(q, k, v, lengths,
+                                             return_lse=True)
+    assert _build.LAUNCHES["decode_attention"] == 1
+    assert [key[1] for key in _build.SHAPE_LAUNCHES] == ["lengths_lse"]
+    want, wlse = decode_attention_ref(q, k, v, lengths, return_lse=True)
+    assert not torch.isnan(out).any() and not torch.isnan(lse).any()
+    assert float((out - want).abs().max()) <= AC.TOLERANCE
+    live = lengths > 0
+    assert float((lse[live] - wlse[live]).abs().max()) <= AC.TOLERANCE
+    assert torch.isneginf(lse[~live]).all()
+    assert torch.equal(out[~live], torch.zeros_like(out[~live]))
+    # the slot mask route with its log-sum-exp: the same slots live
+    sp = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
+    sp = torch.where(sp < lengths[:, None], sp, -1).contiguous()
+    o2, l2 = t_dec.decode_attention_kernel(
+        q, k, v, slot_pos=sp, pos=(lengths - 1).clamp(min=0), window=0,
+        return_lse=True)
+    assert float((o2 - want).abs().max()) <= AC.TOLERANCE
+    assert float((l2[live] - wlse[live]).abs().max()) <= AC.TOLERANCE
+    assert torch.isneginf(l2[~live]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,mesh", (("starcoder2-3b", (1, 4)),
+                                       ("starcoder2-3b", (2, 2)),
+                                       ("deepseek-v3-671b", (1, 2))))
+def test_mesh_serving_seq_kernel_path_matches_plain_path(dev, arch, mesh):
+    """A model mesh of the card under ``shard_cache_seq`` (the caches
+    split over the sequence): the kernel path (K7 on each rank's heads,
+    K8's log-sum-exp route on each rank's slice, once per layer per
+    position per round; MLA has no kernel) against the plain path, the
+    same answers, and the single-device engine's."""
+    from repro_torch.configs import get_tiny
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params
+    from repro_torch.models.params import shard_params
+    from repro_torch.serving import ServingEngine
+    from repro_torch.sharding.policy import ShardingPolicy
+
+    cfg = get_tiny(arch).replace(vocab_size=512)
+    n = mesh[0] * mesh[1]
+    params = _tree_to(init_params(cfg, torch.Generator().manual_seed(0),
+                                  device="cpu"), dev)
+    pol = ShardingPolicy.for_mesh(make_mesh(*mesh, devices=[dev] * n)
+                                  ).replace(shard_cache_seq=True)
+    sp = shard_params(cfg, params, pol)
+    prompts = [f"card seq probe {i} " + "word " * (i % 11)
+               for i in range(13)]
+    kw = dict(batch_size=4, max_seq=24, max_new_tokens=3)
+    impls = ("ref",) if cfg.use_mla else ("auto", "ref")
+    out = {}
+    for impl in impls:
+        eng = ServingEngine(cfg, sp, attn_impl=impl, policy=pol, **kw)
+        _build.reset_launches()
+        out[impl] = eng.answer(prompts)
+        if impl == "auto":
+            assert _build.LAUNCHES["decode_attention"] == \
+                cfg.num_layers * n * eng.stats.decode_steps
+            assert {key[1] for key in _build.SHAPE_LAUNCHES
+                    if key[0] == "decode_attention"} == {"lengths_lse"}
+        else:
+            assert not any(_build.LAUNCHES.values())
+    one = ServingEngine(cfg, params, attn_impl="ref", **kw)
+    assert all(a == one.answer(prompts) for a in out.values())
 
 
 @pytest.mark.cuda

@@ -270,27 +270,20 @@ def test_mesh_engine_requires_sharded_params(weights):
                       policy=policy(1, 2))
 
 
-@pytest.mark.parametrize("arch", ("hymba-1.5b", "deepseek-v3-671b"))
+@pytest.mark.parametrize("arch", ("hymba-1.5b",))
 def test_other_families_refuse_the_mesh(arch):
-    """MLA, and the hybrid at tp > 1 without ``dp_over_tp``, do not run
-    over a mesh yet (the SSM, the hybrid over the data axes, the
-    encoder-decoder and the VLM do: ``test_torch_tp_families.py``)."""
+    """The hybrid at tp > 1 without ``dp_over_tp`` does not run over a
+    mesh (the SSM, the hybrid over the data axes, MLA, the
+    encoder-decoder and the VLM do: ``test_torch_tp_families.py``,
+    ``test_torch_tp_mla.py``)."""
     cfg = get_tiny(arch)
     pol = policy(1, 2)
     p = pm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     toks = torch.ones(2, 4, dtype=torch.int64)
-    with pytest.raises(sm.MeshNotPorted, match="later slice"):
+    with pytest.raises(sm.MeshNotPorted, match="without dp_over_tp"):
         pm.prefill(cfg, p, {"tokens": toks}, attn_impl="ref", policy=pol)
-    with pytest.raises(sm.MeshNotPorted, match="later slice"):
+    with pytest.raises(sm.MeshNotPorted, match="without dp_over_tp"):
         pm.init_cache(cfg, 2, 8, policy=pol)
-
-
-@pytest.mark.parametrize("knob", ("shard_cache_seq",))
-def test_unported_policy_knobs_refuse(weights, knob):
-    cfg = get_tiny("starcoder2-3b")
-    pol = policy(2, 2).replace(**{knob: True})
-    with pytest.raises(sm.MeshNotPorted, match=knob):
-        shard_params(cfg, weights("starcoder2-3b"), pol)
 
 
 def _serve(argv) -> list[str]:

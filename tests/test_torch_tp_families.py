@@ -249,15 +249,15 @@ def test_moe_dp_over_tp_raises_where_shard_map_raises():
 
 
 def test_still_refused():
-    """MLA, the hybrid at tp > 1 without ``dp_over_tp``,
-    ``shard_cache_seq`` and ``ep_over_dp`` with ``dp_over_tp``."""
+    """The hybrid at tp > 1 without ``dp_over_tp`` and ``ep_over_dp``
+    with ``dp_over_tp`` (MLA and ``shard_cache_seq`` run:
+    ``test_torch_tp_mla.py``)."""
     toks = {"tokens": torch.ones(2, 4, dtype=torch.int64)}
     for arch, pol, match in (
-            ("deepseek-v3-671b", policy(2, 2), "MLA"),
             ("hymba-1.5b", policy(1, 2), "without dp_over_tp"),
             ("hymba-1.5b", policy(2, 2), "without dp_over_tp"),
-            ("starcoder2-3b", policy(2, 2, rep={"shard_cache_seq": True}),
-             "shard_cache_seq"),
+            ("hymba-1.5b", policy(1, 2, rep={"shard_cache_seq": True}),
+             "without dp_over_tp"),
             ("olmoe-1b-7b", policy(2, 2, rep={"dp_over_tp": True,
                                               "ep_over_dp": True}),
              "ep_over_dp")):

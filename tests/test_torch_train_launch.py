@@ -92,12 +92,13 @@ def test_train_mla_tiny_cpu(tmp_path, capsys):
 
 
 def test_train_refuses_a_model_parallel_mesh():
-    """The dense, MoE, SSM, hybrid, encoder-decoder and VLM families
-    train over a mesh (``test_torch_train_tp.py``,
-    ``test_torch_train_tp_families.py``); MLA does not yet."""
-    with pytest.raises(sm.MeshNotPorted, match="later slice"):
-        train.main(["--arch", "deepseek-v3-671b", "--tiny", "--device",
-                    "cpu", "--dp", "2"])
+    """The dense, MoE, MLA, SSM, encoder-decoder and VLM families train
+    over a mesh (``test_torch_train_tp.py``,
+    ``test_torch_train_tp_families.py``, ``test_torch_train_tp_mla.py``);
+    the hybrid at tp > 1 without ``dp_over_tp`` does not."""
+    with pytest.raises(sm.MeshNotPorted, match="without dp_over_tp"):
+        train.main(["--arch", "hymba-1.5b", "--tiny", "--device", "cpu",
+                    "--tp", "2"])
 
 
 def test_serve_ckpt_serves_the_trained_backend(tmp_path, capsys):

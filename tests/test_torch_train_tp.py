@@ -380,19 +380,14 @@ def test_launch_train_resumes_under_another_mesh(tmp_path):
 TOKENS = {"tokens": torch.ones(4, 8, dtype=torch.int32)}
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v3-671b"])
+@pytest.mark.parametrize("arch", ["hymba-1.5b"])
 def test_families_still_refused(arch):
-    """MLA (with its MTP loss) does not train over a mesh yet (the SSM,
-    hybrid, encoder-decoder and VLM families do:
-    ``test_torch_train_tp_families.py``)."""
-    with pytest.raises(sm.MeshNotPorted, match="later slice"):
+    """The hybrid at tp > 1 without ``dp_over_tp`` does not train over a
+    mesh (MLA with its MTP loss does: ``test_torch_train_tp_mla.py``;
+    the SSM, encoder-decoder and VLM families and the hybrid under
+    ``dp_over_tp``: ``test_torch_train_tp_families.py``)."""
+    with pytest.raises(sm.MeshNotPorted, match="without dp_over_tp"):
         pm.forward_loss(get_tiny(arch), {}, TOKENS, policy=policy(2, 2))
-
-
-def test_mtp_loss_still_refused():
-    cfg = get_tiny("qwen2.5-32b").replace(mtp_depth=1)
-    with pytest.raises(sm.MeshNotPorted, match="MTP"):
-        pm.forward_loss(cfg, {}, TOKENS, policy=policy(2, 2))
 
 
 def test_layer_views_unbind_each_part_once(weights):
