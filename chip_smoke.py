@@ -163,10 +163,14 @@ Phases, each printing one JSON line:
    ``shard_params``: mamba2-370m over (2, 2) (the SSM's weights FSDP over
    the data ranks, replicated over the tensor-parallel ranks, which
    share one call on the card; the vocabulary over two), hymba-1.5b over
-   (2, 1) and over (2, 2) under ``dp_over_tp`` (four data ranks, every
-   weight whole); 128 prompts plus the two-wave 64 on both paths, held
+   (2, 1), over (2, 2) under ``dp_over_tp`` (four data ranks, every
+   weight whole), and over (1, 2) and (1, 4) without it (its 25 query
+   heads 13 + 12 and 7 + 7 + 7 + 4 over the tensor ranks, a rank's
+   heads in up to three runs, each inside one KV head's group or over
+   whole groups); 128 prompts plus the two-wave 64 on both paths, held
    to those phases' one-device answers; K9 once per layer per data rank
-   per admission, K7/K8 (window, slot mask) per position;
+   per admission, K7/K8 (window, slot mask) per run per position, each
+   run's K7 and K8 shape timed in the kernels line;
 15. ``llm_query_hybrid`` — Q13 and q8 through ``ModelBackend`` on the
    hymba-1.5b engines, held as ``llm_query`` holds its queries;
 16. ``serve_moe`` — the same serving checks with olmoe-1b-7b at full
@@ -408,10 +412,14 @@ MOE_PROMPTS = SSM_PROMPTS
 # do not fit on one card
 # the model-parallel meshes served, (dp, tp) over shards of the card:
 # olmoe at the single-device capacity (dp = 1) and split over two data
-# ranks; starcoder2's 2 KV heads read by 4 tensor-parallel ranks
+# ranks; starcoder2's 2 KV heads read by 4 tensor-parallel ranks;
+# hymba's 25 query heads over its 5 KV heads at tp 2 (13 + 12) and 4
+# (7 + 7 + 7 + 4), each rank's heads in runs inside a group or over
+# whole groups (``sharding.model.head_runs``), one K7/K8 launch a run
 TP_MESHES = {MOE_ARCH: ((1, 2), (2, 2)), SERVE_ARCH: ((1, 4),),
              SSM_ARCH: ((2, 2),),
-             HYBRID_ARCH: ((2, 1), (2, 2, {"dp_over_tp": True}))}
+             HYBRID_ARCH: ((2, 1), (2, 2, {"dp_over_tp": True}), (1, 2),
+                           (1, 4))}
 # serve_tp_seq: starcoder2's weights over (1, 4) with the caches split
 # over the sequence (each rank 33 of the engine's 131 slots, the last 32,
 # of both KV heads)
@@ -2383,16 +2391,26 @@ def first_flip(engines, prompt: str, steps: int) -> dict:
     return {"step": None}
 
 
-def tp_launches(cfg, grid, admissions: int, rounds: int) -> dict:
-    """K7 once per layer per position per admission, K8 once per layer
-    per position per round (every (data, model) position of ``grid``,
-    a ``MeshGrid``, attends over its rows and heads); K9 once per layer
-    per data rank per admission (the SSM's weights are replicated over
-    the tensor-parallel ranks, which share one call on one card)."""
+def tp_launches(cfg, grid, admissions: int, rounds: int,
+                seq: bool = False) -> dict:
+    """K7 once per layer per run per position per admission, K8 once per
+    layer per run per position per round (every (data, model) position
+    of ``grid``, a ``MeshGrid``, attends over its rows and heads, in
+    ``sharding.model.head_runs``: one run, or up to three where its
+    query heads straddle KV groups, hymba-1.5b's 25 over 5 at tp 2 and
+    4); under ``shard_cache_seq`` (``seq``) K8 once per position with
+    every head; K9 once per layer per data rank per admission (the
+    SSM's weights are replicated over the tensor-parallel ranks, which
+    share one call on one card)."""
+    from repro_torch.sharding.model import head_runs
+
     want = path_launches(cfg, admissions, rounds)
-    shards = {"ssd_chunk": grid.dp}
-    return {k: v * shards.get(k, grid.dp * grid.tp)
-            for k, v in want.items()}
+    runs = sum(len(head_runs(cfg.num_heads, cfg.num_kv_heads, grid.tp, t))
+               if grid.tp > 1 and cfg.num_heads else 1
+               for t in range(grid.tp)) * grid.dp
+    shards = {"ssd_chunk": grid.dp, "flash_attention": runs,
+              "decode_attention": grid.dp * grid.tp if seq else runs}
+    return {k: v * shards[k] for k, v in want.items()}
 
 
 def mesh_label(mesh) -> tuple:
@@ -2496,6 +2514,7 @@ def run_serve_tp(device, arch: str = MOE_ARCH, meshes=TP_MESHES[MOE_ARCH],
                 "shapes": {k: list(v) for k, v in _build.MAX_SHAPES.items()
                            if k in LLM_KERNELS},
                 "k8_routes": k8_routes(),
+                "shape_launches": _shape_launches(),
                 "peak_device_bytes": (torch.cuda.max_memory_allocated(
                     device) if cuda else None)}
         kern, plain = engs
@@ -2522,7 +2541,8 @@ def run_serve_tp(device, arch: str = MOE_ARCH, meshes=TP_MESHES[MOE_ARCH],
         k = res["kernel"]
         if cuda:
             want = tp_launches(cfg, grid, k["admissions"],
-                               k["decode_rounds"])
+                               k["decode_rounds"],
+                               bool(rep.get("shard_cache_seq")))
             got = {n_: k["launches"][n_] for n_ in want}
             if got != want:
                 raise AssertionError(f"serve_tp {cfg.name} {label}: "
@@ -4984,6 +5004,14 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
     # the hybrid's window route on each data rank's rows
     for path, (k7s, window, _, _, _) in llm.get("tp_window", {}).items():
         k7_extra[f"at_{path}"] = k7_at(tuple(k7s), window, path=path)
+    # and on each run of a tensor rank's heads (hymba at tp > 1)
+    for path, (entries, window, _, _) in llm.get("tp_runs", {}).items():
+        for e in entries:
+            if e["kernel"] == "flash_attention":
+                B, H, K = e["shape"][:3]
+                k7_extra[f"at_{path}_run_{H}x{K}"] = k7_at(
+                    tuple(e["shape"]), window, path=path,
+                    launches=e["launches"])
     # the encoder-decoder's and the VLM's shapes, each with the launches
     # its phase's kernel path made at it: whisper's encoder (bidir),
     # decoder (causal) and cross-attention (bidir, Sq != Sk); paligemma's
@@ -5031,10 +5059,12 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
             < lengths[:, None])[:, None, None, :]
     k8_extra = {}
 
-    def k8_slot_mask(shape, lens, window, prefill_len, path=None):
+    def k8_slot_mask(shape, lens, window, prefill_len, path=None,
+                     launches=None):
         """K8 under the slot mask in the hybrid's first decode round:
         prefill wrote slots 0..prefill_len-1 and the round's slot pos =
-        len - 1 holds pos; with ``path``, that path's launches."""
+        len - 1 holds pos; with ``path``, that path's launches (or
+        ``launches``, those at this shape)."""
         Bh, Hh, Kh, Th, dh = shape
         ph = torch.tensor(list(lens)[:Bh], dtype=torch.int32,
                           device=device) - 1
@@ -5073,8 +5103,8 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
                 f"K8 slot mask{f' at {path}' if path else ''}", k8s,
                 "decode_kernel", memset=True)}
         if path:
-            row_.update(launches=by_path[path].get("decode_attention", 0),
-                        path=path)
+            row_.update(launches=by_path[path].get("decode_attention", 0)
+                        if launches is None else launches, path=path)
         del qh, kh, vh
         return row_
 
@@ -5086,6 +5116,14 @@ def kernel_rows(device, launches: dict, shapes: dict, max_err: dict,
                                                        {}).items():
         k8_extra[f"slot_mask_at_{path}"] = k8_slot_mask(
             tuple(k8s_), lens, window, plen, path)
+    for path, (entries, window, lens, plen) in llm.get("tp_runs",
+                                                       {}).items():
+        for e in entries:
+            if e["kernel"] == "decode_attention":
+                B, H, K = e["shape"][:3]
+                k8_extra[f"slot_mask_at_{path}_run_{H}x{K}"] = k8_slot_mask(
+                    tuple(e["shape"]), lens, window, plen, path,
+                    e["launches"])
     if "k8_long" in llm:
         # long_prefill's decode: the 2048-slot ring wrapped, every slot
         # live
@@ -5827,7 +5865,15 @@ def main() -> int:
                 res["attn_window"],
                 res["kernel"]["shapes"]["decode_attention"],
                 res["decode_lengths"], hyb["max_seq"])
-            for label, res in tp_ssm[HYBRID_ARCH]["meshes"].items()},
+            for label, res in tp_ssm[HYBRID_ARCH]["meshes"].items()
+            if res["grid"][1] == 1},
+        # the hybrid at tp > 1: every run's K7 and K8 shape
+        "tp_runs": {
+            f"serve_tp_ssm_{label}": (
+                res["kernel"]["shape_launches"], res["attn_window"],
+                res["decode_lengths"], hyb["max_seq"])
+            for label, res in tp_ssm[HYBRID_ARCH]["meshes"].items()
+            if res["grid"][1] > 1},
         "k9_tp": {
             f"serve_tp_ssm_{arch}_{label}": res["kernel"]["shapes"][
                 "ssd_chunk"]

@@ -30,12 +30,12 @@ behind the serving tier and answer prompts, on the card unless
         --prompts "is product 3 electronics?"
 
     # tensor- and expert-parallel over a (dp, tp) mesh of distinct cards
-    # (--device cpu repeats the CPU); the SSM over the same mesh, the
-    # hybrid over the data axis alone
+    # (--device cpu repeats the CPU); the SSM and the hybrid over the
+    # same meshes (hymba-1.5b's 25 query heads 13 + 12 at --tp 2)
     PYTHONPATH=src python -m repro_torch.launch.serve --dp 2 --tp 2 \\
         --prompts "is product 3 electronics?"
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
-        --dp 2 --tp 2 --prompts "is product 3 electronics?"
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
+        --tp 2 --prompts "is product 3 electronics?"
 
 Dense, MoE, SSM, hybrid and MLA configurations are served, with random
 weights or, with ``--ckpt``, the trained semantic backend
@@ -46,9 +46,10 @@ reference's does, and they need frames or patches beside them (run
 them through ``repro_torch.models``' ``prefill`` / ``decode_step``).
 ``--dp``/``--tp`` serve over a model mesh (``launch/mesh.py``) under
 ``ShardingPolicy.for_mesh`` when it has more than one position, as the
-reference's entry point builds it (the dense, MoE, SSM and MLA
-families, and the hybrid at ``--tp 1``; hymba-1.5b's 25 query heads
-over 5 KV heads split no further): on the card the mesh
+reference's entry point builds it (every token-fed family; hymba-1.5b's
+25 query heads over 5 KV heads split in ceil chunks, a rank's heads
+attending in runs inside one KV head's group or over whole groups): on
+the card the mesh
 takes dp·tp distinct cards and refuses with fewer, with ``--device
 cpu`` it repeats the CPU.
 """

@@ -34,10 +34,10 @@ them).
 
 ``--dp``/``--tp`` (dp·tp > 1) train over ``make_mesh(dp, tp)`` under
 ``ShardingPolicy.for_mesh``, as the reference's entry point builds it
-(the dense, MoE, SSM and MLA families, deepseek-v3-671b's MTP loss
-included, and the hybrid at ``--tp 1``; ``--tiny`` on the CPU): one
-distinct
-card a position on the card (``make_mesh`` raises with fewer), every
+(every token-fed family: dense, MoE, SSM, hybrid and MLA,
+deepseek-v3-671b's MTP loss included; hymba-1.5b's 25 query heads split
+13 + 12 at ``--tp 2``, 7 + 7 + 7 + 4 at ``--tp 4``; ``--tiny`` on the
+CPU): one distinct card a position on the card (``make_mesh`` raises with fewer), every
 position on the CPU with ``--device cpu``. The weights are made on the
 mesh's first device and laid out by ``shard_params``. Checkpoints hold
 global arrays, so a run resumes under another ``--dp``/``--tp`` (or
@@ -70,8 +70,7 @@ def main(argv=None):
     a checkpoint) and return the last step's loss."""
     ap = argparse.ArgumentParser(
         description="Train an LM (dense, MoE, SSM, hybrid or MLA with "
-                    "MTP) on one device or over a (dp, tp) model mesh "
-                    "(the hybrid at --tp 1).")
+                    "MTP) on one device or over a (dp, tp) model mesh.")
     ap.add_argument("--arch", default="stablelm-3b")
     ap.add_argument("--tiny", action="store_true",
                     help="use the reduced same-family config")

@@ -61,7 +61,15 @@ a cache split over the sequence: every rank attends with every query
 head over its slice of every KV head's positions (K8's log-sum-exp
 route, or the grouped einsum with its log-sum-exp), the slices merge
 by ``sharding.model.combine_partials``, and each rank takes its own
-heads through its ``wo`` part (``_decode_seq``).
+heads through its ``wo`` part (``_decode_seq``). A rank whose query
+heads straddle KV groups (hymba-1.5b's 25 over 5 at tp 2 and 4) attends
+in runs (``sharding.model.head_runs``: a partial group, whole groups, a
+partial group), one K7 or K8 call (or grouped einsum) a run at a group
+size the kernels take (``_by_runs``).
+
+The reference's ``Q_CHUNK`` / ``Q_CHUNK_MODE`` knob (set by the dry run)
+runs the plain prefill attention and MLA's in query blocks
+(``_chunked_gqa``); the kernel path ignores it.
 
 MLA has one path: the reference computes it with einsums outside any
 Pallas kernel, so there is no kernel to port; "auto" and "ref" both
@@ -139,7 +147,14 @@ def rope(x, positions, theta: float):
 def _proj(x, w):
     """einsum("bsd,d...->bs...", x, w) as one matrix product."""
     D = w.shape[0]
-    return (x @ w.reshape(D, -1)).reshape(*x.shape[:-1], *w.shape[1:])
+    return (x @ w.reshape(D, math.prod(w.shape[1:]))).reshape(
+        *x.shape[:-1], *w.shape[1:])
+
+
+def _rows(w):
+    """A (..., D) weight as a (rows, D) matrix (also with no rows: a
+    tensor-parallel rank without query heads)."""
+    return w.reshape(math.prod(w.shape[:-1]), w.shape[-1])
 
 
 def mlp(cfg: ModelConfig, p, x, policy=None):
@@ -218,6 +233,63 @@ def gqa_attention(q, k, v, bias):
     return out.reshape(B, S, H, hd)
 
 
+# The reference's query-chunked attention knob (its ``Q_CHUNK`` /
+# ``Q_CHUNK_MODE``, set by the dry run's ``--chunk-attn``): when > 0 and
+# it divides a longer sequence S, the plain prefill attention (and MLA's,
+# in the causal mode) runs in blocks of Q_CHUNK queries, so the (S x T)
+# scores never exist whole. "triangle": block i attends to exactly the
+# keys [0, (i + 1)·Q_CHUNK) under the causal mask without a window (the
+# causal S²/2 score FLOPs), every other mode as "scan"; "scan": every
+# block against all keys, a Python loop (the reference's ``lax.scan``).
+# The kernel path (K7) tiles already and ignores the knob.
+Q_CHUNK = 0
+Q_CHUNK_MODE = "triangle"
+
+
+def _chunked(S: int) -> bool:
+    return bool(Q_CHUNK) and S > Q_CHUNK and S % Q_CHUNK == 0
+
+
+def _plain_attention(q, k, v, positions, k_pos, window: int, mode: str,
+                     prefix: int, runs=None):
+    """The plain path's attention of ``attention_block``: the grouped
+    einsum under ``_mask_bias``, by ``runs``, in query blocks of
+    ``Q_CHUNK`` where the knob applies."""
+    if _chunked(q.shape[1]):
+        return _by_runs(runs, lambda q_, k_, v_: _chunked_gqa(
+            q_, k_, v_, positions, k_pos, mode, window, prefix, Q_CHUNK),
+            q, k, v)
+    bias = _mask_bias(positions, k_pos, window, mode, prefix)
+    return _by_runs(runs, lambda q_, k_, v_: gqa_attention(q_, k_, v_, bias),
+                    q, k, v)
+
+
+def _chunked_gqa(q, k, v, positions, k_pos, mode: str, window: int,
+                 prefix: int, bq: int):
+    """The reference's ``_chunked_gqa``: S / bq blocks of queries, each
+    an exactly sized causal attention over keys [0, (i + 1)·bq) under
+    "triangle" (causal, no window, as many keys as queries), else each
+    against every key under its mask."""
+    S = q.shape[1]
+    nb = S // bq
+    outs = []
+    tri = (Q_CHUNK_MODE == "triangle" and mode == "causal" and window == 0
+           and k.shape[1] == S)
+    for i in range(nb):
+        rows = slice(i * bq, (i + 1) * bq)
+        if tri:
+            hi = (i + 1) * bq
+            kp = k_pos[:, :hi] if k_pos.dim() == 2 else k_pos[:hi]
+            bias = _mask_bias(positions[:, rows], kp)
+            outs.append(gqa_attention(q[:, rows], k[:, :hi], v[:, :hi],
+                                      bias))
+        else:
+            bias = _mask_bias(positions[:, rows], k_pos, window, mode,
+                              prefix)
+            outs.append(gqa_attention(q[:, rows], k, v, bias))
+    return torch.cat(outs, dim=1)
+
+
 def k7_attention(q, k, v, mode: str = "causal", prefix: int = 0,
                  window: int = 0, impl: str = "kernel"):
     """The K7 route of ``mode`` (module doc) over the model's (B,S,H,hd)
@@ -235,9 +307,22 @@ def k7_attention(q, k, v, mode: str = "causal", prefix: int = 0,
     return out.transpose(1, 2)
 
 
+def _by_runs(runs, fn, q, k, v):
+    """``fn(q, k, v)`` over each run (qa, qb, ka, kb) of ``head_runs``:
+    query heads [qa, qb) of q with KV heads [ka, kb) of k and v (dim 2
+    of each), the outputs concatenated on dim 2; ``runs`` None is one
+    call over every head."""
+    if runs is None:
+        return fn(q, k, v)
+    if not runs:  # a rank with no query heads
+        return q.new_zeros(q.shape)
+    return torch.cat([fn(q[:, :, qa:qb], k[:, :, ka:kb], v[:, :, ka:kb])
+                      for qa, qb, ka, kb in runs], dim=2)
+
+
 def attention_block(cfg: ModelConfig, p, x, attn_impl: str = "auto",
                     window: int = 0, mode: str = "causal", prefix: int = 0,
-                    kv_override=None, policy=None):
+                    kv_override=None, policy=None, runs=None):
     """Self-attention over positions ``arange(S)`` on every row (train
     forward / prefill) under ``mode`` (causal, bidir, prefix with
     ``prefix`` image positions), within ``window`` when it is > 0.
@@ -255,12 +340,15 @@ def attention_block(cfg: ModelConfig, p, x, attn_impl: str = "auto",
     shapes (so K7 takes the same route as on one device: the window,
     the prefix, bidirectional); the partial ``wo`` products are
     all-reduced over the tensor-parallel ranks, and k, v come back as
-    grids of each position's local keys and values."""
+    grids of each position's local keys and values. A rank whose query
+    heads straddle KV groups attends in ``runs`` (``head_runs``), one
+    K7 call (or grouped einsum) a run."""
     if sm.on_mesh(policy):
         g = sm.mesh_grid(policy)
-        out = sm.gmap(lambda pl, xl, kv: attention_block(
-            cfg, pl, xl, attn_impl, window, mode, prefix, kv),
-            sm.local_grid(p, g), x, kv_override)
+        out = sm.gmap(lambda pl, xl, kv, rn: attention_block(
+            cfg, pl, xl, attn_impl, window, mode, prefix, kv, runs=rn),
+            sm.local_grid(p, g), x, kv_override,
+            sm.run_grid(cfg.num_heads, cfg.num_kv_heads, policy))
         o, k, v = sm.unzip(out.grid, 3)
         return sm.all_reduce(sm.Rows(o, x.n), g), k, v
     B, S = x.shape[0], x.shape[1]
@@ -275,11 +363,13 @@ def attention_block(cfg: ModelConfig, p, x, attn_impl: str = "auto",
         k, v = kv_override
         k_pos = torch.arange(k.shape[1], device=x.device)
     if attn_path(attn_impl, x) == "kernel":
-        out = k7_attention(q, k, v, mode, prefix, window)
+        out = _by_runs(runs, lambda q_, k_, v_: k7_attention(
+            q_, k_, v_, mode, prefix, window), q, k, v)
     else:
-        out = gqa_attention(q, k, v, _mask_bias(positions, k_pos, window,
-                                                mode, prefix))
-    o = out.reshape(B, S, -1) @ p["wo"].reshape(-1, cfg.d_model)
+        out = _plain_attention(q, k, v, positions, k_pos, window, mode,
+                               prefix, runs)
+    o = (out.reshape(B, S, out.shape[2] * out.shape[3])
+         @ _rows(p["wo"]))
     if kv_override is not None:
         return o, None, None
     return o, k, v
@@ -287,7 +377,7 @@ def attention_block(cfg: ModelConfig, p, x, attn_impl: str = "auto",
 
 def attention_decode(cfg: ModelConfig, p, x, k_cache, v_cache, slot_pos,
                      pos, attn_impl: str = "auto", window: int = 0,
-                     cross: bool = False, policy=None):
+                     cross: bool = False, policy=None, runs=None):
     """Single-token decode. x: (B,1,D); caches (B,T,K,hd) and slot_pos
     (B,T) (-1 = empty) are updated IN PLACE at slot ``pos`` of each row,
     or ``pos % window`` when ``window`` > 0 (the hybrid's ring); pos:
@@ -304,22 +394,24 @@ def attention_decode(cfg: ModelConfig, p, x, k_cache, v_cache, slot_pos,
     window, over every encoder slot with ``cross``), and the partial
     ``wo`` products are all-reduced over the tensor-parallel ranks.
     Under ``shard_cache_seq`` each position's caches are its rank's
-    slice of the sequence (``_decode_seq``; not with ``cross``, whose
-    ``xk``/``xv`` carry no ``kv_seq``)."""
+    slice of the sequence (``_decode_seq``, the hybrid's ring too; not
+    with ``cross``, whose ``xk``/``xv`` carry no ``kv_seq``). A rank
+    whose query heads straddle KV groups attends in ``runs``
+    (``head_runs``), one K8 call (or grouped einsum) a run."""
     if sm.on_mesh(policy):
         g = sm.mesh_grid(policy)
         if sm.seq_sharded(policy) and not cross:
-            # no ring here: the hybrid, the one family with a window, is
-            # refused at tp > 1 (``lm.py::_check_mesh``)
             return _decode_seq(cfg, p, x, k_cache, v_cache, slot_pos, pos,
-                               attn_impl, g)
+                               attn_impl, window, g)
         return sm.all_reduce(sm.gmap(
-            lambda pl, xl, kc, vc, sp, ps: attention_decode(
-                cfg, pl, xl, kc, vc, sp, ps, attn_impl, window, cross),
-            sm.local_grid(p, g), x, k_cache, v_cache, slot_pos, pos), g)
+            lambda pl, xl, kc, vc, sp, ps, rn: attention_decode(
+                cfg, pl, xl, kc, vc, sp, ps, attn_impl, window, cross,
+                runs=rn),
+            sm.local_grid(p, g), x, k_cache, v_cache, slot_pos, pos,
+            sm.run_grid(cfg.num_heads, cfg.num_kv_heads, policy)), g)
     B = x.shape[0]
     if cross:
-        return _cross_decode(cfg, p, x, k_cache, v_cache, attn_impl)
+        return _cross_decode(cfg, p, x, k_cache, v_cache, attn_impl, runs)
     q, k_new, v_new = _qkv(cfg, p, x)
     q = rope(q, pos[:, None], cfg.rope_theta)
     k_new = rope(k_new, pos[:, None], cfg.rope_theta)
@@ -333,25 +425,42 @@ def attention_decode(cfg: ModelConfig, p, x, k_cache, v_cache, slot_pos,
         # a ring slot does not hold its own position: K8 takes the
         # reference's slot mask; it reads the (B, T, K, hd) cache
         # through its strides
-        out = decode_attention(q[:, 0], k_cache.permute(0, 2, 1, 3),
-                               v_cache.permute(0, 2, 1, 3),
-                               slot_pos=slot_pos, pos=pos, window=window,
-                               impl="kernel")[:, None]
+        def attend(q_, kc, vc):
+            return decode_attention(q_[:, 0], kc.permute(0, 2, 1, 3),
+                                    vc.permute(0, 2, 1, 3),
+                                    slot_pos=slot_pos, pos=pos,
+                                    window=window, impl="kernel")[:, None]
     elif kernel:
         # slot_pos[t] == t for every t <= pos, so the live prefix is
         # pos + 1 long
-        out = decode_attention(q[:, 0], k_cache.permute(0, 2, 1, 3),
-                               v_cache.permute(0, 2, 1, 3),
-                               (pos + 1).to(torch.int32),
-                               impl="kernel")[:, None]
+        def attend(q_, kc, vc):
+            return decode_attention(q_[:, 0], kc.permute(0, 2, 1, 3),
+                                    vc.permute(0, 2, 1, 3),
+                                    (pos + 1).to(torch.int32),
+                                    impl="kernel")[:, None]
     else:
-        ok = (slot_pos >= 0) & (slot_pos <= pos[:, None])
-        if window > 0:
-            ok = ok & (pos[:, None] - slot_pos < window)
-        zero = torch.zeros((), dtype=torch.float32, device=x.device)
-        bias = torch.where(ok, zero, torch.full_like(zero, -1e30))[:, None]
-        out = gqa_attention(q, k_cache, v_cache, bias)
-    return out.reshape(B, 1, -1) @ p["wo"].reshape(-1, cfg.d_model)
+        bias = _decode_bias(slot_pos, pos, window)
+
+        def attend(q_, kc, vc):
+            return gqa_attention(q_, kc, vc, bias)
+    out = _by_runs(runs, attend, q, k_cache, v_cache)
+    return (out.reshape(B, 1, out.shape[2] * out.shape[3])
+            @ _rows(p["wo"]))
+
+
+def _live_slots(slot_pos, pos, window: int):
+    """(B, T): the slots a decode step at ``pos`` attends to, the
+    reference's mask (``0 <= slot_pos <= pos``, within ``window``)."""
+    ok = (slot_pos >= 0) & (slot_pos <= pos[:, None])
+    if window > 0:
+        ok = ok & (pos[:, None] - slot_pos < window)
+    return ok
+
+
+def _decode_bias(slot_pos, pos, window: int):
+    zero = torch.zeros((), dtype=torch.float32, device=pos.device)
+    return torch.where(_live_slots(slot_pos, pos, window), zero,
+                       torch.full_like(zero, -1e30))[:, None]
 
 
 def gqa_decode_lse(q, k, v, ok):
@@ -368,11 +477,11 @@ def gqa_decode_lse(q, k, v, ok):
     return out.reshape(B, H, hd), lse.reshape(B, H)
 
 
-def _owned(pos, lo: int, n: int):
-    """(slot, own): the local slot ``pos - lo`` of each row, clamped
-    into [0, n), and whether the row's position lies in the slice [lo,
+def _owned(slot, lo: int, n: int):
+    """(local, own): the local slot ``slot - lo`` of each row, clamped
+    into [0, n), and whether the row's slot lies in the slice [lo,
     lo + n) (n > 0)."""
-    loc = pos.long() - lo
+    loc = slot.long() - lo
     return loc.clamp(0, n - 1), (loc >= 0) & (loc < n)
 
 
@@ -386,17 +495,19 @@ def _write_owned(cache, new, slot, own) -> None:
 
 
 def _decode_seq(cfg: ModelConfig, p, x, k_cache, v_cache, slot_pos, pos,
-                attn_impl: str, g):
+                attn_impl: str, window: int, g):
     """``attention_decode`` over caches split over the sequence: each
     rank's query heads gathered over the tensor-parallel ranks (every
     rank has q for every head), the new token's K/V gathered over the
-    KV heads (``kv_owners``) and written only by the rank whose slice
-    holds slot ``pos``; each rank attends over its slice [lo, lo + n)
-    with every head, K8's log-sum-exp route with lengths clamp(pos + 1
-    - lo, 0, n) or the grouped einsum over its live slots; the partials
-    merge in rank order (``combine_partials``); each rank's heads go
+    KV heads (``kv_pieces``) and written only by the rank whose slice
+    holds its slot (``pos``, or ``pos % window`` in the hybrid's ring);
+    each rank attends over its slice [lo, lo + n) with every head: K8's
+    log-sum-exp route with lengths clamp(pos + 1 - lo, 0, n) (with the
+    reference's slot mask in the ring), or the grouped einsum over its
+    live slots; the partials merge in rank order
+    (``combine_partials``); each rank's heads (``head_range``) go
     through its ``wo`` part and the products are all-reduced."""
-    H, K, D = cfg.num_heads, cfg.num_kv_heads, cfg.d_model
+    H, K = cfg.num_heads, cfg.num_kv_heads
     loc = sm.local_grid(p, g)
 
     def project(pl, xl, ps):
@@ -406,9 +517,9 @@ def _decode_seq(cfg: ModelConfig, p, x, k_cache, v_cache, slot_pos, pos,
 
     q, k_new, v_new = sm.unzip(sm.gmap(project, loc, x, pos).grid, 3)
     q = sm.all_gather(q, g, dim=1)
-    owners = sm.kv_owners(H, K, g.tp)
-    k_new = sm.gather_ranks(k_new, g, owners, dim=1)
-    v_new = sm.gather_ranks(v_new, g, owners, dim=1)
+    pieces = sm.kv_pieces(H, K, g.tp)
+    k_new = sm.gather_ranks(k_new, g, pieces, dim=1)
+    v_new = sm.gather_ranks(v_new, g, pieces, dim=1)
     T = sum(k_cache[0, u].shape[1] for u in range(g.tp))
     kernel = attn_path(attn_impl, x.grid[0, 0]) == "kernel"
 
@@ -418,50 +529,60 @@ def _decode_seq(cfg: ModelConfig, p, x, k_cache, v_cache, slot_pos, pos,
         if n == 0:
             return (qq.new_zeros(qq.shape), qq.new_full((B, H), -torch.inf,
                                                         dtype=torch.float32))
-        slot, own = _owned(ps, lo, n)
+        slot, own = _owned(ps % window if window > 0 else ps, lo, n)
         _write_owned(kc, kn, slot, own)
         _write_owned(vc, vn, slot, own)
         _write_owned(sp, ps.to(sp.dtype), slot, own)
+        if kernel and window > 0:
+            return decode_attention(qq, kc.permute(0, 2, 1, 3),
+                                    vc.permute(0, 2, 1, 3), slot_pos=sp,
+                                    pos=ps, window=window, impl="kernel",
+                                    return_lse=True)
         if kernel:
             lengths = (ps.long() + 1 - lo).clamp(0, n).to(torch.int32)
             return decode_attention(qq, kc.permute(0, 2, 1, 3),
                                     vc.permute(0, 2, 1, 3), lengths,
                                     impl="kernel", return_lse=True)
-        ok = (sp >= 0) & (sp <= ps[:, None])
-        return gqa_decode_lse(qq, kc, vc, ok)
+        return gqa_decode_lse(qq, kc, vc, _live_slots(sp, ps, window))
 
     parts = sm.gmap(attend, sm.positions(g), q, k_cache, v_cache, slot_pos,
                     pos, k_new, v_new)
     out = sm.combine_partials(*sm.unzip(parts.grid, 2), g)
-    h = H // g.tp
 
     def proj(it, o, pl):
-        t = it[1]
-        return (o[:, t * h:(t + 1) * h].reshape(o.shape[0], 1, -1)
-                @ pl["wo"].reshape(-1, D))
+        a, b = sm.head_range(H, g.tp, it[1])
+        return (o[:, a:b].reshape(o.shape[0], 1, (b - a) * o.shape[-1])
+                @ _rows(pl["wo"]))
 
     return sm.all_reduce(sm.Rows(sm.gmap(proj, sm.positions(g), out, loc),
                                  x.n), g)
 
 
-def _cross_decode(cfg: ModelConfig, p, x, xk, xv, attn_impl: str):
+def _cross_decode(cfg: ModelConfig, p, x, xk, xv, attn_impl: str,
+                  runs=None):
     """One token's cross-attention over the encoder's (B,T,K,hd) keys
     and values, every slot live (the reference's ``slot_pos`` of zeros
     with pos >= 0): K8 with ``lengths = T`` on every row, or the grouped
-    einsum with a zero bias. Returns (B,1,D)."""
+    einsum with a zero bias, by ``runs``. Returns (B,1,D)."""
     B, T = x.shape[0], xk.shape[1]
     q = _proj(x, p["wq"])
     if "bq" in p:
         q = q + p["bq"]
     if attn_path(attn_impl, x) == "kernel":
         lengths = torch.full((B,), T, dtype=torch.int32, device=x.device)
-        out = decode_attention(q[:, 0], xk.permute(0, 2, 1, 3),
-                               xv.permute(0, 2, 1, 3), lengths,
-                               impl="kernel")[:, None]
+
+        def attend(q_, kc, vc):
+            return decode_attention(q_[:, 0], kc.permute(0, 2, 1, 3),
+                                    vc.permute(0, 2, 1, 3), lengths,
+                                    impl="kernel")[:, None]
     else:
         bias = torch.zeros(B, 1, T, dtype=torch.float32, device=x.device)
-        out = gqa_attention(q, xk, xv, bias)
-    return out.reshape(B, 1, -1) @ p["wo"].reshape(-1, cfg.d_model)
+
+        def attend(q_, kc, vc):
+            return gqa_attention(q_, kc, vc, bias)
+    out = _by_runs(runs, attend, q, xk, xv)
+    return (out.reshape(B, 1, out.shape[2] * out.shape[3])
+            @ _rows(p["wo"]))
 
 
 # ---------------------------------------------------------------------------
@@ -550,12 +671,23 @@ def _mla_attend(cfg: ModelConfig, p, cq, ckv, k_rope, positions):
     qn, qr = _mla_q_up(cfg, p, cq, positions)
     kn = _proj(ckv, p["wuk"])
     v = _proj(ckv, p["wuv"])
-    scores = (torch.einsum("bshk,bthk->bhst", qn, kn)
-              + torch.einsum("bshk,btk->bhst", qr, k_rope)).float()
-    bias = _mask_bias(positions, positions)
-    w = torch.softmax(scores * _mla_scale(cfg) + bias[:, None],
-                      dim=-1).to(cq.dtype)
-    out = torch.einsum("bhst,bthk->bshk", w, v)
+
+    def attend(rows, hi):
+        """Queries ``rows`` over the keys [0, hi)."""
+        scores = (torch.einsum("bshk,bthk->bhst", qn[:, rows], kn[:, :hi])
+                  + torch.einsum("bshk,btk->bhst", qr[:, rows],
+                                 k_rope[:, :hi])).float()
+        bias = _mask_bias(positions[:, rows], positions[:, :hi])
+        w = torch.softmax(scores * _mla_scale(cfg) + bias[:, None],
+                          dim=-1).to(cq.dtype)
+        return torch.einsum("bhst,bthk->bshk", w, v[:, :hi])
+
+    if _chunked(S):  # the reference's Q_CHUNK blocks (causal mode)
+        out = torch.cat([attend(slice(i, i + Q_CHUNK), i + Q_CHUNK if
+                                Q_CHUNK_MODE == "triangle" else S)
+                         for i in range(0, S, Q_CHUNK)], dim=1)
+    else:
+        out = attend(slice(None), S)
     return out.reshape(B, S, -1) @ p["wo"].reshape(-1, cfg.d_model)
 
 
@@ -995,13 +1127,17 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
     # intra-chunk (diagonal blocks): L = exp(segsum(dA)) per head
     Lmat = torch.exp(_segsum(dA.permute(0, 1, 3, 2)))  # (b,c,h,l,l)
     xdt = xc * dtc[..., None]  # (b,c,l,h,p)
-    cb = Cc @ Bc.transpose(-1, -2)  # (b,c,l,s)
-    y_diag = torch.einsum("bchls,bcshp->bclhp", cb[:, :, None] * Lmat, xdt)
+    # mixed operands (bfloat16 weights beside the float32 decays) are
+    # promoted first, as the reference's einsums promote them
+    ct = torch.promote_types(Cc.dtype, Lmat.dtype)
+    cb = Cc.to(ct) @ Bc.to(ct).transpose(-1, -2)  # (b,c,l,s)
+    w = cb[:, :, None] * Lmat
+    y_diag = torch.einsum("bchls,bcshp->bclhp", w, xdt.to(w.dtype))
 
     # chunk states: contribution of each chunk to its final state
     decay_states = torch.exp(dA_cum[:, :, -1:, :] - dA_cum)  # (b,c,l,h)
-    states = torch.einsum("bcln,bclhp->bchpn", Bc,
-                          decay_states[..., None] * xdt)
+    dx = decay_states[..., None] * xdt
+    states = torch.einsum("bcln,bclhp->bchpn", Bc.to(dx.dtype), dx)
 
     # inter-chunk recurrence, carried in float32
     chunk_decay = torch.exp(dA_cum[:, :, -1, :])  # (b,c,h)
@@ -1016,8 +1152,8 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
 
     # inter-chunk output: state entering the chunk, decayed to each position
     state_decay = torch.exp(dA_cum)  # (b,c,l,h)
-    y_off = torch.einsum("bcln,bchpn->bclhp", Cc, prev_states) \
-        * state_decay[..., None]
+    y_off = torch.einsum("bcln,bchpn->bclhp", Cc.to(prev_states.dtype),
+                         prev_states) * state_decay[..., None]
     y = (y_diag + y_off).reshape(b, s, h, p_)
     return y[:, :s_orig], hstate
 

@@ -467,7 +467,8 @@ def init_cache(cfg, batch_size, max_seq, dtype=torch.float32,
     if sm.on_mesh(policy):
         _check_mesh(cfg, policy)
         g = sm.mesh_grid(policy)
-        batch_size = -(-batch_size // g.dp) * g.dp
+        if not g.replicas:  # every data rank holds the whole batch
+            batch_size = -(-batch_size // g.dp) * g.dp
         specs = cache_specs(cfg, batch_size, max_seq, policy)
         heads_tp = g.tp > 1 and policy.spec("heads")[0] == policy.tp_axis
         seq = sm.seq_sharded(policy)
@@ -590,16 +591,11 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos,
 def _check_mesh(cfg: ModelConfig, policy: ShardingPolicy) -> None:
     """The families the model-parallel port serves and trains: dense,
     MoE, MLA (with its MTP loss), SSM, hybrid, encoder-decoder and VLM,
-    under every policy knob ``sharding.model.check_policy`` admits. The
-    hybrid at tp > 1 without ``dp_over_tp`` (its 25 query heads over 5
-    KV heads make no even groups a rank: ``kv_range``) raises."""
+    under every policy knob ``sharding.model.check_policy`` admits (the
+    hybrid's 25 query heads over 5 KV heads at tp > 1 split in ceil
+    chunks, a rank attending in ``head_runs``)."""
     check_supported(cfg)
     sm.check_policy(policy)
-    if cfg.family == "hybrid" and sm.mesh_grid(policy).tp > 1:
-        raise sm.MeshNotPorted(
-            f"{cfg.name}: the hybrid at tp > 1 without dp_over_tp is not "
-            f"run by the model-parallel port; it runs over the data axes, "
-            f"or over both with dp_over_tp")
 
 
 def _norm_mesh(cfg, h: "sm.Rows", w: "sm.Sharded", last: bool = False):
@@ -663,12 +659,24 @@ def _seq_span(leaf: "sm.Sharded", i: int, t: int) -> tuple[int, int]:
     return lo, hi - lo
 
 
+def _slice_slots(S: int, T: int, lo: int, n: int):
+    """(slots, positions): the positions of a prefill of S positions into
+    a T-slot cache (``_ring_slots``: the last T at slot ``pos % T``)
+    whose slots lie in the slice [lo, lo + n), and those slots less lo,
+    as host index lists (one contiguous run unless the ring wraps)."""
+    first = max(S - T, 0)
+    p = np.arange(first, S)
+    keep = p[(p % T >= lo) & (p % T < lo + n)]
+    return (keep % T - lo).tolist(), keep.tolist()
+
+
 def _write_parts(leaf: "sm.Sharded", l: int, grid, name: str = "") -> None:
     """Write each position's value of ``grid`` into layer ``l`` of its
     part of the cache leaf, once a distinct part (positions sharing a
     part give the same value): ``_write_kv``'s ring layout for keys and
     values, or, for a leaf of ``SEQ_LEAVES`` split over the sequence,
-    the part's slice [lo, lo + n) of the S positions written."""
+    the part's slice [lo, lo + n) of that layout (the hybrid's ring
+    included)."""
     done = set()
     for (i, t), val in np.ndenumerate(grid):
         part = leaf.parts[i, t]
@@ -677,11 +685,15 @@ def _write_parts(leaf: "sm.Sharded", l: int, grid, name: str = "") -> None:
         done.add(id(part))
         lo, n = (_seq_span(leaf, i, t) if name in SEQ_LEAVES
                  else (0, leaf.shape[2]))
-        if (lo, n) == (0, leaf.shape[2]):
+        S, T = val.shape[1], leaf.shape[2]
+        if (lo, n) == (0, T):
             _write_kv(part[l], val)
-        else:
-            m = min(max(val.shape[1] - lo, 0), n)
+        elif S <= T:
+            m = min(max(S - lo, 0), n)
             part[l][:, :m] = val[:, lo:lo + m]
+        else:
+            slots, p = _slice_slots(S, T, lo, n)
+            part[l][:, slots] = val[:, p]
 
 
 def _block_mesh(cfg, bp, h, attn_impl, ssd_impl, policy, cache=None, l=0,
@@ -704,8 +716,8 @@ def _block_mesh(cfg, bp, h, attn_impl, ssd_impl, policy, cache=None, l=0,
         a, k, v = attention_block(cfg, bp["attn"], x, attn_impl,
                                   _window(cfg), mode, prefix, policy=policy)
         if cache is not None and sm.seq_sharded(policy):
-            owners = sm.kv_owners(cfg.num_heads, cfg.num_kv_heads, g.tp)
-            k, v = (sm.gather_ranks(a_, g, owners, dim=2) for a_ in (k, v))
+            pieces = sm.kv_pieces(cfg.num_heads, cfg.num_kv_heads, g.tp)
+            k, v = (sm.gather_ranks(a_, g, pieces, dim=2) for a_ in (k, v))
         written.update(k=k, v=v)
     if cfg.family in ("ssm", "hybrid"):
         s, state, conv = _ssm_mesh(cfg, bp["ssm"], x, ssd_impl, g)
@@ -836,7 +848,7 @@ def _xent_mesh(part: "sm.Rows", toks: "sm.Rows", first: int, n: int,
     g = sm.mesh_grid(policy)
     home = sm.home_device(policy)
     num = den = None
-    for i in range(g.dp):
+    for i in range(1 if g.replicas else g.dp):  # replicas: one batch
         dev = g.devices[i, 0]
         logits = torch.cat([part.grid[i, u].to(dev) for u in range(g.tp)],
                            dim=-1)
@@ -894,20 +906,27 @@ def _prefill_mesh(cfg, params, batch, max_seq, attn_impl, ssd_impl, policy):
 def _write_slot_pos(leaf: "sm.Sharded", S: int) -> None:
     """Each distinct part of ``slot_pos`` after a prefill of S
     positions: ``_ring_slots``' positions over the whole sequence, or
-    the positions of the part's slice [lo, lo + n) that are below S."""
+    those of them whose slots lie in the part's slice [lo, lo + n)."""
     done = set()
     for (i, t), part in np.ndenumerate(leaf.parts):
         if id(part) in done:
             continue
         done.add(id(part))
         lo, n = _seq_span(leaf, i, t)
-        if (lo, n) == (0, leaf.shape[2]):
+        T = leaf.shape[2]
+        if (lo, n) == (0, T):
             first, slots = _ring_slots(S, n, part.device)
             part[:, :, slots] = torch.arange(first, S, dtype=torch.int32,
                                              device=part.device)
-        elif S > lo:
-            part[:, :, :min(S - lo, n)] = torch.arange(
-                lo, min(S, lo + n), dtype=torch.int32, device=part.device)
+        elif S <= T:
+            if S > lo:
+                part[:, :, :min(S - lo, n)] = torch.arange(
+                    lo, min(S, lo + n), dtype=torch.int32,
+                    device=part.device)
+        else:
+            slots, p = _slice_slots(S, T, lo, n)
+            part[:, :, slots] = torch.tensor(p, dtype=torch.int32,
+                                             device=part.device)
 
 
 def _decode_mesh(cfg, params, cache, tokens, pos, attn_impl, policy):

@@ -19,13 +19,20 @@ one card.
   of the global tensor it holds. A dimension split over mesh axes of
   total size n is cut into chunks of ceil(size / n), row-major over
   the named axes (a trailing chunk may be shorter or empty, where
-  GSPMD pads). The grouped-query KV heads are the exception: rank t
-  holds the KV heads its query heads read (``kv_range``), so a KV
-  head count that does not divide TP (starcoder2-3b's 2 over 4) or a
-  replicated KV spec (``shard_kv_heads=False``) gives each rank one
-  consistent group. Positions on one device that hold the same slice
-  share one tensor, so a tree sharded over one card holds each weight
-  once. ``unshard`` writes the parts back into one global tensor.
+  GSPMD pads). The query heads follow that rule (``head_range``:
+  hymba-1.5b's 25 over 2 are 13 + 12, over 4 7 + 7 + 7 + 4). The
+  grouped-query KV heads are the exception: rank t holds the KV heads
+  its query heads read (``kv_range``), so a KV head count that does
+  not divide TP (starcoder2-3b's 2 over 4), a replicated KV spec
+  (``shard_kv_heads=False``) or query heads that straddle groups
+  (hymba's rank 0 of 2 reads KV heads 0-2, rank 1 KV heads 2-4) give
+  each rank the heads it needs; two ranks' KV ranges may then overlap
+  in part, and ``Sharded.slices`` cuts them into disjoint pieces. A
+  rank's query heads attend in runs (``head_runs``), each inside one
+  KV head's group or over whole groups, one kernel call a run.
+  Positions on one device that hold the same slice share one tensor,
+  so a tree sharded over one card holds each weight once. ``unshard``
+  writes the parts back into one global tensor.
 * ``Rows`` — activations: a global batch of ``n`` rows, data-parallel
   rank i holding rows [i·c, (i+1)·c), c = ceil(n / DP), the last
   chunk padded with zero rows (GSPMD's padding), replicated over the
@@ -54,13 +61,28 @@ one card.
   gradient all-reduce), and ``slices`` visits each distinct global
   slice once (the gradient norm, checkpoints, ``unshard``).
 
+* The dry run's batch that does not divide the data axes
+  (``launch/dryrun.py``, the reference's fallback: ``dp_axes`` empty,
+  the parameters still FSDP over the data axes): the grid's data ranks
+  are those axes, each holding the whole batch (``MeshGrid.replicas``).
+* ``tally_collectives``: while on, every exchange point above adds the
+  bytes each receiving position takes from others (``_tally``: the
+  result's bytes; an all-reduce's twice, as the reference's dry run
+  counts a ring) by kind, whether or not the positions share a device
+  (the dry run's positions all lie on ``meta``), and, when autograd
+  carries a gradient back through it, its backward (an all-reduce
+  again, an all-gather's reduce-scatter: ``_tally_backward``); off, it
+  costs one global read a position.
+
 No ``torch.distributed``: one process drives every position, as the
 partitioned data tier does (``sharding/data.py``), so a mesh over
 shards of one card needs no process group.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
+import itertools
 from typing import Callable, Optional
 
 import numpy as np
@@ -69,11 +91,68 @@ import torch
 from .policy import PartitionSpec, ShardingPolicy
 
 
+# the dry run's collective tally (``tally_collectives``); None when off
+TALLY: Optional[dict] = None
+# the dry run's hook around each ``gmap`` call (``around_calls``): it
+# measures a position's transient bytes; None when off
+AROUND: Optional[Callable] = None
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _add(kind: str, nbytes: float) -> None:
+    TALLY[kind] = TALLY.get(kind, 0.0) + nbytes
+    counts = TALLY.setdefault("_counts", {})
+    counts[kind] = counts.get(kind, 0) + 1
+
+
+def _tally(kind: str, t: torch.Tensor, times: float = 1.0) -> None:
+    """Add the bytes of ``t`` (``times`` over) to the tally's ``kind``."""
+    _add(kind, _nbytes(t) * times)
+
+
+def _tally_backward(t: torch.Tensor, kind: str, nbytes: float) -> None:
+    """Tally ``kind`` of ``nbytes`` when autograd carries a gradient back
+    through ``t`` (the exchange's backward; a hook fires once a backward
+    pass, so a layer recomputed under remat counts once)."""
+    if t.requires_grad:
+        def hook(_):
+            if TALLY is not None:
+                _add(kind, nbytes)
+        t.register_hook(hook)
+
+
+@contextlib.contextmanager
+def tally_collectives():
+    """While open, the exchange points tally the bytes each receiving
+    position takes from other positions, by kind ("all-reduce" twice
+    its result's bytes, "all-gather", "reduce-scatter"; module doc).
+    Yields the tally dict ({kind: bytes summed over the positions,
+    "_counts": {kind: receptions}})."""
+    global TALLY
+    prev, TALLY = TALLY, {}
+    try:
+        yield TALLY
+    finally:
+        TALLY = prev
+
+
+@contextlib.contextmanager
+def around_calls(hook: Callable):
+    """While open, ``gmap`` runs each call as ``hook(fn, args)``."""
+    global AROUND
+    prev, AROUND = AROUND, hook
+    try:
+        yield
+    finally:
+        AROUND = prev
+
+
 class MeshNotPorted(NotImplementedError):
-    """A model family or policy knob the model-parallel port does not
-    run: the hybrid at tp > 1 without ``dp_over_tp`` (its 25 query heads
-    over 5 KV heads make no even groups a rank: ``kv_range``), and
-    ``ep_over_dp`` with ``dp_over_tp`` (``check_policy``)."""
+    """A policy knob the model-parallel port does not run: ``ep_over_dp``
+    with ``dp_over_tp`` (``check_policy``)."""
 
 
 # ---------------------------------------------------------------------------
@@ -93,11 +172,17 @@ class MeshGrid:
             raise ValueError(f"dp_axes {policy.dp_axes} not on the mesh "
                              f"{names}")
         tp_axes = (policy.tp_axis,) if policy.tp_axis else ()
-        rest = [a for a in names if a not in dp_axes + tp_axes
-                and shape[a] > 1]
-        if rest:
-            raise MeshNotPorted(f"mesh axes {rest} are neither data- nor "
-                                f"tensor-parallel under this policy")
+        rest = tuple(a for a in names if a not in dp_axes + tp_axes
+                     and shape[a] > 1)
+        # the reference's dry run replicates a batch that its data axes
+        # do not divide (dp_axes empty): those axes' ranks each hold the
+        # whole batch, the parameters FSDP over them as before
+        self.replicas = bool(rest) and not dp_axes and not policy.dp_over_tp
+        if rest and not self.replicas:
+            raise MeshNotPorted(f"mesh axes {list(rest)} are neither data- "
+                                f"nor tensor-parallel under this policy")
+        if self.replicas:
+            dp_axes = rest
         order = [names.index(a) for a in dp_axes + tp_axes] + [
             names.index(a) for a in names if a not in dp_axes + tp_axes]
         if policy.dp_over_tp:  # the batch's axes: dp_axes + (tp_axis,)
@@ -155,8 +240,13 @@ def check_policy(policy: ShardingPolicy) -> None:
     if policy.ep_over_dp and policy.dp_over_tp:
         raise MeshNotPorted("ShardingPolicy.ep_over_dp with dp_over_tp is "
                             "not run by the model-parallel port")
-    if policy.fsdp_params and tuple(policy.fsdp_axes) != tuple(
-            policy.dp_axes):
+    fsdp = tuple(a for a in policy.fsdp_axes
+                 if policy.mesh.shape.get(a, 1) > 1)
+    data = policy.dp_axes or tuple(
+        a for a in policy.mesh.axis_names if a != policy.tp_axis
+        and policy.mesh.shape[a] > 1)  # the dry run's replicated batch
+    if policy.fsdp_params and fsdp and fsdp != tuple(
+            a for a in data if policy.mesh.shape.get(a, 1) > 1):
         raise MeshNotPorted("FSDP over axes other than the data axes")
 
 
@@ -187,35 +277,99 @@ def _grid(g: MeshGrid) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
+def head_range(num_heads: int, tp: int, t: int) -> tuple[int, int]:
+    """The query heads [lo, hi) of tensor-parallel rank ``t`` of ``tp``:
+    chunks of ceil(H / tp), as ``leaf_index`` cuts the ``heads``
+    dimension (the last chunk shorter, or empty)."""
+    c = -(-num_heads // tp)
+    lo = min(t * c, num_heads)
+    return lo, min(lo + c, num_heads)
+
+
 def kv_range(num_heads: int, num_kv_heads: int, tp: int, t: int
              ) -> tuple[int, int]:
     """The KV heads [lo, hi) that tensor-parallel rank ``t`` of ``tp``
-    reads: its query heads are [t·H/tp, (t+1)·H/tp), and query head h
-    reads KV head h // (H / K). A rank holds whole groups (H/tp a
-    multiple of the group) or lies inside one (the group a multiple of
-    H/tp); other layouts raise."""
+    reads: query head h reads KV head h // g (g = H / K), so the rank's
+    query heads [a, b) (``head_range``) read KV heads a // g to
+    (b - 1) // g. A rank may hold whole groups, lie inside one group or
+    straddle groups (hymba-1.5b's 25 over 5 at tp 2: KV heads 0-2 and
+    2-4); a rank with no query heads reads none."""
     H, K = num_heads, num_kv_heads
-    if H % tp:
-        raise MeshNotPorted(f"{H} heads over tp={tp}")
-    h_loc, group = H // tp, H // K
-    if h_loc % group and group % h_loc:
-        raise MeshNotPorted(f"{h_loc} query heads a rank straddle groups "
-                            f"of {group}")
-    lo = t * h_loc // group
-    return lo, (t * h_loc + h_loc - 1) // group + 1
+    if K <= 0 or H % K:
+        raise ValueError(f"{H} query heads over {K} KV heads")
+    a, b = head_range(H, tp, t)
+    g = H // K
+    if a == b:
+        return min(a // g, K), min(a // g, K)
+    return a // g, (b - 1) // g + 1
 
 
-def kv_owners(num_heads: int, num_kv_heads: int, tp: int) -> list[int]:
-    """The tensor-parallel ranks whose ``kv_range`` starts a new KV head
-    range, in rank order: concatenated, their ranges are every KV head
-    once (ranks inside one group share its range)."""
+def head_runs(num_heads: int, num_kv_heads: int, tp: int, t: int
+              ) -> list[tuple[int, int, int, int]]:
+    """Rank ``t``'s query heads as runs (qa, qb, ka, kb) in the rank's
+    local numbering: query heads [qa, qb) read KV heads [ka, kb), the
+    same number of query heads a KV head (adjacent KV heads whose counts
+    agree merge into one run). Whole groups and a rank inside one group
+    are one run; a rank that straddles groups has up to three (a
+    partial group, whole groups, a partial group), each one K7 or K8
+    call at a group size the kernels take."""
+    a, b = head_range(num_heads, tp, t)
+    lo, hi = kv_range(num_heads, num_kv_heads, tp, t)
+    g = num_heads // num_kv_heads
+    runs: list[list[int]] = []
+    q = 0
+    for j in range(lo, hi):
+        n = min(b, (j + 1) * g) - max(a, j * g)
+        last = runs[-1] if runs else None
+        if last and (last[1] - last[0]) == n * (last[3] - last[2]):
+            last[1] += n
+            last[3] += 1
+        else:
+            runs.append([q, q + n, j - lo, j - lo + 1])
+        q += n
+    return [tuple(r) for r in runs]
+
+
+@functools.lru_cache(maxsize=64)
+def run_grid(num_heads: int, num_kv_heads: int, policy: ShardingPolicy
+             ) -> np.ndarray:
+    """Each position's ``head_runs`` where its query heads need more than
+    one run (or none: a rank without query heads), else None (the
+    heads not split over the tensor ranks, or one run: the attention
+    call is the one-device call). Positions of one tensor rank share
+    one object, so ``gmap`` keeps their sharing."""
+    g = mesh_grid(policy)
+    out = _grid(g)
+    heads_tp = g.tp > 1 and policy.spec("heads")[0] == policy.tp_axis
+    per_t = {}
+    for t in range(g.tp):
+        runs = (head_runs(num_heads, num_kv_heads, g.tp, t)
+                if heads_tp and num_heads else None)
+        per_t[t] = None if runs is None or len(runs) == 1 else tuple(runs)
+    for i, t in g.coords():
+        out[i, t] = per_t[t]
+    return out
+
+
+def kv_pieces(num_heads: int, num_kv_heads: int, tp: int
+              ) -> list[tuple[int, int, int]]:
+    """(t, a, b): the KV heads [a, b) of rank t's local range that,
+    concatenated in rank order, give every KV head once: each rank
+    whose ``kv_range`` reaches past the ranks before it, from the first
+    head they did not hold (ranks inside one group share its range;
+    straddling ranks overlap in a head)."""
     out, end = [], 0
     for t in range(tp):
         lo, hi = kv_range(num_heads, num_kv_heads, tp, t)
-        if lo == end and hi > lo:
-            out.append(t)
+        if hi > end:
+            out.append((t, end - lo, hi - lo))
             end = hi
     return out
+
+
+def kv_owners(num_heads: int, num_kv_heads: int, tp: int) -> list[int]:
+    """The tensor-parallel ranks of ``kv_pieces``, in rank order."""
+    return [t for t, _, _ in kv_pieces(num_heads, num_kv_heads, tp)]
 
 
 def dedupe_spec(spec) -> PartitionSpec:
@@ -286,19 +440,58 @@ class Sharded:
         dev = device if device is not None else self.parts[0, 0].device
         out = torch.empty(self.shape, dtype=self.dtype, device=dev)
         for idx, (first, *_) in self.slices():
-            out[idx] = self.parts[first].to(dev)
+            out[idx] = self.piece(first, idx).to(dev)
         return out
 
     def slices(self) -> list[tuple[tuple, list]]:
         """(index, holders) of each distinct global slice, in rank order
         i·TP + t of its first holder; ``holders`` are the positions
-        (i, t) that hold it, in rank order. The slices tile the global
-        tensor (chunks and KV ranges are equal or disjoint)."""
-        out: dict = {}
+        (i, t) whose part holds it, in rank order. The slices tile the
+        global tensor: where every two parts' slices are equal or
+        disjoint (chunks, and KV ranges of whole groups or one group)
+        they are the parts' own slices; where two ranks' KV ranges
+        overlap in part (query heads that straddle groups) each part's
+        slice is cut at every other part's bounds into pieces, and
+        ``piece`` gives a holder's view of one."""
+        n = len(self.shape)
+        bounds = [set() for _ in range(n)]
+        norm = {}
         for i, t in np.ndindex(*self.parts.shape):
-            idx = self.index[i, t]
-            out.setdefault(_key(idx), (idx, []))[1].append((i, t))
+            k = tuple(s.indices(m)[:2] for s, m in
+                      zip(self.index[i, t], self.shape))
+            norm[i, t] = k
+            for d, (a, b) in enumerate(k):
+                bounds[d].update((a, b))
+        cuts = [sorted(b) for b in bounds]
+        out: dict = {}
+        for (i, t), k in norm.items():
+            spans = [[(c0, c1) for c0, c1 in zip(cuts[d], cuts[d][1:])
+                      if a <= c0 and c1 <= b] for d, (a, b) in enumerate(k)]
+            if any(not sp for sp in spans):  # an empty part
+                spans = [[(a, b)] for a, b in k]
+            for cell in itertools.product(*spans):
+                idx = (self.index[i, t] if cell == k
+                       else tuple(slice(a, b) for a, b in cell))
+                out.setdefault(cell, (idx, []))[1].append((i, t))
         return list(out.values())
+
+    def local(self, pos, idx) -> tuple[tuple, bool]:
+        """(the slices of the part at ``pos`` that hold the global slice
+        ``idx``, whether they are the whole part)."""
+        local, whole = [], True
+        for s, o, m in zip(idx, self.index[pos], self.shape):
+            a, b, _ = s.indices(m)
+            oa, ob, _ = o.indices(m)
+            whole &= (a, b) == (oa, ob)
+            local.append(slice(a - oa, b - oa))
+        return tuple(local), whole
+
+    def piece(self, pos, idx) -> torch.Tensor:
+        """The part at ``pos``'s view of the global slice ``idx`` (one of
+        ``slices``' pieces it holds): the part itself where the piece is
+        its whole slice."""
+        local, whole = self.local(pos, idx)
+        return self.parts[pos] if whole else self.parts[pos][local]
 
     def distinct(self) -> list[tuple[tuple, torch.Tensor]]:
         """((i, t), part) of each distinct part object once, at its first
@@ -434,22 +627,39 @@ def sum_replicas(x: Sharded) -> Sharded:
     each part's first holder on each holder's device, as
     ``all_reduce(over="all")`` adds: the gradient all-reduce of the
     replicated parameters (norms over TP, every leaf without FSDP over
-    the data ranks, KV heads that ``kv_range`` gives several ranks).
-    Positions on one device that share a part hold one gradient,
-    accumulated by autograd, and count once. Every holder ends with the
-    same bits."""
+    the data ranks, KV heads that ``kv_range`` gives several ranks; a
+    KV head two straddling ranks share is a piece of each part, summed
+    into a copy of it). Positions on one device that share a part hold
+    one gradient, accumulated by autograd, and count once. Every holder
+    ends with the same bits."""
     parts = x.parts.copy()
-    for _, holders in x.slices():
-        objs = list({id(x.parts[p]): x.parts[p] for p in holders}.values())
+    copies: dict = {}
+    for idx, holders in x.slices():
+        if TALLY is not None and len(holders) > 1:
+            for p in holders:
+                _tally("all-reduce", x.piece(p, idx), 2.0)
+        objs = {}
+        for p in holders:
+            objs.setdefault(id(x.parts[p]), p)
         if len(objs) < 2:
             continue
         made: dict = {}
         for p in holders:
             part = x.parts[p]
+            local, whole = x.local(p, idx)
             if id(part) not in made:
                 made[id(part)] = functools.reduce(
-                    torch.add, [o.to(part.device) for o in objs])
-            parts[p] = made[id(part)]
+                    torch.add, [x.piece(q, idx).to(part.device)
+                                for q in objs.values()])
+                if not whole:
+                    if id(part) not in copies:
+                        copies[id(part)] = part.clone()
+                    copies[id(part)][local] = made[id(part)]
+            if whole:
+                parts[p] = made[id(part)]
+    for p in np.ndindex(*parts.shape):
+        if id(x.parts[p]) in copies:
+            parts[p] = copies[id(x.parts[p])]
     return Sharded(x.shape, x.dtype, x.spec, parts, x.index, x.fsdp_dims)
 
 
@@ -497,18 +707,25 @@ def _local_tree(node, g: MeshGrid, i: int, t: int, made: dict):
     if key not in made:
         (dim,) = node.fsdp_dims
         made[key] = torch.cat([p.to(dev) for p in parts], dim=dim)
+    if TALLY is not None:
+        _tally("all-gather", made[key])
+        # the backward's reduce-scatter of the gathered gradient
+        _tally_backward(made[key], "reduce-scatter",
+                        _nbytes(node.parts[i, t]))
     return made[key]
 
 
-def local_config(cfg, g: MeshGrid):
-    """``cfg`` at one tensor-parallel rank's widths: its query heads,
-    the KV heads it reads (``kv_range``), its share of ``d_ff`` and of
-    the experts (``head_dim`` pinned to the model's). The SSM family
-    has no attention heads: only ``d_ff`` and the experts change."""
-    lo, hi = (kv_range(cfg.num_heads, cfg.num_kv_heads, g.tp, 0)
+def local_config(cfg, g: MeshGrid, t: int = 0):
+    """``cfg`` at tensor-parallel rank ``t``'s widths: its query heads
+    (``head_range``), the KV heads it reads (``kv_range``), its share
+    of ``d_ff`` and of the experts (``head_dim`` pinned to the model's).
+    The SSM family has no attention heads: only ``d_ff`` and the
+    experts change."""
+    a, b = head_range(cfg.num_heads, g.tp, t)
+    lo, hi = (kv_range(cfg.num_heads, cfg.num_kv_heads, g.tp, t)
               if cfg.num_heads else (0, 0))
     return cfg.replace(
-        num_heads=cfg.num_heads // g.tp, num_kv_heads=hi - lo,
+        num_heads=b - a, num_kv_heads=hi - lo,
         head_dim=cfg.resolved_head_dim, d_ff=-(-cfg.d_ff // g.tp),
         num_experts=cfg.num_experts // g.tp)
 
@@ -544,6 +761,14 @@ def scatter_rows(x: torch.Tensor, g: MeshGrid) -> Rows:
     """``x`` (n, ...) as ``Rows``: chunk i of ceil(n / DP) rows (zero
     rows after the last) on every device of data-parallel rank i."""
     n = x.shape[0]
+    if g.replicas:  # every data rank holds the whole batch
+        grid, made = _grid(g), {}
+        for i, t in g.coords():
+            dev = g.devices[i, t]
+            if str(dev) not in made:
+                made[str(dev)] = x.to(dev)
+            grid[i, t] = made[str(dev)]
+        return Rows(grid, n)
     c = -(-n // g.dp)
     if c * g.dp != n:
         x = torch.cat([x, x.new_zeros((c * g.dp - n, *x.shape[1:]))])
@@ -569,7 +794,7 @@ def gmap(fn: Callable, *args):
         vals = [a[i, t] if isinstance(a, np.ndarray) else a for a in grids]
         key = tuple(id(v) for v in vals)
         if key not in made:
-            made[key] = fn(*vals)
+            made[key] = fn(*vals) if AROUND is None else AROUND(fn, vals)
         out[i, t] = made[key]
     rows = next((a for a in args if isinstance(a, Rows)), None)
     return Rows(out, rows.n) if rows is not None else out
@@ -592,19 +817,32 @@ def positions(g: MeshGrid) -> np.ndarray:
     return out
 
 
-def _collect(x, g: MeshGrid, ranks: Callable, combine: Callable):
+def _collect(x, g: MeshGrid, ranks: Callable, combine: Callable,
+             kind: str):
     """Each position receives ``combine`` of the values of ``ranks(i,
     t)``, in that order, moved to its device (one result per distinct
-    device and source set)."""
+    device and source set); the tally counts ``kind`` at each position
+    whose sources are not itself alone."""
     grid = x.grid if isinstance(x, Rows) else x
     out, made = _grid(g), {}
     for i, t in g.coords():
         dev = g.devices[i, t]
-        src = [grid[r] for r in ranks(i, t)]
+        srcs = ranks(i, t)
+        src = [grid[r] for r in srcs]
         key = (str(dev), tuple(id(s) for s in src))
         if key not in made:
             made[key] = combine([s.to(dev) for s in src])
         out[i, t] = made[key]
+        if TALLY is not None and srcs != [(i, t)]:
+            r = made[key]
+            nb = _nbytes(r)
+            _tally(kind, r, 2.0 if kind == "all-reduce" else 1.0)
+            # the backward: the gradient all-reduced back to the
+            # sources, or each source's piece of it reduce-scattered
+            if kind == "all-reduce":
+                _tally_backward(r, kind, 2.0 * nb)
+            else:
+                _tally_backward(r, "reduce-scatter", nb / len(srcs))
     return Rows(out, x.n) if isinstance(x, Rows) else out
 
 
@@ -615,22 +853,28 @@ def all_reduce(x, g: MeshGrid, over: str = "tp"):
     def ranks(i, t):
         return [(j, u) for j in (range(g.dp) if over == "all" else (i,))
                 for u in range(g.tp)]
-    return _collect(x, g, ranks, lambda ts: functools.reduce(torch.add, ts))
+    return _collect(x, g, ranks, lambda ts: functools.reduce(torch.add, ts),
+                    "all-reduce")
 
 
 def all_gather(x, g: MeshGrid, dim: int):
     """Concatenate the positions' values over the TP ranks, in rank
     order, along ``dim``, onto each position's device."""
     return _collect(x, g, lambda i, t: [(i, u) for u in range(g.tp)],
-                    lambda ts: torch.cat(ts, dim=dim))
+                    lambda ts: torch.cat(ts, dim=dim), "all-gather")
 
 
-def gather_ranks(x, g: MeshGrid, ranks: list[int], dim: int):
-    """Concatenate the values of the tensor-parallel ranks ``ranks`` (in
-    that order) along ``dim`` onto each position's device: every KV
-    head from the ranks of ``kv_owners``."""
-    return _collect(x, g, lambda i, t: [(i, u) for u in ranks],
-                    lambda ts: torch.cat(ts, dim=dim))
+def gather_ranks(x, g: MeshGrid, pieces: list[tuple[int, int, int]],
+                 dim: int):
+    """Concatenate, in the order of ``pieces`` ((u, a, b): rank u's
+    values [a, b) along ``dim``), the tensor-parallel ranks' values onto
+    each position's device: every KV head once from ``kv_pieces``."""
+    def cat(ts):
+        return torch.cat([x_.narrow(dim, a, b - a) if (a, b) != (
+            0, x_.shape[dim]) else x_ for x_, (_, a, b) in zip(ts, pieces)],
+            dim=dim)
+    return _collect(x, g, lambda i, t: [(i, u) for u, _, _ in pieces], cat,
+                    "all-gather")
 
 
 def combine_partials(out: np.ndarray, lse: np.ndarray, g: MeshGrid
@@ -647,6 +891,10 @@ def combine_partials(out: np.ndarray, lse: np.ndarray, g: MeshGrid
         dev = g.devices[i, t]
         src = [(out[i, u], lse[i, u]) for u in range(g.tp)]
         key = (str(dev), tuple(id(a) for pair in src for a in pair))
+        if TALLY is not None and g.tp > 1:
+            for o, s_ in src:
+                _tally("all-gather", o)
+                _tally("all-gather", s_)
         if key not in made:
             outs = [o.to(dev) for o, _ in src]
             lses = [s_.to(dev) for _, s_ in src]
@@ -709,6 +957,8 @@ def _all_tokens(x: Rows, g: MeshGrid, i: int, t: int, made: dict):
     if key not in made:
         rows = torch.cat([x.grid[j, t].to(dev) for j in range(g.dp)])
         made[key] = rows[:x.n].reshape(-1, rows.shape[-1])
+    if TALLY is not None and g.dp > 1:
+        _tally("all-gather", made[key])
     return made[key]
 
 
@@ -748,6 +998,9 @@ def tokens_to_rows(y: np.ndarray, x: Rows, g: MeshGrid,
         dev = g.devices[i, t]
         src = [y[i, t]] if everywhere else [y[j, t] for j in range(g.dp)]
         key = (str(dev), tuple(id(s) for s in src), i)
+        if TALLY is not None and not everywhere and g.dp > 1:
+            for s in src:
+                _tally("all-gather", s)
         if key not in made:
             full = torch.cat([s.to(dev) for s in src]).reshape(x.n, S, D)
             pad = c * g.dp - x.n
@@ -760,9 +1013,11 @@ def tokens_to_rows(y: np.ndarray, x: Rows, g: MeshGrid,
 
 __all__ = ["MeshGrid", "MeshNotPorted", "Rows", "Sharded", "all_gather",
            "all_reduce", "check_policy", "combine_partials", "dedupe_spec",
-           "gather_ranks", "gmap", "home_device", "insert_rows",
-           "kv_owners", "kv_range", "leaf_index", "like", "local_config",
-           "local_grid", "mesh_grid", "on_mesh", "part_shape", "positions",
-           "scatter_rows", "seq_sharded", "seq_slice", "split", "split_like",
-           "sum_replicas", "token_chunks", "tokens_to_rows", "unshard",
-           "unzip", "zeros"]
+           "gather_ranks", "gmap", "head_range", "head_runs", "home_device",
+           "insert_rows", "kv_owners", "kv_pieces", "kv_range",
+           "leaf_index", "like", "local_config", "local_grid", "mesh_grid",
+           "on_mesh", "part_shape", "positions", "run_grid", "scatter_rows",
+           "around_calls",
+           "seq_sharded", "seq_slice", "split", "split_like",
+           "sum_replicas", "tally_collectives", "token_chunks",
+           "tokens_to_rows", "unshard", "unzip", "zeros"]

@@ -329,7 +329,7 @@ def global_norm(grads: dict) -> torch.Tensor:
     """sqrt of the sum of every leaf's float32 sum of squares, the
     leaves in ``jax.tree.leaves`` order, as the reference's clip sums.
     A ``Sharded`` leaf counts each distinct global slice once (its
-    first holder's part; replicas hold equal gradients after
+    first holder's piece of it; replicas hold equal gradients after
     ``sharding.model.sum_replicas``), its sums added on the first
     leaf's home device."""
     flat = leaves(grads)
@@ -341,9 +341,9 @@ def global_norm(grads: dict) -> torch.Tensor:
     home = _home(flat[0][1])
     total = torch.zeros((), device=home)
     for _, g in flat:
-        for _, (first, *_) in g.slices():
+        for idx, (first, *_) in g.slices():
             total = total + torch.sum(torch.square(
-                g.parts[first].float())).to(home)
+                g.piece(first, idx).float())).to(home)
     return torch.sqrt(total)
 
 

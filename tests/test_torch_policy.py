@@ -215,16 +215,22 @@ def test_kv_range_layouts():
     """The KV heads each tensor-parallel rank reads: whole groups when
     the ranks hold several (olmoe's group 1, starcoder2 at tp 2), one
     head shared by the ranks inside a group (starcoder2's 2 KV heads
-    over tp 4); a rank straddling groups raises."""
+    over tp 4); a rank straddling groups reads each group it touches
+    (query heads in ceil chunks), and a rank with no query heads none;
+    a head count that is no multiple of the KV heads raises."""
     assert [sm.kv_range(16, 16, 2, t) for t in range(2)] == [(0, 8),
                                                              (8, 16)]
     assert [sm.kv_range(24, 2, 4, t) for t in range(4)] == [
         (0, 1), (0, 1), (1, 2), (1, 2)]
     assert [sm.kv_range(24, 2, 2, t) for t in range(2)] == [(0, 1), (1, 2)]
-    with pytest.raises(NotImplementedError):
-        sm.kv_range(6, 2, 3, 0)  # 2 query heads a rank, groups of 3
-    with pytest.raises(NotImplementedError):
-        sm.kv_range(6, 2, 4, 0)  # 6 heads over 4 ranks
+    # 2 query heads a rank, groups of 3
+    assert [sm.kv_range(6, 2, 3, t) for t in range(3)] == [
+        (0, 1), (0, 2), (1, 2)]
+    # 6 heads over 4 ranks: 2, 2, 2 and none
+    assert [sm.kv_range(6, 2, 4, t) for t in range(4)] == [
+        (0, 1), (0, 2), (1, 2), (2, 2)]
+    with pytest.raises(ValueError):
+        sm.kv_range(5, 2, 2, 0)
 
 
 def test_dedupe_spec_keeps_the_first_use():

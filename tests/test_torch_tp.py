@@ -272,18 +272,29 @@ def test_mesh_engine_requires_sharded_params(weights):
 
 @pytest.mark.parametrize("arch", ("hymba-1.5b",))
 def test_other_families_refuse_the_mesh(arch):
-    """The hybrid at tp > 1 without ``dp_over_tp`` does not run over a
-    mesh (the SSM, the hybrid over the data axes, MLA, the
-    encoder-decoder and the VLM do: ``test_torch_tp_families.py``,
-    ``test_torch_tp_mla.py``)."""
+    """Every family runs over a mesh now, the hybrid at tp > 1 without
+    ``dp_over_tp`` too (``test_torch_tp_hybrid.py``): only the policy
+    ``ep_over_dp`` with ``dp_over_tp`` is refused, for any family. The
+    hybrid at (1, 2) lays its cache out by ``kv_range`` and prefills
+    as one device."""
     cfg = get_tiny(arch)
-    pol = policy(1, 2)
     p = pm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     toks = torch.ones(2, 4, dtype=torch.int64)
-    with pytest.raises(sm.MeshNotPorted, match="without dp_over_tp"):
-        pm.prefill(cfg, p, {"tokens": toks}, attn_impl="ref", policy=pol)
-    with pytest.raises(sm.MeshNotPorted, match="without dp_over_tp"):
-        pm.init_cache(cfg, 2, 8, policy=pol)
+    bad = policy(2, 2).replace(dp_over_tp=True, ep_over_dp=True)
+    with pytest.raises(sm.MeshNotPorted, match="ep_over_dp"):
+        pm.prefill(cfg, p, {"tokens": toks}, attn_impl="ref", policy=bad)
+    with pytest.raises(sm.MeshNotPorted, match="ep_over_dp"):
+        pm.init_cache(cfg, 2, 8, policy=bad)
+    pol = policy(1, 2)
+    cache = pm.init_cache(cfg, 2, 8, policy=pol)
+    for t in range(2):
+        lo, hi = sm.kv_range(cfg.num_heads, cfg.num_kv_heads, 2, t)
+        assert cache["k"].parts[0, t].shape[3] == hi - lo
+    want, _ = pm.prefill(cfg, p, {"tokens": toks}, attn_impl="ref")
+    got, _ = pm.prefill(cfg, shard_params(cfg, p, pol), {"tokens": toks},
+                        attn_impl="ref", policy=pol)
+    assert float((got - want).abs().max()) <= 1e-4 * float(
+        want.abs().max())
 
 
 def _serve(argv) -> list[str]:

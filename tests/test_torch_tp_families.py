@@ -249,17 +249,16 @@ def test_moe_dp_over_tp_raises_where_shard_map_raises():
 
 
 def test_still_refused():
-    """The hybrid at tp > 1 without ``dp_over_tp`` and ``ep_over_dp``
-    with ``dp_over_tp`` (MLA and ``shard_cache_seq`` run:
-    ``test_torch_tp_mla.py``)."""
+    """``ep_over_dp`` with ``dp_over_tp`` (MLA and ``shard_cache_seq``
+    run: ``test_torch_tp_mla.py``; the hybrid at tp > 1 without
+    ``dp_over_tp``: ``test_torch_tp_hybrid.py``)."""
     toks = {"tokens": torch.ones(2, 4, dtype=torch.int64)}
     for arch, pol, match in (
-            ("hymba-1.5b", policy(1, 2), "without dp_over_tp"),
-            ("hymba-1.5b", policy(2, 2), "without dp_over_tp"),
-            ("hymba-1.5b", policy(1, 2, rep={"shard_cache_seq": True}),
-             "without dp_over_tp"),
             ("olmoe-1b-7b", policy(2, 2, rep={"dp_over_tp": True,
                                               "ep_over_dp": True}),
+             "ep_over_dp"),
+            ("hymba-1.5b", policy(2, 2, rep={"dp_over_tp": True,
+                                             "ep_over_dp": True}),
              "ep_over_dp")):
         with pytest.raises(sm.MeshNotPorted, match=match):
             pm.prefill(get_tiny(arch), {}, toks, attn_impl="ref",

@@ -92,12 +92,13 @@ def test_train_mla_tiny_cpu(tmp_path, capsys):
 
 
 def test_train_refuses_a_model_parallel_mesh():
-    """The dense, MoE, MLA, SSM, encoder-decoder and VLM families train
-    over a mesh (``test_torch_train_tp.py``,
-    ``test_torch_train_tp_families.py``, ``test_torch_train_tp_mla.py``);
-    the hybrid at tp > 1 without ``dp_over_tp`` does not."""
-    with pytest.raises(sm.MeshNotPorted, match="without dp_over_tp"):
-        train.main(["--arch", "hymba-1.5b", "--tiny", "--device", "cpu",
+    """Every token-fed family trains over a mesh, the hybrid at tp > 1
+    too (``test_torch_train_tp.py``, ``test_torch_train_tp_families.py``,
+    ``test_torch_train_tp_mla.py``, ``test_torch_tp_hybrid.py``); what
+    ``launch/train`` refuses over a mesh, as on one device, is a family
+    that needs frames or patches beside its tokens."""
+    with pytest.raises(NotImplementedError, match="feeds tokens only"):
+        train.main(["--arch", "whisper-small", "--tiny", "--device", "cpu",
                     "--tp", "2"])
 
 

@@ -382,12 +382,13 @@ TOKENS = {"tokens": torch.ones(4, 8, dtype=torch.int32)}
 
 @pytest.mark.parametrize("arch", ["hymba-1.5b"])
 def test_families_still_refused(arch):
-    """The hybrid at tp > 1 without ``dp_over_tp`` does not train over a
-    mesh (MLA with its MTP loss does: ``test_torch_train_tp_mla.py``;
-    the SSM, encoder-decoder and VLM families and the hybrid under
-    ``dp_over_tp``: ``test_torch_train_tp_families.py``)."""
-    with pytest.raises(sm.MeshNotPorted, match="without dp_over_tp"):
-        pm.forward_loss(get_tiny(arch), {}, TOKENS, policy=policy(2, 2))
+    """Every family trains over a mesh, the hybrid at tp > 1 without
+    ``dp_over_tp`` too (``test_torch_tp_hybrid.py``); the policy
+    ``ep_over_dp`` with ``dp_over_tp`` is still refused, whatever the
+    family."""
+    bad = policy(2, 2).replace(dp_over_tp=True, ep_over_dp=True)
+    with pytest.raises(sm.MeshNotPorted, match="ep_over_dp"):
+        pm.forward_loss(get_tiny(arch), {}, TOKENS, policy=bad)
 
 
 def test_layer_views_unbind_each_part_once(weights):

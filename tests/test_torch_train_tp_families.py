@@ -203,9 +203,19 @@ def test_launch_train_over_the_mesh(tmp_path, arch, dp, tp):
 
 
 def test_hybrid_at_tp_without_dp_over_tp_is_refused():
-    with pytest.raises(sm.MeshNotPorted, match="without dp_over_tp"):
-        build_train_step(get_tiny("hymba-1.5b"), AdamWConfig(),
-                         policy=policy(1, 2))
+    """No longer refused: the tiny hybrid at (1, 2) trains one step to
+    one device's loss and parameters (its reference run:
+    ``test_torch_tp_hybrid.py``)."""
+    cfg = get_tiny("hymba-1.5b")
+    batch = {k: torch.as_tensor(v)
+             for k, v in chk.cfg_batch(cfg, 4, chk.SEQ, seed=1).items()}
+    one = train(cfg, weights("hymba-1.5b"), None, batch, steps=1)
+    mesh = train(cfg, weights("hymba-1.5b"), policy(1, 2), batch, steps=1)
+    assert abs(mesh[0][0] - one[0][0]) <= LOSS_TOL
+    got = sm.unshard(mesh[1])
+    for k in ("wq", "wk", "wo"):
+        assert float((got["blocks"]["attn"][k] - one[1]["blocks"]["attn"][k])
+                     .abs().max()) <= PARAM_TOL, k
 
 
 # --- held to the reference's run: last, so that the tests above run
