@@ -1204,8 +1204,7 @@ def run_query(db, plan, out_cols, impl: str, split: dict | None = None,
     t4 = time.perf_counter()
     if split is not None:
         split.update(catalog_s=t1 - t0, optimize_s=t2 - t1,
-                     execute_s=t3 - t2, rel_s=stats.rel_wall_s,
-                     sem_s=stats.sem_wall_s, materialize_s=t4 - t3)
+                     execute_s=t3 - t2, materialize_s=t4 - t3)
     return rows, stats, backend.calls
 
 
@@ -1538,8 +1537,7 @@ def _execute(ex, db, plan, out_cols, split: dict):
     t1 = time.perf_counter()
     rows = _freeze(db.materialize(table, list(out_cols)))
     _sync(db.device)
-    split.update(execute_s=t1 - t0, rel_s=stats.rel_wall_s,
-                 sem_s=stats.sem_wall_s,
+    split.update(execute_s=t1 - t0,
                  materialize_s=time.perf_counter() - t1)
     by = {k: v - coll0.get(k, 0) for k, v in HOST_SYNCS.by_collective.items()
           if v != coll0.get(k, 0)}
@@ -3878,8 +3876,6 @@ def run_llm_query(device, engines, scale: float = 0.15, qids=None,
                 "rows": rows, "stats": {f: getattr(stats, f)
                                         for f in fields},
                 "split": {"optimize_s": t1 - t0, "execute_s": t2 - t1,
-                          "rel_s": stats.rel_wall_s,
-                          "sem_s": stats.sem_wall_s,
                           "materialize_s": t3 - t2}}
         wall = time.perf_counter() - t_all
         unrecord_serving(eng)
@@ -3927,8 +3923,7 @@ def run_llm_query(device, engines, scale: float = 0.15, qids=None,
             f"answers (counts {len(kern['ids'])} vs {len(plain['ids'])}) "
             f"differ between {runs_of}")
     split = {k: sum(q["split"][k] for q in kern["queries"].values())
-             for k in ("optimize_s", "execute_s", "rel_s", "sem_s",
-                       "materialize_s")}
+             for k in ("optimize_s", "execute_s", "materialize_s")}
     return {"arch": engines[0].cfg.name, "qids": list(kern["queries"]),
             "scale": scale, "backend_calls": kern["calls"],
             "answers_compared": len(kern["ids"]),

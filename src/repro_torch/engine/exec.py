@@ -84,6 +84,7 @@ from ..kernels.sync import HOST_SYNCS, SERVING_SITES
 from ..kernels.util import np_dtype, resolve_impl, to_numpy
 from ..semantic.cache import FP_BASIS
 from ..semantic.runner import SemanticResult, SemanticRunner
+from ..trace import span
 from .table import (
     Database,
     HostIndex,
@@ -102,9 +103,10 @@ class ExecStats:
     """Per-query execution counters mirroring the cost model's terms:
     ``llm_calls`` (distinct backend invocations = C_LLM), ``rel_rows``
     (rows through relational operators = C_rel), ``probe_rows`` (cache
-    lookups triggered by pulled-up filters), plus wall-clock splits,
-    per-operator breakdowns and ``pipeline_syncs`` — the device→host
-    fetches ``kernels.sync.HOST_SYNCS`` recorded while the plan ran."""
+    lookups triggered by pulled-up filters), plus the host wall clock
+    of ``execute``, per-operator breakdowns and ``pipeline_syncs`` — the
+    device→host fetches ``kernels.sync.HOST_SYNCS`` recorded while the
+    plan ran."""
 
     llm_calls: int = 0
     cache_hits: int = 0
@@ -113,8 +115,6 @@ class ExecStats:
     rel_rows: int = 0
     sem_rows: int = 0
     wall_s: float = 0.0
-    rel_wall_s: float = 0.0
-    sem_wall_s: float = 0.0
     per_op: dict = field(default_factory=dict)
     prompt_chars: int = 0
     prompts_rendered: int = 0  # host renders (distinct keys, vectorized)
@@ -216,7 +216,8 @@ class Executor:
     def execute(self, plan: Node) -> tuple[Table, ExecStats]:
         """Run ``plan`` to a materialised ``Table`` plus its
         ``ExecStats`` (resetting the per-query cache scope first unless
-        constructed with ``fresh_cache_per_query=False``)."""
+        constructed with ``fresh_cache_per_query=False``), under the
+        span ``exec.query``, whose id is the query's trace id."""
         if self.fresh_cache_per_query:
             self.runner.reset_query_scope()
         stats = ExecStats()
@@ -224,7 +225,8 @@ class Executor:
         syncs0 = HOST_SYNCS.syncs
         serving0 = HOST_SYNCS.site_total(SERVING_SITES)
         coll0 = HOST_SYNCS.collectives
-        table = self._run(plan, stats)
+        with span("exec.query"):
+            table = self._run(plan, stats)
         stats.wall_s = time.perf_counter() - t0
         stats.collective_ops = HOST_SYNCS.collectives - coll0
         stats.serving_syncs = HOST_SYNCS.site_total(SERVING_SITES) - serving0
@@ -234,28 +236,21 @@ class Executor:
 
     # ------------------------------------------------------------ dispatch
     def _run(self, node: Node, stats: ExecStats) -> Table:
-        t0 = time.perf_counter()
         name = type(node).__name__
         if isinstance(node, Scan):
             out = self.db.tables[node.table]
             stats.rel_rows += out.num_valid
             stats.bump(name, "rows", out.num_valid)
-            stats.rel_wall_s += time.perf_counter() - t0
             return out
         if isinstance(node, (SemanticFilter, SemanticProject, SemanticJoin)):
             children = [self._run(c, stats) for c in node.children]
-            t0 = time.perf_counter()
-            out = self._run_semantic(node, children, stats)
-            stats.sem_wall_s += time.perf_counter() - t0
-            return out
+            return self._run_semantic(node, children, stats)
 
         children = [self._run(c, stats) for c in node.children]
-        t0 = time.perf_counter()
         out = self._run_relational(node, children, stats)
         in_rows = sum(c.num_valid for c in children)
         stats.rel_rows += in_rows + out.num_valid
         stats.bump(name, "rows", in_rows + out.num_valid)
-        stats.rel_wall_s += time.perf_counter() - t0
         return out
 
     # ------------------------------------------------------------ relational

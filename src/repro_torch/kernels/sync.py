@@ -16,12 +16,15 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
-# serving-tier sync sites (see docs/serving.md): these count the LLM
-# tier's device→host round-trips, which scale with decode length — the
-# executor reports them separately (``ExecStats.serving_syncs``) so the
-# data-path budget ``pipeline_syncs`` stays comparable across serving
-# disciplines (drained ticks per decode *step*, continuous per *round*)
-SERVING_SITES = ("serving_round", "serving_decode")
+# serving-tier sync sites (see docs/serving.md and the port's
+# serving/scheduler.py): these count the LLM tier's host waits on the
+# device, which scale with decode length — the executor reports them
+# separately (``ExecStats.serving_syncs``) so the data-path budget
+# ``pipeline_syncs`` stays comparable across serving disciplines
+# (drained ticks per decode *step*, continuous per *round* and per
+# admission batch, whose upload from pageable memory waits for the
+# queued device work)
+SERVING_SITES = ("serving_round", "serving_decode", "serving_admit")
 
 
 @dataclass

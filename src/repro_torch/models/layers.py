@@ -105,6 +105,7 @@ from ..kernels.ssd import ops as ssd_ops
 from ..kernels.ssd.ref import ssd_reference  # noqa: F401  (re-export)
 from ..kernels.util import resolve_impl
 from ..sharding import model as sm
+from ..trace import span
 from .config import ModelConfig
 
 ATTN_IMPLS = ("auto", "kernel", "ref")
@@ -902,26 +903,31 @@ def moe_route(x, router, cap: int, k: int, lo: int = 0,
 def _moe_local(x, p, lo: int, e_loc: int, cap: int, k: int, gated: bool):
     """The reference's ``_moe_local``: the contribution of the local
     experts [lo, lo + e_loc) (``p``'s expert weights are that slice,
-    its router the full one) to each of the (T, D) tokens ``x``."""
+    its router the full one) to each of the (T, D) tokens ``x``. The
+    routing with the gather into expert rows runs under the span
+    ``model.moe.route``, the expert products with the weighted sum under
+    ``model.moe.experts``."""
     T, D = x.shape
-    flat_gate, rows, valid, toks = moe_route(x, p["router"], cap, k, lo,
-                                             e_loc)
-    xg = x[toks] * valid[..., None].to(x.dtype)  # (E, cap, D)
-    h = torch.bmm(xg, p["w_in"])
-    if gated:
-        h = F.silu(torch.bmm(xg, p["w_gate"])) * h
-    else:
-        h = F.gelu(h, approximate="tanh")
-    yg = torch.bmm(h, p["w_out"])
-    wts = (flat_gate[rows] * valid).to(x.dtype)
-    # a kept slot's row is a distinct (token, choice) index: write each
-    # into its own row of a (T·k + 1, D) buffer (dropped slots into the
-    # last, discarded) and sum over the choices, a deterministic form of
-    # the reference's scatter-add
-    out = x.new_zeros(T * k + 1, D)
-    out[torch.where(valid, rows, T * k).reshape(-1)] = \
-        (yg * wts[..., None]).reshape(-1, D)
-    return out[:T * k].view(T, k, D).sum(dim=1)
+    with span("model.moe.route"):
+        flat_gate, rows, valid, toks = moe_route(x, p["router"], cap, k,
+                                                 lo, e_loc)
+        xg = x[toks] * valid[..., None].to(x.dtype)  # (E, cap, D)
+    with span("model.moe.experts"):
+        h = torch.bmm(xg, p["w_in"])
+        if gated:
+            h = F.silu(torch.bmm(xg, p["w_gate"])) * h
+        else:
+            h = F.gelu(h, approximate="tanh")
+        yg = torch.bmm(h, p["w_out"])
+        wts = (flat_gate[rows] * valid).to(x.dtype)
+        # a kept slot's row is a distinct (token, choice) index: write
+        # each into its own row of a (T·k + 1, D) buffer (dropped slots
+        # into the last, discarded) and sum over the choices, a
+        # deterministic form of the reference's scatter-add
+        out = x.new_zeros(T * k + 1, D)
+        out[torch.where(valid, rows, T * k).reshape(-1)] = \
+            (yg * wts[..., None]).reshape(-1, D)
+        return out[:T * k].view(T, k, D).sum(dim=1)
 
 
 def moe_block(cfg: ModelConfig, p, x, policy=None):

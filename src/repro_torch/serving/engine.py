@@ -9,7 +9,9 @@ weights and one tokenizer:
   ``drain``): a ``SlotScheduler`` admits queued prompts into freed
   slots *mid-decode* via per-slot prefill-into-cache, decodes over
   whatever slot mix is live, and detects completion on device — one
-  host sync per scheduling round (site ``serving_round``).
+  host sync per scheduling round (site ``serving_round``) and one per
+  admission batch, whose upload waits for the queued device work (site
+  ``serving_admit``).
 * **Drained** (``answer_drained``): the drain-per-batch baseline — pad
   each chunk to ``batch_size``, prefill, decode to completion with a
   per-step host fetch (site ``serving_decode``), only then admit the

@@ -16,12 +16,29 @@ shared decode cache:
   admission batch travels as ONE packed host→device upload into the
   engine's ``_prefill_insert``: prefill at the bucket width, then copy
   the new K/V rows, first token, position, liveness and token budget
-  into the shared state at the assigned slots, in place.
+  into the shared state at the assigned slots, in place. The upload
+  is a copy from pageable host memory, which waits for the work
+  queued on the stream before it: a host sync, ticked as site
+  ``serving_admit``.
 * **round** — one decode step over whatever mix of slots is live. Done
   detection runs on the device (answer token or budget exhausted) and
-  the round fetches a single packed (emit ‖ finished) vector — ONE
+  the round fetches a single packed (emit ‖ finished) vector — one
   device→host sync per scheduling round, ticked as site
   ``serving_round``. A finished sequence frees its slot mid-decode.
+
+The tier's syncs are thus one per admission batch and one per round.
+Both sites are in ``kernels.sync.SERVING_SITES``, so they count in
+``ExecStats.serving_syncs`` and not in ``pipeline_syncs``.
+
+Spans (``repro_torch.trace``, off unless a traced window turns them
+on): ``serving.admit`` around each admission batch, with
+``serving.admit.upload`` and ``serving.admit.prefill`` inside;
+``serving.round`` around each round with live slots, with
+``serving.round.launch`` (the decode step enqueued),
+``serving.round.fetch`` and ``serving.round.harvest``; and one
+``serving.request`` for each request finished, written from its
+``t_submit``/``t_admit``/``t_done`` stamps, carrying the trace id of
+the query that submitted it.
 
 Fairness: admission order is ascending ``seq / weight`` (stable by
 ``seq``); equal weights are FIFO, and a request standing for ``w``
@@ -39,6 +56,7 @@ import torch
 
 from ..kernels.sync import HOST_SYNCS
 from ..models import init_cache
+from ..trace import RECORDER, span
 
 
 @dataclass
@@ -55,6 +73,7 @@ class Request:
     t_admit: Optional[float] = None
     t_done: Optional[float] = None
     out_ids: list = field(default_factory=list)
+    trace: int = 0  # the submitting query's trace id (0: none recorded)
 
     @property
     def vkey(self) -> tuple[float, int]:
@@ -127,13 +146,14 @@ class SlotScheduler:
         into free slots; returns a ``Ticket`` resolving in order."""
         eng = self.engine
         now = time.perf_counter()
+        trace = RECORDER.trace_id()
         rids = []
         for i, p in enumerate(prompts):
             toks, n = eng.encode_row(p)
             wt = float(weights[i]) if weights is not None else 1.0
             req = Request(rid=self._next_rid, prompt=p, tokens=toks,
                           length=n, weight=max(wt, 1e-9),
-                          seq=self._next_rid, t_submit=now)
+                          seq=self._next_rid, t_submit=now, trace=trace)
             self._next_rid += 1
             self._reqs[req.rid] = req
             heapq.heappush(self._queue, (req.vkey, req))
@@ -153,29 +173,37 @@ class SlotScheduler:
         eng = self.engine
         free = self.free_slots()
         while self._queue and free:
-            k = min(len(free), len(self._queue))
-            width = next(w for w in self.buckets if w <= k)
-            batch = [heapq.heappop(self._queue)[1] for _ in range(width)]
-            # packed admission batch: token rows plus (slot, length) in
-            # the last two columns — ONE upload per admission
-            adm = np.zeros((width, eng.max_seq + 2), dtype=np.int32)
-            now = time.perf_counter()
-            real_tokens = 0
-            for j, req in enumerate(batch):
-                adm[j, :eng.max_seq] = req.tokens
-                slot = free.pop(0)
-                adm[j, -2] = slot
-                adm[j, -1] = req.length
-                real_tokens += req.length
-                self._slot_req[slot] = req
-                req.t_admit = now
-                wait = now - req.t_submit
-                eng.stats.queue_wait_s += wait
-                eng.stats.queue_wait_max_s = max(
-                    eng.stats.queue_wait_max_s, wait)
-            eng._prefill_insert(self._cache, self._cur, self._pos,
-                                self._live, self._rem,
-                                torch.from_numpy(adm).to(eng.device))
+            with span("serving.admit") as sp:
+                k = min(len(free), len(self._queue))
+                width = next(w for w in self.buckets if w <= k)
+                batch = [heapq.heappop(self._queue)[1]
+                         for _ in range(width)]
+                # packed admission batch: token rows plus (slot, length)
+                # in the last two columns — ONE upload per admission
+                adm = np.zeros((width, eng.max_seq + 2), dtype=np.int32)
+                now = time.perf_counter()
+                real_tokens = 0
+                for j, req in enumerate(batch):
+                    adm[j, :eng.max_seq] = req.tokens
+                    slot = free.pop(0)
+                    adm[j, -2] = slot
+                    adm[j, -1] = req.length
+                    real_tokens += req.length
+                    self._slot_req[slot] = req
+                    req.t_admit = now
+                    wait = now - req.t_submit
+                    eng.stats.queue_wait_s += wait
+                    eng.stats.queue_wait_max_s = max(
+                        eng.stats.queue_wait_max_s, wait)
+                sp.set("width", width)
+                sp.set("tokens", real_tokens)
+                with span("serving.admit.upload"):
+                    # pageable memory: waits for the queued device work
+                    adm_dev = torch.from_numpy(adm).to(eng.device)
+                HOST_SYNCS.tick(site="serving_admit")
+                with span("serving.admit.prefill"):
+                    eng._prefill_insert(self._cache, self._cur, self._pos,
+                                        self._live, self._rem, adm_dev)
             eng.stats.batches += 1
             eng.stats.prefill_tokens += real_tokens
             eng.stats.prefill_rows += width
@@ -190,23 +218,38 @@ class SlotScheduler:
         if not live:
             return
         b = eng.batch_size
-        packed = eng._decode_round(self._cache, self._cur, self._pos,
-                                   self._live, self._rem)
-        out = packed.cpu().numpy()  # THE one host sync of this round
-        HOST_SYNCS.tick(site="serving_round")
-        emit, fin = out[:b], out[b:] != 0
-        eng.stats.decode_steps += 1
-        eng.stats.slot_steps += b
-        eng.stats.live_slot_steps += len(live)
-        eng.stats.decode_tokens += len(live)
-        now = time.perf_counter()
-        for s in live:
-            req = self._slot_req[s]
-            req.out_ids.append(int(emit[s]))
-            if fin[s]:
-                req.t_done = now
-                eng.stats.ttv_s.append(now - req.t_submit)
-                self._slot_req[s] = None  # slot freed mid-decode
+        with span("serving.round") as sp:
+            sp.set("live", len(live))
+            with span("serving.round.launch"):
+                packed = eng._decode_round(self._cache, self._cur,
+                                           self._pos, self._live, self._rem)
+            with span("serving.round.fetch"):
+                out = packed.cpu().numpy()  # the round's one host sync
+            HOST_SYNCS.tick(site="serving_round")
+            emit, fin = out[:b], out[b:] != 0
+            eng.stats.decode_steps += 1
+            eng.stats.slot_steps += b
+            eng.stats.live_slot_steps += len(live)
+            eng.stats.decode_tokens += len(live)
+            with span("serving.round.harvest"):
+                now = time.perf_counter()
+                for s in live:
+                    req = self._slot_req[s]
+                    req.out_ids.append(int(emit[s]))
+                    if fin[s]:
+                        req.t_done = now
+                        eng.stats.ttv_s.append(now - req.t_submit)
+                        self._slot_req[s] = None  # slot freed mid-decode
+                        if RECORDER.on:
+                            self._record(req)
+
+    @staticmethod
+    def _record(req: Request) -> None:
+        """The finished ``req`` as a ``serving.request`` span."""
+        RECORDER.add("serving.request", RECORDER.stamp_ns(req.t_submit),
+                     RECORDER.stamp_ns(req.t_done), req.trace, rid=req.rid,
+                     query=req.trace,
+                     queued_ns=round((req.t_admit - req.t_submit) * 1e9))
 
     # -------------------------------------------------------------- loop
     def poll(self) -> int:

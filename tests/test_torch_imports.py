@@ -1,8 +1,8 @@
 """Import hygiene of the port: no module of ``src/repro_torch``, no
-example of the port (``examples/torch_*.py``) and neither
-``chip_smoke.py`` nor ``chip_sweep.py`` imports JAX or the JAX package
-(``repro``), and the whole package imports on a machine without triton,
-nvcc or CUDA."""
+example of the port (``examples/torch_*.py``) and none of
+``chip_smoke.py``, ``chip_sweep.py`` and ``chip_spans.py`` imports JAX
+or the JAX package (``repro``), and the whole package imports on a
+machine without triton, nvcc or CUDA."""
 import ast
 import os
 import subprocess
@@ -21,7 +21,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 def _port_files():
     return (sorted(PORT.rglob("*.py"))
             + sorted((ROOT / "examples").glob("torch_*.py"))
-            + [ROOT / "chip_smoke.py", ROOT / "chip_sweep.py"])
+            + [ROOT / "chip_smoke.py", ROOT / "chip_sweep.py",
+               ROOT / "chip_spans.py"])
 
 
 def _imported_roots(path: Path) -> set[str]:

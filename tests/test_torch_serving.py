@@ -4,7 +4,8 @@ The reference's parameters (``repro.models.init_params``) are carried
 across with ``params_from_numpy``; both engines serve the same prompts
 and must give identical answers, continuous and drained (a partial final
 chunk included), identical ``ServingStats`` counters, the same
-``serving_round``/``serving_decode`` sync counts, the same slot
+``serving_round``/``serving_decode`` sync counts (the port also counts
+each admission's upload, ``serving_admit``), the same slot
 assignments under recycling and weighted/FIFO admission, and the same
 ``ModelBackend`` parsing and tokenizer ids, for dense, MoE
 (olmoe-1b-7b, also at a capacity factor that drops rows), SSM
@@ -25,6 +26,7 @@ torch = pytest.importorskip("torch")
 
 from repro.configs import get_tiny  # noqa: E402
 from repro.kernels.sync import HOST_SYNCS as REF_SYNCS  # noqa: E402
+from repro.kernels.sync import SERVING_SITES as REF_SITES  # noqa: E402
 from repro.models import init_params  # noqa: E402
 from repro.semantic import ModelBackend  # noqa: E402
 from repro.serving.engine import ServingEngine  # noqa: E402
@@ -84,7 +86,13 @@ def counters(stats) -> dict:
 
 
 def sites(syncs) -> dict:
-    return {s: syncs.by_site.get(s, 0) for s in SERVING_SITES}
+    """The reference's serving sites (the port adds ``serving_admit``,
+    its admission upload, counted apart)."""
+    return {s: syncs.by_site.get(s, 0) for s in REF_SITES}
+
+
+def admits() -> int:
+    return HOST_SYNCS.by_site.get("serving_admit", 0)
 
 
 def delta(after: dict, before: dict) -> dict:
@@ -98,19 +106,21 @@ def test_answers_stats_and_syncs_match(arch):
     and serving-site sync counts."""
     ref, port = engines(arch)
     prompts = [f"is item {i} acceptable for {arch}?" for i in range(7)]
-    r0, p0 = sites(REF_SYNCS), sites(HOST_SYNCS)
+    r0, p0, a0 = sites(REF_SYNCS), sites(HOST_SYNCS), admits()
     want = ref.answer(prompts)
     got = port.answer(prompts)
     assert got == want
     assert counters(port.stats) == counters(ref.stats)
     assert port.stats.batches == 3  # widths 4 + 2 + 1
     assert delta(sites(HOST_SYNCS), p0) == delta(sites(REF_SYNCS), r0)
-    r1, p1 = sites(REF_SYNCS), sites(HOST_SYNCS)
+    assert admits() - a0 == 3  # one upload an admission batch
+    r1, p1, a1 = sites(REF_SYNCS), sites(HOST_SYNCS), admits()
     want_d = ref.answer_drained(prompts)
     got_d = port.answer_drained(prompts)
     assert got_d == want_d == got
     assert counters(port.stats) == counters(ref.stats)
     assert delta(sites(HOST_SYNCS), p1) == delta(sites(REF_SYNCS), r1)
+    assert admits() == a1
     assert len(port.stats.ttv_s) == len(ref.stats.ttv_s) == 14
 
 
@@ -223,9 +233,12 @@ def test_one_sync_per_round_and_latency_stats():
     _, port = engines("stablelm-3b")
     port.stats = ServingStats()
     before = HOST_SYNCS.site_total(SERVING_SITES)
+    rounds = HOST_SYNCS.by_site.get("serving_round", 0)
     port.answer([f"round sync probe {i}" for i in range(10)])
-    assert HOST_SYNCS.site_total(SERVING_SITES) - before == \
+    assert HOST_SYNCS.by_site["serving_round"] - rounds == \
         port.stats.decode_steps
+    assert HOST_SYNCS.site_total(SERVING_SITES) - before == \
+        port.stats.decode_steps + port.stats.batches
     assert len(port.stats.ttv_s) == 10 and port.stats.queued_peak >= 6
     snap = port.stats.snapshot()
     assert snap["ttv_p99_s"] >= snap["ttv_p50_s"] > 0

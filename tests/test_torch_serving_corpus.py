@@ -6,9 +6,10 @@ package through per-schema ``FrontDoor``s that share ONE runner over
 function cache), the two engines on the same carried-across weights.
 Rows, order, ``llm_calls``, ``cache_hits``, ``null_skipped``,
 ``probe_rows``, ``pipeline_syncs``, ``serving_syncs`` and backend calls
-must be identical. The same holds for one query (q8) over a tiny
-hybrid (hymba-1.5b: attention with a sliding window beside Mamba-2
-heads)."""
+must be identical, but that the port's ``serving_syncs`` also count its
+admission uploads (site ``serving_admit``, one an admission batch). The
+same holds for one query (q8) over a tiny hybrid (hymba-1.5b: attention
+with a sliding window beside Mamba-2 heads)."""
 import jax
 import numpy as np
 import pytest
@@ -28,6 +29,7 @@ from repro.sharding import ShardingPolicy  # noqa: E402
 import repro_torch.core as port_core  # noqa: E402
 from repro_torch.data import SCHEMAS as PORT_SCHEMAS  # noqa: E402
 from repro_torch.engine import FrontDoor as PortFrontDoor  # noqa: E402
+from repro_torch.kernels.sync import HOST_SYNCS  # noqa: E402
 from repro_torch.models import params_from_numpy  # noqa: E402
 from repro_torch.semantic import ModelBackend as PortBackend  # noqa: E402
 from repro_torch.semantic import SemanticRunner as PortRunner  # noqa: E402
@@ -70,9 +72,16 @@ def _run(port: bool, arch: str = "stablelm-3b", qids=QIDS):
             db = SCHEMAS[spec.schema](seed=0, scale=SCALE)
             door = FrontDoor(db, runner, n_lanes=2)
             plan = optimize(spec.build(), db.catalog(), strategy="cost").plan
+        admits = HOST_SYNCS.by_site.get("serving_admit", 0)
+        batches = eng.stats.batches
         table, stats = door.execute(plan)
         rows = _freeze(db.materialize(table, list(spec.out_cols)))
-        out.append((spec.qid, rows, {f: getattr(stats, f) for f in FIELDS}))
+        got = {f: getattr(stats, f) for f in FIELDS}
+        if port:  # the port's admission uploads, one a batch
+            admits = HOST_SYNCS.by_site.get("serving_admit", 0) - admits
+            assert admits == eng.stats.batches - batches
+            got["serving_syncs"] -= admits
+        out.append((spec.qid, rows, got))
     return out, backend.calls, eng.stats
 
 
@@ -94,6 +103,7 @@ def test_backend_calls_and_serving(runs):
     (want, calls_r, st_r), (got, calls_p, st_p) = runs
     assert calls_p == calls_r > 0
     assert sum(s["llm_calls"] for _, _, s in got) == calls_p
+    # one sync a round (the port's admissions are taken out in ``_run``)
     assert sum(s["serving_syncs"] for _, _, s in got) == st_p.decode_steps
     for f in ("prompts", "batches", "prefill_tokens", "decode_steps",
               "decode_tokens"):
