@@ -2252,7 +2252,7 @@ def run_serve(device, arch: str = SERVE_ARCH, n_prompts: int = 256,
         launches = dict(_build.LAUNCHES)
         shapes = dict(_build.MAX_SHAPES)
         st = eng.stats
-        padded = st.prefill_rows * eng.max_seq
+        padded = st.prefill_positions
         out[label] = {
             **t, "admissions": st.batches, "decode_rounds": st.decode_steps,
             "prefill_tokens": st.prefill_tokens, "prefill_padded": padded,
@@ -2993,7 +2993,7 @@ def run_serve_mla(device, tiny: bool = False, n_prompts: int = MLA_PROMPTS,
     answers, t = timed_serve(eng, prompts)
     launches = {k: _build.LAUNCHES[k] for k in LLM_KERNELS}
     st = eng.stats
-    padded = st.prefill_rows * eng.max_seq
+    padded = st.prefill_positions
     run = {**t, "admissions": st.batches, "decode_rounds": st.decode_steps,
            "prefill_tokens": st.prefill_tokens, "prefill_padded": padded,
            "prefill_tokens_per_s": st.prefill_tokens / t["prefill_s"],

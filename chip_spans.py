@@ -14,7 +14,9 @@ record's correlation id, and closes with three clock checks (a span
 around a synchronised ``torch.cuda._sleep``, whose device record the
 span must enclose). Prints one JSON line: the harness's result line
 (``correct``, the per-layer metrics, the breakdown) with
-``span_metrics`` (the six readings of ``bench/spans.py``), ``spans``
+``span_metrics`` (the six readings of ``bench/spans.py``),
+``prefill_fill`` (the share of prefilled positions that held a prompt
+token, from the admissions' span attributes), ``spans``
 (each span name's count, mean and self ms, idle ms inside it and share
 of the device's busy time launched with it innermost), ``host_calls``
 (where the host's time goes inside the serving spans, by runtime
@@ -173,6 +175,17 @@ def span_table(sp, run) -> dict:
     return out
 
 
+def prefill_fill(spans):
+    """Share of the positions the window's admissions prefilled that held
+    a prompt token, from the ``serving.admit`` spans' ``tokens`` and
+    ``positions``; None where the spans carry no ``positions``."""
+    admits = [s for s in spans if s[0] == "serving.admit"]
+    if not admits or any("positions" not in s[6] for s in admits):
+        return None
+    return sum(s[6]["tokens"] for s in admits) / \
+        sum(s[6]["positions"] for s in admits)
+
+
 def card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -217,6 +230,7 @@ def run_cell(workload: str, seed: int, seconds: float) -> dict:
            "traced_query_s": result["device"]["window_s"]
            / result["attempted"],
            "span_metrics": {k: f(sp, run) for k, f in METRICS.items()},
+           "prefill_fill": prefill_fill(w.spans),
            "launch_match": found / busy if busy else None,
            "clock": w.clock, "spans": span_table(sp, run),
            "host_calls": host_calls(sp, run)}

@@ -17,6 +17,18 @@ weights and one tokenizer:
   per-step host fetch (site ``serving_decode``), only then admit the
   next chunk. The two paths are verdict-for-verdict identical.
 
+An admission prefills its rows at the bucket width and the
+admission's length (``prefill_len``): for a dense model on one device
+the smallest multiple of 16 that holds the batch's longest prompt, for
+every other model ``max_seq``. Rows are right-padded and a dense block
+mixes positions only through causal attention, so the keys and values
+at a row's real positions, its first token and its position do not
+depend on the padding past them; decode reads cache positions up to
+``pos`` only. A mixture of experts routes its padding and counts it in
+its capacity, and padding reaches the SSM state and the hybrid's ring,
+so there the padded positions are part of the reference's answer and
+stay.
+
 JAX's buffer donation becomes in-place updates of the shared cache and
 slot state (``index_copy_`` on the slot axis; the SSM ``state`` and
 ``conv`` leaves travel along batch axis 1 like K/V). ``attn_impl``
@@ -74,6 +86,7 @@ class ServingStats:
     prompts: int = 0
     batches: int = 0  # prefill launches (any width)
     prefill_tokens: int = 0  # real prompt tokens only, never padding
+    prefill_positions: int = 0  # positions prefilled, padding included
     decode_steps: int = 0  # decode rounds (one device step each)
     wall_s: float = 0.0
     # --- slot occupancy ---
@@ -98,6 +111,11 @@ class ServingStats:
         """Fraction of prefilled rows that carried a real prompt."""
         return self.live_prefill_rows / max(self.prefill_rows, 1)
 
+    @property
+    def prefill_fill(self) -> float:
+        """Fraction of prefilled positions that held a prompt token."""
+        return self.prefill_tokens / max(self.prefill_positions, 1)
+
     def snapshot(self) -> dict:
         """JSON-ready view (ttv list summarized as count + p50/p99)."""
         ttv = sorted(self.ttv_s)
@@ -111,11 +129,13 @@ class ServingStats:
             "prompts": self.prompts,
             "batches": self.batches,
             "prefill_tokens": self.prefill_tokens,
+            "prefill_positions": self.prefill_positions,
             "decode_steps": self.decode_steps,
             "decode_tokens": self.decode_tokens,
             "wall_s": self.wall_s,
             "occupancy": self.occupancy,
             "prefill_occupancy": self.prefill_occupancy,
+            "prefill_fill": self.prefill_fill,
             "queue_wait_s": self.queue_wait_s,
             "queue_wait_max_s": self.queue_wait_max_s,
             "queued_peak": self.queued_peak,
@@ -164,6 +184,15 @@ class ServingEngine:
         self.max_new = max_new_tokens
         self.stats = ServingStats()
         self.cache_len = max_seq + max_new_tokens + 1
+        # prefill only the admission's length (``prefill_len``): a dense
+        # model on one device; every other model keeps max_seq
+        self.trim_prefill = (self.policy is None and cfg.family == "dense"
+                             and not cfg.num_experts and not cfg.use_mla
+                             and not cfg.attn_window)
+        # the length the next ``_prefill_insert`` prefills, set by the
+        # scheduler from its host-side lengths (the packed upload keeps
+        # its max_seq + 2 columns)
+        self.admit_len = max_seq
         self.scheduler = SlotScheduler(self)
 
     @property
@@ -171,6 +200,19 @@ class ServingEngine:
         """Dispatch-size hint for the semantic tier: one upstream chunk
         fills a handful of serving batches."""
         return self.batch_size * 8
+
+    def prefill_len(self, lengths) -> int:
+        """Positions an admission of prompts of ``lengths`` real tokens
+        prefills: the smallest multiple of 16 that holds the longest,
+        at most ``max_seq``, where the prefill is position-local under
+        right padding (``trim_prefill``: attention-only, no experts, no
+        SSM state, no window ring, one device); else ``max_seq``. Under
+        a mesh ``policy`` it is ``max_seq`` too: ``insert_rows`` and a
+        cache split over the sequence are left as they are."""
+        if not self.trim_prefill:
+            return self.max_seq
+        n = max(int(x) for x in lengths)
+        return min(-(-n // 16) * 16, self.max_seq)
 
     # ------------------------------------------------- device functions
     @torch.no_grad()
@@ -186,13 +228,16 @@ class ServingEngine:
 
     def _prefill_insert(self, cache, cur, pos, live, rem,
                         adm: torch.Tensor) -> None:
-        """Per-slot prefill-into-cache: prefill at the admission width,
-        then copy every cache leaf's rows (batch axis 1) and the slot
-        state into the shared tensors at the assigned slots, in place.
-        ``adm`` is the packed admission batch — token rows with the slot
-        index and real length in the last two columns."""
+        """Per-slot prefill-into-cache: prefill at the admission width
+        and length (``admit_len``, which it resets to ``max_seq``), then
+        copy every cache leaf's rows (batch axis 1) and the slot state
+        into the shared tensors at the assigned slots, in place; cache
+        positions past the length hold zeros, which nothing reads.
+        ``adm`` is the packed admission batch — ``max_seq`` token
+        columns with the slot index and real length in the last two."""
         toks, slots, lens = adm[:, :-2], adm[:, -2].long(), adm[:, -1]
-        _, new = self._prefill(toks)
+        n, self.admit_len = self.admit_len, self.max_seq
+        _, new = self._prefill(toks[:, :n])
         width = toks.shape[0]
         for k, v in cache.items():
             if self.policy is None:
@@ -294,10 +339,13 @@ class ServingEngine:
         # padded slots past len(chunk) are dead weight the drained
         # shape cannot avoid; count only real prompt tokens and report
         # the waste through the occupancy counters
+        n = self.prefill_len(lens[:len(chunk)])
         self.stats.prefill_tokens += int(lens[:len(chunk)].sum())
+        self.stats.prefill_positions += self.batch_size * n
         self.stats.prefill_rows += self.batch_size
         self.stats.live_prefill_rows += len(chunk)
-        _, cache = self._prefill(torch.from_numpy(toks).to(self.device))
+        _, cache = self._prefill(torch.from_numpy(toks[:, :n]).to(
+            self.device))
         answers = [[] for _ in chunk]
         # the first sampled token comes from each row's last real prompt
         # position: one decode step at pos = len - 1 re-derives it

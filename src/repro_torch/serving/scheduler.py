@@ -14,9 +14,12 @@ shared decode cache:
   power-of-two admission widths (largest bucket ≤ min(free, queued)
   first), so a partial chunk never pays a full-batch prefill. Each
   admission batch travels as ONE packed host→device upload into the
-  engine's ``_prefill_insert``: prefill at the bucket width, then copy
-  the new K/V rows, first token, position, liveness and token budget
-  into the shared state at the assigned slots, in place. The upload
+  engine's ``_prefill_insert``: prefill at the bucket width and the
+  admission's length (``ServingEngine.prefill_len`` of the batch's
+  prompt lengths, known on the host: the longest rounded up to 16 for
+  a dense model, ``max_seq`` for the others), then copy the new K/V
+  rows, first token, position, liveness and token budget into the
+  shared state at the assigned slots, in place. The upload
   is a copy from pageable host memory, which waits for the work
   queued on the stream before it: a host sync, ticked as site
   ``serving_admit``.
@@ -31,7 +34,8 @@ Both sites are in ``kernels.sync.SERVING_SITES``, so they count in
 ``ExecStats.serving_syncs`` and not in ``pipeline_syncs``.
 
 Spans (``repro_torch.trace``, off unless a traced window turns them
-on): ``serving.admit`` around each admission batch, with
+on): ``serving.admit`` around each admission batch (attributes ``width``,
+``tokens`` and ``positions``, the positions prefilled), with
 ``serving.admit.upload`` and ``serving.admit.prefill`` inside;
 ``serving.round`` around each round with live slots, with
 ``serving.round.launch`` (the decode step enqueued),
@@ -195,17 +199,21 @@ class SlotScheduler:
                     eng.stats.queue_wait_s += wait
                     eng.stats.queue_wait_max_s = max(
                         eng.stats.queue_wait_max_s, wait)
+                n = eng.prefill_len([req.length for req in batch])
                 sp.set("width", width)
                 sp.set("tokens", real_tokens)
+                sp.set("positions", width * n)
                 with span("serving.admit.upload"):
                     # pageable memory: waits for the queued device work
                     adm_dev = torch.from_numpy(adm).to(eng.device)
                 HOST_SYNCS.tick(site="serving_admit")
+                eng.admit_len = n
                 with span("serving.admit.prefill"):
                     eng._prefill_insert(self._cache, self._cur, self._pos,
                                         self._live, self._rem, adm_dev)
             eng.stats.batches += 1
             eng.stats.prefill_tokens += real_tokens
+            eng.stats.prefill_positions += width * n
             eng.stats.prefill_rows += width
             eng.stats.live_prefill_rows += width
 

@@ -26,10 +26,10 @@ The spans of the port, innermost last:
 * ``serving.request`` — one a finished request, written from the
   request's own submit and done stamps (attributes ``rid``, ``query``
   and ``queued_ns``, the submit-to-admit wait);
-* ``serving.admit`` (``width``, ``tokens``) with ``serving.admit.upload``
-  and ``serving.admit.prefill``; ``serving.round`` (``live``) with
-  ``serving.round.launch``, ``serving.round.fetch`` and
-  ``serving.round.harvest``;
+* ``serving.admit`` (``width``, ``tokens``, ``positions``) with
+  ``serving.admit.upload`` and ``serving.admit.prefill``;
+  ``serving.round`` (``live``) with ``serving.round.launch``,
+  ``serving.round.fetch`` and ``serving.round.harvest``;
 * ``model.moe.route`` and ``model.moe.experts`` — ``_moe_local``, once a
   layer a step.
 

@@ -252,6 +252,127 @@ def test_drained_partial_chunk_reports_dead_slots():
     assert port.stats.prefill_occupancy == 0.25
 
 
+DENSE = ("stablelm-3b", "starcoder2-3b", "qwen2.5-32b")
+
+
+def worded(n_words: int, tag: str) -> str:
+    """A prompt of ``n_words`` words: ``n_words + 2`` tokens with BOS and
+    SEP, cut at the engine's max_seq."""
+    return " ".join(f"{tag}{i}" for i in range(n_words))
+
+
+# token lengths 3, 12, 20 and 40 (fills max_seq 40), then 7, 19 and 11:
+# admissions of widths 4, 2 and 1 at lengths 40, 32 and 16
+MIXED = [worded(w, t) for w, t in ((1, "a"), (10, "b"), (18, "c"),
+                                   (60, "d"), (5, "e"), (17, "f"),
+                                   (9, "g"))]
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_dense_admission_trimmed_to_its_longest_prompt(arch):
+    """Prompts of very different lengths, one filling max_seq: a dense
+    engine prefills each admission at its longest prompt rounded up to
+    16 (capped at max_seq) and still answers as the reference, which
+    prefills max_seq, with the reference's counters, continuous and
+    drained."""
+    ref, port = engines(arch, max_seq=40)
+    want = ref.answer(MIXED)
+    assert port.answer(MIXED) == want
+    assert counters(port.stats) == counters(ref.stats)
+    assert port.stats.batches == 3
+    assert port.stats.prefill_positions == 4 * 40 + 2 * 32 + 1 * 16
+    before = port.stats.prefill_positions
+    assert port.answer_drained(MIXED) == ref.answer_drained(MIXED) == want
+    assert counters(port.stats) == counters(ref.stats)
+    # drained chunks of 4: lengths (3, 12, 20, 40) and (7, 19, 11)
+    assert port.stats.prefill_positions - before == 4 * 40 + 4 * 32
+    assert port.stats.prefill_fill == port.stats.prefill_tokens / (
+        port.stats.prefill_positions)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_length_by_family(arch):
+    """The admission's length, read through ``prefill_positions``: a
+    dense model prefills its longest prompt rounded up to 16 (max_seq
+    where a prompt fills it); MoE, SSM, hybrid and MLA models prefill
+    max_seq, whose padding their reference's capacity and state take
+    in."""
+    _, port = engines(arch, max_seq=40)
+    dense = arch in DENSE
+    assert port.trim_prefill == dense
+    # words + 2 tokens: 3, 16, 17, 32, 33 and 40 (cut at max_seq)
+    for words, want in ((1, 16), (14, 16), (15, 32), (30, 32), (31, 40),
+                        (60, 40)):
+        before = port.stats.prefill_positions
+        port.answer([worded(words, "w")])
+        assert port.stats.prefill_positions - before == \
+            (want if dense else 40), words
+    assert port.admit_len == 40  # reset after each admission
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_trimmed_admission_writes_the_padded_state(arch):
+    """Port against port: after one admission of mixed lengths at 16
+    positions, the keys and values at every row's real positions, their
+    ``slot_pos`` and the slot state (``cur``, ``pos``, ``live``,
+    ``rem``) equal those of the same admission prefilled at max_seq;
+    the packed upload handed to ``_prefill_insert`` keeps its
+    ``max_seq + 2`` columns."""
+    _, trim = engines(arch, max_seq=40)
+    _, full = engines(arch, max_seq=40)
+    full.trim_prefill = False
+    seen = []
+    insert = trim._prefill_insert
+
+    def recorded(cache, cur, pos, live, rem, adm):
+        seen.append((tuple(adm.shape), trim.admit_len))
+        return insert(cache, cur, pos, live, rem, adm)
+
+    trim._prefill_insert = recorded
+    prompts = [worded(w, t) for w, t in ((1, "p"), (12, "q"), (6, "r"),
+                                         (3, "s"))]
+    for eng in (trim, full):
+        eng.submit(prompts)
+    assert seen == [((4, 42), 16)]
+    assert (trim.stats.prefill_positions, full.stats.prefill_positions) \
+        == (4 * 16, 4 * 40)
+    a, b = trim.scheduler, full.scheduler
+    for name in ("_cur", "_pos", "_live", "_rem"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    for slot, req in enumerate(a._slot_req):
+        n = req.length
+        for leaf in ("k", "v"):
+            torch.testing.assert_close(a._cache[leaf][:, slot, :n],
+                                       b._cache[leaf][:, slot, :n],
+                                       atol=1e-6, rtol=1e-6)
+        assert torch.equal(a._cache["slot_pos"][:, slot, :n],
+                           b._cache["slot_pos"][:, slot, :n])
+    trim.drain()
+    full.drain()
+    assert [r.out_ids for r in a._reqs.values()] == \
+        [r.out_ids for r in b._reqs.values()]
+
+
+def test_mesh_engine_prefills_max_seq():
+    """Under a mesh policy the dense engine keeps max_seq: the rows go
+    into the shards that hold their slots at the cache's full length."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.params import shard_params
+    from repro_torch.sharding.policy import ShardingPolicy as PortPolicy
+
+    cfg, _, params = weights("starcoder2-3b")
+    pol = PortPolicy.for_mesh(make_mesh(1, 2, devices=["cpu"] * 2))
+    eng = PortEngine(cfg, shard_params(cfg, params, pol), policy=pol,
+                     batch_size=4, max_seq=40, device="cpu",
+                     attn_impl="ref")
+    assert not eng.trim_prefill and eng.prefill_len([3, 5]) == 40
+    _, one = engines("starcoder2-3b", max_seq=40)
+    prompts = [worded(w, "m") for w in (1, 4, 9)]
+    assert eng.answer(prompts) == one.answer(prompts)
+    assert eng.stats.prefill_positions == 2 * 40 + 1 * 40
+    assert one.stats.prefill_positions == 2 * 16 + 1 * 16
+
+
 def test_hybrid_short_prompt_sees_only_its_slot():
     """The reference's ring-plus-padding behaviour, kept on purpose: the
     admission prefills the whole 24-wide padded row, so the 16-slot ring

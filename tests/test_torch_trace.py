@@ -162,6 +162,8 @@ def test_front_door_query_spans_and_serving_syncs():
     assert sum(a.attrs["width"] for a in admits) == calls
     assert sum(a.attrs["tokens"] for a in admits) == \
         eng.stats.prefill_tokens
+    assert sum(a.attrs["positions"] for a in admits) == \
+        eng.stats.prefill_positions
     for a in admits:
         assert children(got, a) == ["serving.admit.prefill",
                                     "serving.admit.upload"]
@@ -205,3 +207,31 @@ def test_moe_spans_once_a_layer_a_step(arch):
                                       "serving.round.launch")
     for r, e in zip(route, experts):  # route then experts, a layer
         assert r.parent == e.parent and r.end_ns <= e.start_ns
+
+
+@pytest.mark.parametrize("arch", ("starcoder2-3b", "olmoe-1b-7b"))
+def test_admission_positions_read_by_chip_spans(arch):
+    """The ``positions`` of the admissions' spans are the positions the
+    engine prefilled (each admission's longest prompt rounded up to 16
+    on the dense model, max_seq on the MoE), and ``chip_spans.py``'s
+    ``prefill_fill`` reads ``ServingStats.prefill_fill`` from them; spans
+    without ``positions`` read None."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_spans.py"
+    spec = importlib.util.spec_from_file_location("chip_spans", path)
+    chip_spans = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_spans)
+
+    eng = engine(arch)
+    REC.enable()
+    eng.answer([f"fill probe {i} " + "word " * (3 * i) for i in range(7)])
+    REC.disable()
+    spans = REC.take()
+    admits = by_name(spans)["serving.admit"]
+    per_row = {a.attrs["positions"] // a.attrs["width"] for a in admits}
+    assert per_row == ({16, 32} if arch == "starcoder2-3b" else {32})
+    assert chip_spans.prefill_fill(spans) == eng.stats.prefill_fill < 1
+    bare = [s._replace(attrs={"width": 1, "tokens": 3}) for s in admits]
+    assert chip_spans.prefill_fill(bare) is None
